@@ -1,0 +1,370 @@
+"""Drive the PyTorch/CUDA port's serving path on one NVIDIA card.
+
+Run from the root of the repository, on a machine with a card:
+
+    python3 chip_smoke.py
+
+Phases (any failure exits non-zero; nothing is caught and passed over):
+
+1. device: the card's name, and its name and power limit from nvidia-smi;
+2. build: every CUDA source of the port, one nvcc per source, in parallel;
+3. kernels: each kernel against its plain PyTorch version on the card at
+   the main path's shapes (float32 with TF32 off, and bfloat16), then timed
+   with CUDA events, L2 scrubbed before each launch, in turns with the plain
+   version and a one-call PyTorch yardstick;
+4. main path: a synthetic cohort (8 slides x 64 patches at 224 px, packed
+   shards, made from a seed) through the port's ``histo_savescore`` and
+   ``histo_extractfeatures`` at ResNet-50 / attention 2048 / bfloat16 on
+   ``cuda``, launch counters set to 0 just before and read just after; the
+   CSVs are checked and one batch's pooled embedding is recomputed with the
+   plain version;
+5. reference: a small cohort through ``histo_savescore`` in float32 on the
+   card and on the CPU (plain versions); the scores must agree.
+
+The last lines are the ``kernels`` JSON line, the nvidia-smi line and
+``{"ok": true, "device": {...}}``. Without a card, or without the rest of
+the repository beside it, the script exits non-zero and prints no result.
+"""
+
+from __future__ import annotations
+
+import json
+import math
+import os
+import subprocess
+import sys
+import tempfile
+import time
+
+import numpy as np
+import torch
+
+from multimodalbrainsurvival_torch.cli import histo_extractfeatures, histo_savescore
+from multimodalbrainsurvival_torch.cli._common import load_mil_model
+from multimodalbrainsurvival_torch.cli.histo_train import build_datasets, build_mil_model
+from multimodalbrainsurvival_torch.config import Config
+from multimodalbrainsurvival_torch.device import configure_precision
+from multimodalbrainsurvival_torch.kernels import build
+from multimodalbrainsurvival_torch.kernels.attention_pool import (
+    attention_pool,
+    attention_pool_plain,
+)
+from multimodalbrainsurvival_torch.train.adapters import MILAdapter
+
+SEED = 0
+# the main path's shape at the aggregator: 16 bags x 16 patches x 2048
+B, BAG, D = 16, 16, 2048
+N_WSI, N_PATCH, IMG = 8, 64, 224
+# kernel vs plain: the same inputs, float32 sums in another order; the
+# softmax amplifies the rounding of the logits
+KERNEL_TOL = 2e-4
+# H100 SXM peaks (NVIDIA data sheet, dense): memory, bf16 tensor, f32 FMA
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+
+
+def _nvidia_smi() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    )
+    return out.stdout.strip().splitlines()[0]
+
+
+def _time_ms(fn, iters: int, scrub: torch.Tensor) -> float:
+    """Mean device time of ``fn`` over ``iters`` launches, each timed with
+    CUDA events after writing ``scrub`` (larger than L2) so every launch
+    finds its inputs in device memory, as a serving caller would."""
+    for _ in range(3):
+        fn()
+    events = []
+    for _ in range(iters):
+        scrub.zero_()
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        fn()
+        end.record()
+        events.append((start, end))
+    torch.cuda.synchronize()
+    return sum(s.elapsed_time(e) for s, e in events) / iters
+
+
+def _bound(x, weight, v, mask) -> tuple[float, str]:
+    """Least time for the pool's work on these inputs: bytes moved (each input
+    read once, each output written once) over the memory rate, against the
+    operations over the peak rate for the input dtype. Only real (unmasked)
+    patches need the projection, the gate and the pool."""
+    n_b, bag, d = x.shape
+    nbytes = (sum(t.numel() * t.element_size() for t in (x, weight, v, mask))
+              + (n_b * d + n_b * bag) * 4)
+    real = int(mask.sum())
+    flops = 2 * real * d * d + 4 * real * d  # projection, gate dot, pool
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[x.dtype] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def check_attention_pool(device: torch.device) -> dict:
+    g = torch.Generator(device="cpu").manual_seed(SEED)
+    x = torch.randn(B, BAG, D, generator=g).relu().to(device)
+    weight = (torch.randn(D, D, generator=g) / math.sqrt(D)).to(device)
+    v = (torch.randn(D, generator=g) * 0.05).to(device)
+    mask = torch.ones(B, BAG, dtype=torch.bool, device=device)
+    mask[1, 10:] = False  # a short bag
+    mask[2] = False       # a padded sample
+    scrub = torch.empty(64 << 20, dtype=torch.uint8, device=device)
+    result = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        xd, wd = x.to(dtype), weight.to(dtype)
+        pooled, w = attention_pool(xd, wd, v, mask)
+        torch.cuda.synchronize()
+        want_pooled, want_w = attention_pool_plain(xd, wd, v, mask)
+        err = max((pooled - want_pooled).abs().max().item(),
+                  (w - want_w).abs().max().item())
+        print(f"attention_pool {str(dtype)[6:]}: max_abs_err {err:.3e} "
+              f"(tolerance {KERNEL_TOL})")
+        if not err <= KERNEL_TOL:
+            raise AssertionError(f"attention_pool {dtype} disagrees with its "
+                                 f"plain version: {err} > {KERNEL_TOL}")
+        x2d = xd.view(-1, D)
+        fns = {
+            "kernel": lambda: attention_pool(xd, wd, v, mask),
+            "plain": lambda: attention_pool_plain(xd, wd, v, mask),
+            # one cuBLAS call for the product inside the kernel: a yardstick
+            # only, the port never calls it
+            "library": lambda: torch.matmul(x2d, wd.t()),
+        }
+        times = {k: [] for k in fns}
+        for name in ("plain", "kernel", "library", "library", "kernel", "plain"):
+            times[name].append(_time_ms(fns[name], 25, scrub))
+        bound_ms, bound_by = _bound(xd, wd, v, mask)
+        result[str(dtype)[6:]] = {
+            "max_abs_err": err,
+            "ms": sum(times["kernel"]) / 2,
+            "plain_ms": sum(times["plain"]) / 2,
+            "library_ms": sum(times["library"]) / 2,
+            "bound_ms": bound_ms,
+            "bound_by": bound_by,
+        }
+        print(f"attention_pool {str(dtype)[6:]}: {json.dumps(result[str(dtype)[6:]])}")
+    return result
+
+
+def random_state_dict(model: torch.nn.Module, seed: int) -> dict:
+    """Seeded weights: LeCun-normal convs and linears (activations stay
+    O(1) through 50 layers), BN statistics and affine near identity, and a
+    non-zero attention vector so the softmax is not uniform."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    state = {}
+    for k, v in model.state_dict().items():
+        if not v.is_floating_point():
+            state[k] = v
+        elif k.endswith("running_var") or (v.dim() == 1 and k.endswith("weight")):
+            state[k] = 0.5 + torch.rand(v.shape, generator=g)
+        elif k == "aggregator.vector":
+            state[k] = torch.randn(v.shape, generator=g) * 0.05
+        elif v.dim() == 1:
+            state[k] = torch.randn(v.shape, generator=g) * 0.1
+        else:
+            fan_in = v[0].numel()
+            state[k] = torch.randn(v.shape, generator=g) / math.sqrt(fan_in)
+    return state
+
+
+def make_cohort(root: str) -> tuple[str, int]:
+    """8 slides x 64 patches at 224 px as packed shards + loc.txt, and a
+    cohort CSV in which two cases have two slides each. Returns the CSV path
+    and the number of cases."""
+    rng = np.random.default_rng(SEED)
+    cases = ["c0", "c1", "c2", "c3", "c4", "c4", "c5", "c5"]
+    rows = ["case,survival_months,vital_status,wsi_file_name"]
+    for i in range(N_WSI):
+        wsi = f"S{i}"
+        d = os.path.join(root, "patches", wsi)
+        os.makedirs(d)
+        with open(os.path.join(d, "loc.txt"), "w") as f:
+            f.write(f"slide_id {wsi}\nid x y patch_level patch_size_read "
+                    "patch_size_output\n")
+            f.writelines(f"{j} {j * IMG} 0 0 {IMG} {IMG}\n" for j in range(N_PATCH))
+        # written after loc.txt, so the shard is not stale
+        np.save(os.path.join(d, "patches.npy"),
+                rng.integers(0, 256, (N_PATCH, IMG, IMG, 3), dtype=np.uint8))
+        rows.append(f"{cases[i]},{rng.uniform(1, 120):.4f},{int(rng.integers(0, 2))},"
+                    f"{wsi}.svs")
+    csv_path = os.path.join(root, "cohort.csv")
+    with open(csv_path, "w") as f:
+        f.write("\n".join(rows) + "\n")
+    return csv_path, len(set(cases))
+
+
+def _config(root, csv_path, name, **overrides) -> tuple[dict, str]:
+    cfg = {
+        "model_name": "resnet50", "aggregator": "attention",
+        "aggregator_hdim": 2048, "compute_dtype": "bfloat16",
+        "img_size": IMG, "train_bag_size": BAG, "val_bag_size": BAG,
+        "batch_size": B, "max_patch_per_wsi_train": N_PATCH,
+        "max_patch_per_wsi_val": N_PATCH, "num_workers": 8, "num_classes": 1,
+        "task": "survival_prediction", "flag": "chip_smoke",
+        "data_path": os.path.join(root, "patches"), "train_csv_path": csv_path,
+        "val_csv_path": csv_path, "test_csv_path": csv_path,
+        "model_path": os.path.join(root, "model.pt"),
+        "output_path": os.path.join(root, "out"),
+    }
+    cfg.update(overrides)
+    path = os.path.join(root, f"{name}.json")
+    with open(path, "w") as f:
+        json.dump(cfg, f)
+    return cfg, path
+
+
+def _check_outputs(out_dir: str, n_cases: int) -> None:
+    for split in ("train", "val", "test"):
+        score_csv = os.path.join(out_dir, f"model.pt_pathology_{split}_df.csv")
+        with open(score_csv) as f:
+            lines = f.read().splitlines()
+        if lines[0] != ",id,score,survival_months,vital_status" or len(lines) != n_cases + 1:
+            raise AssertionError(f"{score_csv}: unexpected frame {lines[:2]}")
+        scores = np.array([float(line.split(",")[2]) for line in lines[1:]])
+        feats = np.loadtxt(os.path.join(out_dir, f"pathology_features_{split}.csv"),
+                           delimiter=",")
+        with open(os.path.join(out_dir, f"pathology_cases_{split}.csv")) as f:
+            n_rows = len(f.read().splitlines()) - 1
+        if not (np.isfinite(scores).all() and np.isfinite(feats).all()
+                and feats.shape == (n_cases, D) and n_rows == n_cases):
+            raise AssertionError(f"{split}: bad outputs {scores} {feats.shape}")
+
+
+def drive_main_path(root: str, device: torch.device, smi: str) -> tuple[int, dict]:
+    csv_path, n_cases = make_cohort(root)
+    cfg, cfg_path = _config(root, csv_path, "main")
+    model = build_mil_model(Config(cfg))
+    torch.save(random_state_dict(model, SEED), cfg["model_path"])
+    n_bags = N_WSI * N_PATCH // BAG
+    expected = 3 * 3 * math.ceil(n_bags / B)  # 3 CLI runs x 3 splits x batches
+
+    attention_pool.launches = 0
+    histo_savescore.main(["--config", cfg_path])
+    histo_extractfeatures.main(["--config", cfg_path])  # cold: cuDNN set-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    histo_extractfeatures.main(["--config", cfg_path])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = attention_pool.launches
+    print(f"main path: attention_pool launches {launches} (expected {expected})")
+    if launches != expected:
+        raise AssertionError(f"attention_pool launched {launches} times, "
+                             f"expected {expected}")
+    _check_outputs(cfg["output_path"], n_cases)
+    patches = 3 * N_WSI * N_PATCH
+    print(f"extract CLI (warm, wall clock incl. model load and host loading): "
+          f"{patches / wall:.1f} patches/s, {wall:.3f} s [{smi}]")
+
+    return launches, {"extract_cli_patches_per_s": patches / wall,
+                      **check_main_path_batch(Config(cfg), device, smi)}
+
+
+def check_main_path_batch(config: Config, device: torch.device, smi: str) -> dict:
+    """One main-path batch: its pooled embedding through the kernel and the
+    plain version from the same encoder features; the encoder's device time
+    for the batch; the host's time to read a split's batches."""
+    model = load_mil_model(config, device)
+    adapter = MILAdapter(model=model, device=device)
+    val = build_datasets(config, False)["val"]
+    arrays = adapter.to_device(next(val.batches(B, num_threads=8)), adapter.array_keys)
+    agg = model.aggregator
+    scrub = torch.empty(64 << 20, dtype=torch.uint8, device=device)
+    with torch.inference_mode():
+        x = adapter.inputs(arrays)
+        feats = model.patch_features(x)
+        pooled, w = agg(feats, arrays["bag_mask"])
+        want, want_w = attention_pool_plain(
+            feats.to(agg.dtype), agg.linear.weight.to(agg.dtype), agg.vector,
+            arrays["bag_mask"])
+        encoder_ms = _time_ms(lambda: model.patch_features(x), 10, scrub)
+    err = (pooled - want).abs().max().item()
+    rel = err / want.abs().max().item()
+    print(f"main path batch: pooled max_abs_err {err:.3e} (relative {rel:.3e}), "
+          f"weights max_abs_err {(w - want_w).abs().max().item():.3e}, "
+          f"weights min/max {want_w.min().item():.4f}/{want_w.max().item():.4f}")
+    if not (rel <= KERNEL_TOL and torch.allclose(w, want_w, rtol=0, atol=KERNEL_TOL)):
+        raise AssertionError("main-path pooled embedding disagrees with plain")
+
+    t0 = time.perf_counter()
+    n_batches = sum(1 for _ in val.batches(B, num_threads=8))
+    host_ms = (time.perf_counter() - t0) / n_batches * 1e3
+    print(f"per batch of {B * BAG} patches: encoder {encoder_ms:.3f} ms on the "
+          f"card; host read {host_ms:.1f} ms [{smi}]")
+    return {"encoder_ms_per_batch": encoder_ms, "host_read_ms_per_batch": host_ms}
+
+
+def check_against_cpu(root: str, csv_path: str) -> None:
+    """float32 scores on the card against the CPU path (plain versions)."""
+    out = {}
+    for dev in ("cuda", "cpu"):
+        cfg, cfg_path = _config(
+            root, csv_path, f"ref_{dev}", compute_dtype="float32", batch_size=4,
+            val_bag_size=4, train_bag_size=4, max_patch_per_wsi_train=4,
+            max_patch_per_wsi_val=4, output_path=os.path.join(root, f"ref_{dev}"))
+        histo_savescore.main(["--config", cfg_path, "--device", dev])
+        with open(os.path.join(cfg["output_path"], "model.pt_pathology_val_df.csv")) as f:
+            out[dev] = np.array([float(r.split(",")[2]) for r in f.read().splitlines()[1:]])
+    diff = np.abs(out["cuda"] - out["cpu"]).max()
+    print(f"reference: float32 scores cuda vs cpu max_abs_diff {diff:.3e} "
+          f"(scale {np.abs(out['cpu']).max():.3e})")
+    if not np.allclose(out["cuda"], out["cpu"], rtol=1e-3, atol=1e-4):
+        raise AssertionError(f"cuda scores {out['cuda']} != cpu {out['cpu']}")
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this script "
+              "needs an NVIDIA card", file=sys.stderr)
+        return 1
+    device = torch.device("cuda")
+    configure_precision()
+    smi = _nvidia_smi()
+    print(f"device: {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}; "
+          f"torch {torch.__version__}, CUDA {torch.version.cuda}; nvidia-smi: {smi}")
+
+    t0 = time.perf_counter()
+    libs = build.build()
+    print(f"build: {time.perf_counter() - t0:.1f} s -> "
+          + ", ".join(str(p) for p in libs.values()))
+    for name, log in build.build_logs.items():
+        print(f"nvcc {name}:\n{log.strip()}")
+
+    timings = check_attention_pool(device)
+
+    with tempfile.TemporaryDirectory() as root:
+        launches, e2e = drive_main_path(root, device, smi)
+        check_against_cpu(root, os.path.join(root, "cohort.csv"))
+
+    bf16 = timings["bfloat16"]
+    print(json.dumps({"kernels": [{
+        "name": "attention_pool",
+        "route": "cuda",
+        "source": "multimodalbrainsurvival_torch/kernels/csrc/attention_pool.cu",
+        # retired from the JAX package; read it with git show 183b10c^:<file>
+        "replaces": "multimodalbrainsurvival_tpu/ops/pallas/tanh_attention.py:111",
+        "launches": launches,
+        "max_abs_err": bf16["max_abs_err"],
+        "tolerance": KERNEL_TOL,
+        "ms": bf16["ms"],
+        "plain_ms": bf16["plain_ms"],
+        "bound_ms": bf16["bound_ms"],
+        "bound_by": bf16["bound_by"],
+        "library_ms": bf16["library_ms"],
+        "shape": [B, BAG, D],
+        "dtype": "bfloat16",
+        "float32": timings["float32"],
+    }], **e2e}))
+    print(smi)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

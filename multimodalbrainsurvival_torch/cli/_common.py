@@ -1,0 +1,106 @@
+"""Shared CLI scaffolding mirroring the reference scripts' command line.
+
+Counterpart of ``multimodalbrainsurvival_tpu/cli/_common.py``. Every entry
+point is ``python -m multimodalbrainsurvival_torch.cli.<name> --config
+cfg.json [--seed N] [--quick 0/1] [--device cuda|cpu]``; the device is
+``cuda`` unless ``--device cpu`` is given, and a run without a card raises.
+The config's ``use_cuda`` key is not read: the device comes from
+``--device`` alone.
+"""
+
+from __future__ import annotations
+
+import argparse
+import csv
+import datetime
+
+import numpy as np
+import torch
+
+from multimodalbrainsurvival_torch.cli.histo_train import build_mil_model
+from multimodalbrainsurvival_torch.config import Config
+from multimodalbrainsurvival_torch.models import AggregationModel
+from multimodalbrainsurvival_torch.models.convert import load_reference_state_dict
+from multimodalbrainsurvival_torch.models.folding import fold_resnet_state_dict
+
+
+def make_parser(description: str) -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(description=description)
+    p.add_argument("--config", type=str, default="config.json",
+                   help="configuration json file")
+    p.add_argument("--quick", type=int, default=0,
+                   help="use small datasets to check that the script runs")
+    p.add_argument("--log", type=int, default=0,
+                   help="accepted for reference CLI parity (unused)")
+    p.add_argument("--seed", type=int, default=1111,
+                   help="accepted for reference CLI parity (serving draws "
+                        "no random numbers)")
+    p.add_argument("--save_images", type=int, default=0,
+                   help="accepted for reference CLI parity (unused)")
+    p.add_argument("--device", type=str, default="cuda",
+                   help="cuda (default; raises without a card) or cpu")
+    return p
+
+
+def load_config(args) -> tuple[Config, str]:
+    """Returns (config, flag); the flag defaults to a timestamp, as in the
+    reference."""
+    config = Config.from_json(args.config)
+    unknown = config.unknown_keys()
+    if unknown:
+        print(f"config: ignoring unrecognized keys: {', '.join(unknown)}")
+    flag = config.get("flag", "") or "train_{date:%Y-%m-%d_%H:%M:%S}".format(
+        date=datetime.datetime.now()
+    )
+    return config, flag
+
+
+def savescore_name(prefix: str, dataset: str, flag: str) -> str:
+    """Reference naming: ``<prefix>_<split>[_<flag>]_df.csv``, the flag
+    appended only for cross-validation runs (``'cv' in flag``)."""
+    if "cv" in flag:
+        return f"{prefix}_{dataset}_{flag}_df.csv"
+    return f"{prefix}_{dataset}_df.csv"
+
+
+def write_frame(path: str, frame: dict[str, list]) -> None:
+    """Write ``{column: values}`` as ``DataFrame(frame).to_csv(path)`` does:
+    an unnamed leading index column, then the columns in order."""
+    columns = list(frame)
+    with open(path, "w", newline="") as f:
+        w = csv.writer(f)
+        w.writerow([""] + columns)
+        for i, row in enumerate(zip(*(frame[c] for c in columns))):
+            w.writerow([i] + [repr(v) if isinstance(v, float) else v for v in row])
+
+
+def extract_features_frames(cases: list[str], feats: np.ndarray):
+    """Per-case mean features, cases in order of first appearance
+    (``4_HistoPath_extractfeatures.py:80-88``)."""
+    order: dict[str, int] = {}
+    inverse = np.array([order.setdefault(c, len(order)) for c in cases], np.intp)
+    sums = np.zeros((len(order), feats.shape[1]), np.float64)
+    np.add.at(sums, inverse, feats)
+    counts = np.bincount(inverse, minlength=len(order))
+    return list(order), (sums / counts[:, None]).astype(feats.dtype)
+
+
+def load_mil_model(config: Config, device: torch.device) -> AggregationModel:
+    """Build the MIL model, load ``model_path`` (a reference-keyed ``.pt``),
+    fold BatchNorm when ``fold_bn: true``, and place it on ``device`` in
+    eval mode with ``channels_last`` convolution weights. Checkpoints are
+    always stored unfolded."""
+    quant = str(config.get("quantize", "") or "").lower()
+    if quant == "int8":
+        raise NotImplementedError(
+            "int8 serving is not ported yet (ROADMAP.md, queue 1, item 2)")
+    if quant:
+        raise ValueError(f"unsupported quantize mode: {quant!r}")
+    state = load_reference_state_dict(config["model_path"])
+    model = build_mil_model(config)
+    model.load_state_dict(state)
+    if config.get("fold_bn", False):
+        model = build_mil_model(config, fold_bn=True)
+        model.load_state_dict(fold_resnet_state_dict(state))
+        print("folded BatchNorm into conv weights for serving")
+    return model.to(device, memory_format=torch.channels_last).eval()

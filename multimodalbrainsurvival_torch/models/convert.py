@@ -1,0 +1,82 @@
+"""Weights between the JAX package, the reference and the port.
+
+The port's ``state_dict`` keys are the reference's own (torchvision ResNet
+names under ``resnet.``, ``aggregator.linear.weight``, ``aggregator.vector``,
+``fc.*``), so a reference-trained ``.pt`` loads as it is
+(``load_reference_state_dict``), and ``flax_mil_to_torch`` is the inverse of
+the JAX package's ``torch_mil_to_flax``
+(``multimodalbrainsurvival_tpu/models/convert.py:153-172``):
+
+  ``params/resnet/conv1/kernel`` (HWIO)      → ``resnet.conv1.weight`` (OIHW)
+  ``params/resnet/bn1/{scale,bias}``         → ``resnet.bn1.{weight,bias}``
+  ``batch_stats/resnet/bn1/{mean,var}``      → ``resnet.bn1.running_{mean,var}``
+  ``layer{i}_{j}/downsample_{conv,bn}``      → ``layer{i}.{j}.downsample.{0,1}``
+  Dense ``kernel`` (in, out)                 → ``weight`` (out, in)
+  ``aggregator/linear/kernel``, ``vector``   → ``aggregator.linear.weight``, ``aggregator.vector``
+"""
+
+from __future__ import annotations
+
+from typing import Any, Mapping
+
+import numpy as np
+import torch
+
+_SCOPE_RENAMES = {"downsample_conv": "downsample.0", "downsample_bn": "downsample.1"}
+_STAT_RENAMES = {"mean": "running_mean", "var": "running_var"}
+
+
+def _torch_scope(path: tuple[str, ...]) -> str:
+    parts = []
+    for p in path:
+        if p.startswith("layer") and "_" in p:  # flax layer{i}_{j}
+            parts.append(p.replace("_", "."))
+        else:
+            parts.append(_SCOPE_RENAMES.get(p, p))
+    return ".".join(parts)
+
+
+def _flatten(tree: Mapping[str, Any], path=()) -> list[tuple[tuple, Any]]:
+    out = []
+    for k, v in tree.items():
+        if isinstance(v, Mapping):
+            out.extend(_flatten(v, path + (k,)))
+        else:
+            out.append((path + (k,), v))
+    return out
+
+
+def flax_mil_to_torch(params: Mapping, batch_stats: Mapping | None = None
+                      ) -> dict[str, torch.Tensor]:
+    """The JAX package's MIL variables (numpy leaves) → the port's
+    ``state_dict`` (``AggregationModel`` / ``AggregationProjectModel``)."""
+    state: dict[str, torch.Tensor] = {}
+    for path, value in _flatten(params):
+        value = np.asarray(value)
+        scope, leaf = _torch_scope(path[:-1]), path[-1]
+        if leaf == "kernel":
+            # HWIO conv → OIHW; Dense (in, out) → (out, in)
+            value = value.transpose(3, 2, 0, 1) if value.ndim == 4 else value.T
+            leaf = "weight"
+        elif leaf == "scale":
+            leaf = "weight"
+            state[f"{scope}.num_batches_tracked"] = torch.tensor(0)
+        key = f"{scope}.{leaf}" if scope else leaf
+        state[key] = torch.tensor(np.asarray(value, np.float32))
+    for path, value in _flatten(batch_stats or {}):
+        key = f"{_torch_scope(path[:-1])}.{_STAT_RENAMES[path[-1]]}"
+        state[key] = torch.tensor(np.asarray(value, np.float32))
+    return state
+
+
+def load_reference_state_dict(path: str) -> dict[str, torch.Tensor]:
+    """A reference (or port) MIL ``.pt`` → the port's ``state_dict``.
+
+    Accepts a bare ``state_dict`` or one wrapped under ``"state_dict"``; the
+    ResNet's own 1000-class classifier (``resnet.fc.*``) is dropped, since
+    the MIL path never calls it.
+    """
+    state = torch.load(path, map_location="cpu", weights_only=True)
+    if isinstance(state, Mapping) and "state_dict" in state:
+        state = state["state_dict"]
+    return {k: v for k, v in state.items() if not k.startswith("resnet.fc.")}

@@ -1,0 +1,66 @@
+"""MIL aggregation models: bag of patches → embedding → Cox head.
+
+Counterpart of ``multimodalbrainsurvival_tpu/models/mil.py:22-136``
+(reference ``1_HistoPathology/models.py:35-88``), eval path: per-patch ResNet
+embedding → aggregator → bag pool → linear head. Patches come in as
+``(B, bag, C, H, W)`` with a ``(B, bag)`` mask of real patches.
+
+The port's aggregators return the pooled ``(B, D)`` embedding themselves
+(``models/aggregators.py``): the gated-attention pool is one fused kernel
+that never materializes the rescaled per-patch features.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+
+def masked_bag_mean(x: torch.Tensor, mask: torch.Tensor | None) -> torch.Tensor:
+    """Mean over the bag axis counting only real patches. x: (B, bag, D)."""
+    if mask is None:
+        return x.mean(dim=1)
+    m = mask.to(x.dtype)[..., None]
+    n = torch.clamp(m.sum(dim=1), min=1.0)
+    return (x * m).sum(dim=1) / n
+
+
+class AggregationModel(nn.Module):
+    def __init__(self, resnet: nn.Module, aggregator: nn.Module,
+                 out_features: int = 1):
+        super().__init__()
+        self.resnet = resnet
+        self.aggregator = aggregator
+        self.fc = nn.Linear(resnet.feature_dim, out_features)
+
+    def patch_features(self, x: torch.Tensor) -> torch.Tensor:
+        """(B, bag, C, H, W) → (B, bag, D) float32 per-patch embeddings."""
+        B, bag = x.shape[:2]
+        feats = self.resnet.extract(x.reshape((B * bag,) + x.shape[2:]))
+        return feats.reshape(B, bag, -1)
+
+    def extract(self, x, mask=None):
+        """(B, bag, C, H, W) → ((B, D) bag embedding, (B, bag) attention)."""
+        return self.extract_from_feats(self.patch_features(x), mask)
+
+    def extract_from_feats(self, feats, mask=None):
+        return self.aggregator(feats, mask)
+
+    def forward(self, x, mask=None):
+        feats, attention = self.extract(x, mask)
+        return self.fc(feats), attention
+
+
+class AggregationProjectModel(AggregationModel):
+    """Adds ``project → tanh`` between the bag pool and the head
+    (``models.py:59-88``); dropout is the identity in eval mode."""
+
+    def __init__(self, resnet: nn.Module, aggregator: nn.Module,
+                 out_features: int = 1, hdim: int = 200):
+        super().__init__(resnet, aggregator, out_features)
+        self.project = nn.Linear(resnet.feature_dim, hdim)
+        self.fc = nn.Linear(hdim, out_features)
+
+    def extract_from_feats(self, feats, mask=None):
+        pooled, attention = self.aggregator(feats, mask)
+        return torch.tanh(self.project(pooled)), attention
