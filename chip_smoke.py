@@ -9,15 +9,21 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
 1. device: the card's name, and its name and power limit from nvidia-smi;
 2. build: every CUDA source of the port, one nvcc per source, in parallel;
 3. kernels: each kernel against its plain PyTorch version on the card at
-   the main path's shapes (float32 with TF32 off, and bfloat16), then timed
-   with CUDA events, L2 scrubbed before each launch, in turns with the plain
-   version and a one-call PyTorch yardstick;
+   the main path's shapes (the attention pool in float32 with TF32 off and
+   in bfloat16, within ``KERNEL_TOL``; the int8 product K3 at seven shapes
+   of ResNet-50 at 256 patches, relu on and off, identical int8), then
+   timed with CUDA events, L2 scrubbed before each launch, in turns with
+   the plain version and a one-call PyTorch yardstick;
 4. main path: a synthetic cohort (8 slides x 64 patches at 224 px, packed
    shards, made from a seed) through the port's ``histo_savescore`` and
    ``histo_extractfeatures`` at ResNet-50 / attention 2048 / bfloat16 on
-   ``cuda``, launch counters set to 0 just before and read just after; the
-   CSVs are checked and one batch's pooled embedding is recomputed with the
-   plain version;
+   ``cuda``, first in floating point, then with ``quantize: "int8"``; for
+   each path the launch counters are set to 0 just before and read just
+   after, and the CSVs are checked. On one batch: the pooled embedding
+   through the pool kernel against its plain version; the int8 bag
+   embeddings against the float ones (cosine); the int8 features of 32
+   patches through K3 against the same forward through K3's plain version
+   (bit for bit); the bf16 and int8 encoders' device time;
 5. reference: a small cohort through ``histo_savescore`` in float32 on the
    card and on the CPU (plain versions); the scores must agree.
 
@@ -40,7 +46,7 @@ import numpy as np
 import torch
 
 from multimodalbrainsurvival_torch.cli import histo_extractfeatures, histo_savescore
-from multimodalbrainsurvival_torch.cli._common import load_mil_model
+from multimodalbrainsurvival_torch.cli._common import load_mil_model, serving_adapter
 from multimodalbrainsurvival_torch.cli.histo_train import build_datasets, build_mil_model
 from multimodalbrainsurvival_torch.config import Config
 from multimodalbrainsurvival_torch.device import configure_precision
@@ -49,6 +55,13 @@ from multimodalbrainsurvival_torch.kernels.attention_pool import (
     attention_pool,
     attention_pool_plain,
 )
+from multimodalbrainsurvival_torch.kernels.qmm_requant import (
+    im2col,
+    qconv_requant,
+    qconv_requant_plain,
+    qmm_requant,
+)
+from multimodalbrainsurvival_torch.models import quantize
 from multimodalbrainsurvival_torch.train.adapters import MILAdapter
 
 SEED = 0
@@ -58,9 +71,26 @@ N_WSI, N_PATCH, IMG = 8, 64, 224
 # kernel vs plain: the same inputs, float32 sums in another order; the
 # softmax amplifies the rounding of the logits
 KERNEL_TOL = 2e-4
-# H100 SXM peaks (NVIDIA data sheet, dense): memory, bf16 tensor, f32 FMA
+# H100 SXM peaks (NVIDIA data sheet, dense): memory, bf16 tensor, f32 FMA,
+# int8 tensor
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+PEAK_INT8_OPS = 1979e12
+# K3 at the main path's shapes, 256 patches at 224 px:
+# (where, batch, H, W, C, N, kernel, stride, pad) of the NHWC conv
+K3_SHAPES = (
+    ("layer1 conv3 / downsample", 256, 56, 56, 64, 256, 1, 1, 0),
+    ("layer2 conv3", 256, 28, 28, 128, 512, 1, 1, 0),
+    ("layer3 conv3", 256, 14, 14, 256, 1024, 1, 1, 0),
+    ("layer4 conv3", 256, 7, 7, 512, 2048, 1, 1, 0),
+    ("layer4_0 conv1", 256, 14, 14, 1024, 512, 1, 1, 0),
+    ("layer1 conv2 (3x3)", 256, 56, 56, 64, 64, 3, 1, 1),
+    ("layer2_0 conv2 (3x3, stride 2)", 256, 56, 56, 128, 128, 3, 2, 1),
+)
+# ResNet-50: 16 blocks x 3 convs + 4 downsamples, every one through K3
+K3_LAUNCHES_PER_BATCH = 52
+# the JAX package's contract for quantize: "int8" (tests/test_quantize.py)
+INT8_COSINE = 0.995
 
 
 def _nvidia_smi() -> str:
@@ -150,6 +180,72 @@ def check_attention_pool(device: torch.device) -> dict:
     return result
 
 
+def _k3_inputs(batch, H, W, C, N, k, g, device):
+    """int8 operands and a float32 epilogue whose outputs span ±127."""
+    x = torch.randint(-127, 128, (batch, H, W, C), generator=g, dtype=torch.int8)
+    w = torch.randint(-127, 128, (N, k, k, C), generator=g, dtype=torch.int8)
+    scale = (40.0 / (math.sqrt(k * k * C) * 5376.0)) * (0.5 + torch.rand(N, generator=g))
+    bias = torch.rand(N, generator=g) * 10 - 5
+    return tuple(t.to(device) for t in (x, w, scale, bias))
+
+
+def check_qmm_requant(device: torch.device) -> dict:
+    """K3 against its plain version at the main path's shapes, relu on and
+    off (identical int8 required), then timed with relu on. The yardstick is
+    ``torch._int_mm`` on the same operands (the im2col matrix for a 3x3 or
+    strided conv): the int8 product alone, without the epilogue."""
+    g = torch.Generator(device="cpu").manual_seed(SEED)
+    scrub = torch.empty(64 << 20, dtype=torch.uint8, device=device)
+    shapes = []
+    for where, batch, H, W, C, N, k, stride, pad in K3_SHAPES:
+        x, w, scale, bias = _k3_inputs(batch, H, W, C, N, k, g, device)
+        conv = dict(stride=stride, padding=pad)
+        mismatches, err = 0, 0
+        for relu in (True, False):
+            out = qconv_requant(x, w, scale, bias, relu=relu, **conv)
+            torch.cuda.synchronize()
+            want = qconv_requant_plain(x, w, scale, bias, relu=relu, **conv)
+            mismatches += int((out != want).sum())
+            err = max(err, int((out.int() - want.int()).abs().max()))
+            del want
+        M, K = out.shape[0] * out.shape[1] * out.shape[2], k * k * C
+        cols = x.view(M, K) if (k, stride) == (1, 1) else im2col(x, k, k, stride, pad)
+        w2 = w.view(N, K)
+        fns = {
+            "kernel": lambda: qconv_requant(x, w, scale, bias, **conv),
+            "plain": lambda: qconv_requant_plain(x, w, scale, bias, **conv),
+            # yardstick only: the port never calls it
+            "library": lambda: torch._int_mm(cols, w2.t()),
+        }
+        times = {name: [] for name in fns}
+        for name in ("plain", "kernel", "library", "library", "kernel", "plain"):
+            times[name].append(_time_ms(fns[name], 5 if name == "plain" else 25, scrub))
+        nbytes = x.numel() + w.numel() + 8 * N + M * N
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = 2 * M * K * N / PEAK_INT8_OPS * 1e3
+        rec = {
+            "where": where, "M": M, "K": K, "N": N, "kernel": k,
+            "stride": stride, "mismatches": mismatches, "max_abs_err": err,
+            "ms": sum(times["kernel"]) / 2, "plain_ms": sum(times["plain"]) / 2,
+            "library_ms": sum(times["library"]) / 2,
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        }
+        print(f"qmm_requant {json.dumps(rec)}")
+        if mismatches:
+            raise AssertionError(f"qmm_requant at {where}: {mismatches} int8 "
+                                 f"outputs differ from the plain version")
+        shapes.append(rec)
+        del x, w, cols, out
+    return {
+        "max_abs_err": max(r["max_abs_err"] for r in shapes),
+        **{key: sum(r[key] for r in shapes)
+           for key in ("ms", "plain_ms", "library_ms", "bound_ms")},
+        "bound_by": max(shapes, key=lambda r: r["bound_ms"])["bound_by"],
+        "shapes": shapes,
+    }
+
+
 def random_state_dict(model: torch.nn.Module, seed: int) -> dict:
     """Seeded weights: LeCun-normal convs and linears (activations stay
     O(1) through 50 layers), BN statistics and affine near identity, and a
@@ -234,34 +330,51 @@ def _check_outputs(out_dir: str, n_cases: int) -> None:
             raise AssertionError(f"{split}: bad outputs {scores} {feats.shape}")
 
 
-def drive_main_path(root: str, device: torch.device, smi: str) -> tuple[int, dict]:
-    csv_path, n_cases = make_cohort(root)
-    cfg, cfg_path = _config(root, csv_path, "main")
-    model = build_mil_model(Config(cfg))
-    torch.save(random_state_dict(model, SEED), cfg["model_path"])
-    n_bags = N_WSI * N_PATCH // BAG
-    expected = 3 * 3 * math.ceil(n_bags / B)  # 3 CLI runs x 3 splits x batches
-
-    attention_pool.launches = 0
+def _run_clis(cfg_path: str) -> float:
+    """savescore, then extract twice (the first run is cold: cuDNN set-up);
+    returns the warm extract run's wall seconds."""
     histo_savescore.main(["--config", cfg_path])
-    histo_extractfeatures.main(["--config", cfg_path])  # cold: cuDNN set-up
+    histo_extractfeatures.main(["--config", cfg_path])
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     histo_extractfeatures.main(["--config", cfg_path])
     torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = attention_pool.launches
-    print(f"main path: attention_pool launches {launches} (expected {expected})")
-    if launches != expected:
-        raise AssertionError(f"attention_pool launched {launches} times, "
-                             f"expected {expected}")
-    _check_outputs(cfg["output_path"], n_cases)
-    patches = 3 * N_WSI * N_PATCH
-    print(f"extract CLI (warm, wall clock incl. model load and host loading): "
-          f"{patches / wall:.1f} patches/s, {wall:.3f} s [{smi}]")
+    return time.perf_counter() - t0
 
-    return launches, {"extract_cli_patches_per_s": patches / wall,
-                      **check_main_path_batch(Config(cfg), device, smi)}
+
+def drive_main_path(root: str, device: torch.device, smi: str) -> tuple[dict, dict]:
+    """Both serving paths through both CLIs: floating point, then
+    ``quantize: "int8"``. Each path's launch counts are read just after
+    its runs, with the counters set to 0 just before."""
+    csv_path, n_cases = make_cohort(root)
+    cfg, cfg_path = _config(root, csv_path, "main")
+    model = build_mil_model(Config(cfg))
+    torch.save(random_state_dict(model, SEED), cfg["model_path"])
+    cfg8, cfg8_path = _config(root, csv_path, "int8", quantize="int8",
+                              output_path=os.path.join(root, "out_int8"))
+    batches = 3 * 3 * math.ceil(N_WSI * N_PATCH / BAG / B)  # 3 CLI runs x 3 splits
+    patches = 3 * N_WSI * N_PATCH
+    launches, e2e = {}, {}
+    for path, (c, c_path) in (("bf16", (cfg, cfg_path)), ("int8", (cfg8, cfg8_path))):
+        expected = {"attention_pool": batches,
+                    "qmm_requant": K3_LAUNCHES_PER_BATCH * batches if path == "int8" else 0}
+        attention_pool.launches = 0
+        qmm_requant.launches = 0
+        wall = _run_clis(c_path)
+        counts = {"attention_pool": attention_pool.launches,
+                  "qmm_requant": qmm_requant.launches}
+        print(f"main path {path}: launches {counts} (expected {expected})")
+        if counts != expected:
+            raise AssertionError(f"{path} path launched {counts}, expected {expected}")
+        _check_outputs(c["output_path"], n_cases)
+        print(f"{path} extract CLI (warm, wall clock incl. model load, "
+              f"calibration and host loading): {patches / wall:.1f} patches/s, "
+              f"{wall:.3f} s [{smi}]")
+        launches[path] = counts
+        e2e["extract_cli_patches_per_s" + ("_int8" if path == "int8" else "")] = patches / wall
+    e2e.update(check_main_path_batch(Config(cfg), device, smi))
+    e2e.update(check_int8_batch(Config(cfg), Config(cfg8), device, smi))
+    return launches, e2e
 
 
 def check_main_path_batch(config: Config, device: torch.device, smi: str) -> dict:
@@ -296,6 +409,95 @@ def check_main_path_batch(config: Config, device: torch.device, smi: str) -> dic
     print(f"per batch of {B * BAG} patches: encoder {encoder_ms:.3f} ms on the "
           f"card; host read {host_ms:.1f} ms [{smi}]")
     return {"encoder_ms_per_batch": encoder_ms, "host_read_ms_per_batch": host_ms}
+
+
+def device_breakdown(fn, wall_ms: float, label: str) -> dict:
+    """Device time by kernel of one call of ``fn`` (mean of 3, from
+    ``torch.profiler``), its busy share of ``wall_ms`` (the call's CUDA-event
+    time), and the K3 kernel's share of the device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            fn()
+        torch.cuda.synchronize()
+    kernels = sorted(((e.key, e.self_device_time_total / 3e3, e.count // 3)
+                      for e in prof.key_averages()
+                      if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0),
+                     key=lambda r: -r[1])
+    busy = sum(ms for _, ms, _ in kernels)
+    k3 = sum(ms for name, ms, _ in kernels if "qconv_requant" in name)
+    print(f"{label}: device busy {busy:.3f} ms of {wall_ms:.3f} ms "
+          f"({len(kernels)} kernel names); K3 {k3:.3f} ms; top kernels:")
+    for name, ms, n in kernels[:8]:
+        print(f"  {ms:8.3f} ms  x{n:<4d} {name[:110]}")
+    return {"device_busy_ms": busy, "k3_ms": k3,
+            "top": [[name[:80], ms, n] for name, ms, n in kernels[:8]]}
+
+
+def check_int8_batch(config: Config, config8: Config, device: torch.device,
+                     smi: str) -> dict:
+    """One main-path batch through the int8 path, calibrated as the CLIs
+    calibrate: its bag embeddings against the float (bf16) path's; its
+    int8 features on 32 patches through K3 against the same forward through
+    K3's plain version, bit for bit; both encoders' device time."""
+    datasets = build_datasets(config8, False)
+    q_adapter = serving_adapter(config8, device, datasets)
+    f_adapter = MILAdapter(model=load_mil_model(config, device), device=device)
+    arrays = q_adapter.to_device(next(datasets["val"].batches(B, num_threads=8)),
+                                 q_adapter.array_keys)
+    qtree = q_adapter.qtree
+    scrub = torch.empty(64 << 20, dtype=torch.uint8, device=device)
+    with torch.inference_mode():
+        real = arrays["sample_mask"]
+        cos = torch.nn.functional.cosine_similarity(
+            q_adapter.extract(arrays)[real].double(),
+            f_adapter.extract(arrays)[real].double(), dim=1)
+        x = q_adapter.inputs(arrays)
+        x = x.reshape((-1,) + tuple(x.shape[2:]))
+        sub = x[:32]
+        deterministic = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = True
+        try:
+            got_map, _ = quantize.quantized_stages(qtree, sub, stages=4)
+            got = quantize.quantized_extract(qtree, sub)
+            launched = qmm_requant.launches
+            quantize.qconv_requant = qconv_requant_plain
+            want_map, _ = quantize.quantized_stages(qtree, sub, stages=4)
+            want = quantize.quantized_extract(qtree, sub)
+        finally:
+            quantize.qconv_requant = qconv_requant
+            torch.backends.cudnn.deterministic = deterministic
+        if qmm_requant.launches != launched:
+            raise AssertionError("the plain forward launched the kernel")
+        same = torch.equal(got_map, want_map) and torch.equal(got, want)
+        int8_ms = _time_ms(lambda: quantize.quantized_extract(qtree, x), 10, scrub)
+        xf = f_adapter.inputs(arrays)
+        bf16_ms = _time_ms(lambda: f_adapter.model.patch_features(xf), 10, scrub)
+    print(f"int8 batch: bag embedding cosine vs the bf16 path min "
+          f"{cos.min().item():.6f} mean {cos.mean().item():.6f} over "
+          f"{int(real.sum())} bags (contract > {INT8_COSINE}); int8 features of "
+          f"{sub.shape[0]} patches through K3 equal the plain forward: {same}")
+    if not cos.min().item() > INT8_COSINE:
+        raise AssertionError(f"int8 bag embeddings off the float path: {cos}")
+    if not same:
+        raise AssertionError("int8 features through K3 differ from the plain "
+                             "version's forward")
+    print(f"per batch of {x.shape[0]} patches: int8 encoder {int8_ms:.3f} ms, "
+          f"bf16 encoder {bf16_ms:.3f} ms on the card [{smi}]")
+    with torch.inference_mode():
+        int8_profile = device_breakdown(
+            lambda: quantize.quantized_extract(qtree, x), int8_ms, "int8 encoder")
+        bf16_profile = device_breakdown(
+            lambda: f_adapter.model.patch_features(xf), bf16_ms, "bf16 encoder")
+    return {"int8_encoder_ms_per_batch": int8_ms,
+            "bf16_encoder_ms_per_batch_int8_phase": bf16_ms,
+            "int8_vs_bf16_bag_cosine_min": cos.min().item(),
+            "int8_encoder_profile": int8_profile,
+            "bf16_encoder_profile": bf16_profile}
 
 
 def check_against_cpu(root: str, csv_path: str) -> None:
@@ -335,19 +537,22 @@ def main() -> int:
         print(f"nvcc {name}:\n{log.strip()}")
 
     timings = check_attention_pool(device)
+    k3 = check_qmm_requant(device)
 
     with tempfile.TemporaryDirectory() as root:
         launches, e2e = drive_main_path(root, device, smi)
         check_against_cpu(root, os.path.join(root, "cohort.csv"))
 
     bf16 = timings["bfloat16"]
+    by_path = {path: counts["attention_pool"] for path, counts in launches.items()}
     print(json.dumps({"kernels": [{
         "name": "attention_pool",
         "route": "cuda",
         "source": "multimodalbrainsurvival_torch/kernels/csrc/attention_pool.cu",
         # retired from the JAX package; read it with git show 183b10c^:<file>
         "replaces": "multimodalbrainsurvival_tpu/ops/pallas/tanh_attention.py:111",
-        "launches": launches,
+        "launches": sum(by_path.values()),
+        "launches_by_path": by_path,
         "max_abs_err": bf16["max_abs_err"],
         "tolerance": KERNEL_TOL,
         "ms": bf16["ms"],
@@ -358,6 +563,21 @@ def main() -> int:
         "shape": [B, BAG, D],
         "dtype": "bfloat16",
         "float32": timings["float32"],
+    }, {
+        "name": "qmm_requant",
+        "route": "cuda",
+        "source": "multimodalbrainsurvival_torch/kernels/csrc/qmm_requant.cu",
+        "replaces": "benchmarks/int8_pallas_probe.py:80",
+        "launches": launches["int8"]["qmm_requant"],
+        "max_abs_err": k3["max_abs_err"],
+        "tolerance": 0,
+        # times and bounds: sums over the shapes listed below (relu on)
+        "ms": k3["ms"],
+        "plain_ms": k3["plain_ms"],
+        "bound_ms": k3["bound_ms"],
+        "bound_by": k3["bound_by"],
+        "library_ms": k3["library_ms"],
+        "shapes": k3["shapes"],
     }], **e2e}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

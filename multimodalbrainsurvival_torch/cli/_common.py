@@ -22,6 +22,8 @@ from multimodalbrainsurvival_torch.config import Config
 from multimodalbrainsurvival_torch.models import AggregationModel
 from multimodalbrainsurvival_torch.models.convert import load_reference_state_dict
 from multimodalbrainsurvival_torch.models.folding import fold_resnet_state_dict
+from multimodalbrainsurvival_torch.models.quantize import quantize_mil_resnet
+from multimodalbrainsurvival_torch.train.adapters import MILAdapter, QuantizedMILAdapter
 
 
 def make_parser(description: str) -> argparse.ArgumentParser:
@@ -85,22 +87,60 @@ def extract_features_frames(cases: list[str], feats: np.ndarray):
     return list(order), (sums / counts[:, None]).astype(feats.dtype)
 
 
+def quantize_mode(config: Config) -> str:
+    """Validated ``quantize`` config value: ``""`` (float serving, default)
+    or ``"int8"`` (W8A8 ResNet, ``models/quantize.py``). int8 implies
+    ``fold_bn``: the int8 weights are built from the folded kernels."""
+    quant = str(config.get("quantize", "") or "").lower()
+    if quant not in ("", "int8"):
+        raise ValueError(f"unsupported quantize mode: {quant!r}")
+    return quant
+
+
 def load_mil_model(config: Config, device: torch.device) -> AggregationModel:
     """Build the MIL model, load ``model_path`` (a reference-keyed ``.pt``),
-    fold BatchNorm when ``fold_bn: true``, and place it on ``device`` in
-    eval mode with ``channels_last`` convolution weights. Checkpoints are
-    always stored unfolded."""
-    quant = str(config.get("quantize", "") or "").lower()
-    if quant == "int8":
-        raise NotImplementedError(
-            "int8 serving is not ported yet (ROADMAP.md, queue 1, item 2)")
-    if quant:
-        raise ValueError(f"unsupported quantize mode: {quant!r}")
+    fold BatchNorm when ``fold_bn: true`` or ``quantize: "int8"``, and place
+    it on ``device`` in eval mode with ``channels_last`` convolution
+    weights. Checkpoints are always stored unfolded."""
+    fold = bool(config.get("fold_bn", False)) or bool(quantize_mode(config))
     state = load_reference_state_dict(config["model_path"])
     model = build_mil_model(config)
     model.load_state_dict(state)
-    if config.get("fold_bn", False):
+    if fold:
         model = build_mil_model(config, fold_bn=True)
         model.load_state_dict(fold_resnet_state_dict(state))
         print("folded BatchNorm into conv weights for serving")
     return model.to(device, memory_format=torch.channels_last).eval()
+
+
+def quantize_serving(config: Config, adapter: MILAdapter, probe: dict
+                     ) -> QuantizedMILAdapter:
+    """Swap a float MIL serving adapter for the int8 (W8A8) one: calibrate
+    the activation ranges on the probe batch and quantize the folded ResNet
+    weights. Deviates from reference numerics by int8 rounding (per-sample
+    embedding cosine > 0.995), opt-in for that reason."""
+    qtree = quantize_mil_resnet(adapter.model.resnet, [probe["patch_bag"]],
+                                arch=config.model_name)
+    print("quantized ResNet to int8 (W8A8) for serving")
+    return QuantizedMILAdapter(
+        model=adapter.model, device=adapter.device,
+        loader_kwargs=adapter.loader_kwargs, qtree=qtree,
+        arch=config.model_name,
+    )
+
+
+def serving_adapter(config: Config, device: torch.device, datasets: dict
+                    ) -> MILAdapter:
+    """The serving CLIs' adapter: the float model, or with ``quantize:
+    "int8"`` its int8 encoder calibrated on the first train batch."""
+    adapter = MILAdapter(
+        model=load_mil_model(config, device),
+        device=device,
+        loader_kwargs={"num_threads": int(config.get("num_workers", 8)) or 1},
+    )
+    if not quantize_mode(config):
+        return adapter
+    batches = datasets["train"].batches(config.batch_size, **adapter.loader_kwargs)
+    probe = next(batches)
+    batches.close()
+    return quantize_serving(config, adapter, probe)

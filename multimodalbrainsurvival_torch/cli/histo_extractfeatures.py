@@ -17,8 +17,8 @@ import torch
 from multimodalbrainsurvival_torch.cli._common import (
     extract_features_frames,
     load_config,
-    load_mil_model,
     make_parser,
+    serving_adapter,
     write_frame,
 )
 from multimodalbrainsurvival_torch.cli.histo_train import build_datasets
@@ -50,11 +50,7 @@ def main(argv=None):
     os.makedirs(output_path or ".", exist_ok=True)
 
     datasets = build_datasets(config, bool(args.quick))
-    adapter = MILAdapter(
-        model=load_mil_model(config, device),
-        device=device,
-        loader_kwargs={"num_threads": int(config.get("num_workers", 8)) or 1},
-    )
+    adapter = serving_adapter(config, device, datasets)
     suffix = f"_{flag}" if "cv" in flag else ""
     for split, ds in datasets.items():
         print(f"extracting features for dataset : {split}")

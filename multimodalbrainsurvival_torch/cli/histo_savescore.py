@@ -12,15 +12,14 @@ import os
 
 from multimodalbrainsurvival_torch.cli._common import (
     load_config,
-    load_mil_model,
     make_parser,
     savescore_name,
+    serving_adapter,
     write_frame,
 )
 from multimodalbrainsurvival_torch.cli.histo_train import build_datasets
 from multimodalbrainsurvival_torch.device import resolve_device
 from multimodalbrainsurvival_torch.train import TrainSettings, evaluate
-from multimodalbrainsurvival_torch.train.adapters import MILAdapter
 
 
 def main(argv=None):
@@ -31,11 +30,7 @@ def main(argv=None):
     os.makedirs(output_path or ".", exist_ok=True)
 
     datasets = build_datasets(config, bool(args.quick))
-    adapter = MILAdapter(
-        model=load_mil_model(config, device),
-        device=device,
-        loader_kwargs={"num_threads": int(config.get("num_workers", 8)) or 1},
-    )
+    adapter = serving_adapter(config, device, datasets)
     settings = TrainSettings(task=config.task, batch_size=config.batch_size)
     prefix = os.path.basename(str(config["model_path"]).rstrip("/")) + "_pathology"
     for split, ds in datasets.items():

@@ -13,6 +13,11 @@ the JAX package's ``torch_mil_to_flax``
   ``layer{i}_{j}/downsample_{conv,bn}``      → ``layer{i}.{j}.downsample.{0,1}``
   Dense ``kernel`` (in, out)                 → ``weight`` (out, in)
   ``aggregator/linear/kernel``, ``vector``   → ``aggregator.linear.weight``, ``aggregator.vector``
+
+``flax_qtree_to_torch`` carries the JAX package's int8 serving tree
+(``models/quantize.py::quantize_resnet``) into the port's layout
+(``multimodalbrainsurvival_torch/models/quantize.py``): the same keys, HWIO
+int8 kernels → (O, kh, kw, I), scalar scales → 0-dim float32 tensors.
 """
 
 from __future__ import annotations
@@ -67,6 +72,33 @@ def flax_mil_to_torch(params: Mapping, batch_stats: Mapping | None = None
         key = f"{_torch_scope(path[:-1])}.{_STAT_RENAMES[path[-1]]}"
         state[key] = torch.tensor(np.asarray(value, np.float32))
     return state
+
+
+def _qconv_to_torch(cp: Mapping) -> dict[str, torch.Tensor]:
+    k = np.asarray(cp["k"])
+    if k.dtype != np.int8 or k.ndim != 4:
+        raise ValueError(f"expected an HWIO int8 kernel, got {k.dtype} {k.shape}")
+    return {
+        "k": torch.from_numpy(np.ascontiguousarray(k.transpose(3, 0, 1, 2))),
+        "ws": torch.tensor(np.asarray(cp["ws"], np.float32)),
+        "b": torch.tensor(np.asarray(cp["b"], np.float32)),
+    }
+
+
+def flax_qtree_to_torch(qtree: Mapping) -> dict:
+    """The JAX package's int8 ResNet qtree (numpy leaves) → the port's:
+    ``conv1`` and ``layerX_j.{conv1,conv2,conv3,downsample_conv}`` as
+    ``{"k": (O, kh, kw, I) int8, "ws", "b"}``, ``scales`` as 0-dim float32
+    tensors."""
+    out: dict = {}
+    for key, value in qtree.items():
+        if key == "scales":
+            out[key] = {site: torch.tensor(np.float32(v)) for site, v in value.items()}
+        elif key == "conv1":
+            out[key] = _qconv_to_torch(value)
+        else:
+            out[key] = {name: _qconv_to_torch(cp) for name, cp in value.items()}
+    return out
 
 
 def load_reference_state_dict(path: str) -> dict[str, torch.Tensor]:

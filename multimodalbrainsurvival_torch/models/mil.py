@@ -46,9 +46,13 @@ class AggregationModel(nn.Module):
     def extract_from_feats(self, feats, mask=None):
         return self.aggregator(feats, mask)
 
+    def from_feats(self, feats, mask=None):
+        """(B, bag, D) per-patch features → ((B, out) head, (B, bag))."""
+        pooled, attention = self.extract_from_feats(feats, mask)
+        return self.fc(pooled), attention
+
     def forward(self, x, mask=None):
-        feats, attention = self.extract(x, mask)
-        return self.fc(feats), attention
+        return self.from_feats(self.patch_features(x), mask)
 
 
 class AggregationProjectModel(AggregationModel):

@@ -95,8 +95,8 @@ def _config(cohort, **overrides):
     return cfg
 
 
-def _run_both(cohort, tmp, aggregator, fold_bn):
-    cfg = _config(cohort, aggregator=aggregator, fold_bn=fold_bn)
+def _run_both(cohort, tmp, aggregator, fold_bn, **overrides):
+    cfg = _config(cohort, aggregator=aggregator, fold_bn=fold_bn, **overrides)
     model = build_mil_model(Config(cfg))
     pt = tmp / "init.pt"
     torch.save(_random_state(model, seed=11), str(pt))

@@ -35,6 +35,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         )
     ]
     assert "multimodalbrainsurvival_torch.kernels.attention_pool" in modules
+    assert "multimodalbrainsurvival_torch.kernels.qmm_requant" in modules
+    assert "multimodalbrainsurvival_torch.models.quantize" in modules
     code = (
         "import importlib, json, sys\n"
         f"for m in {modules!r} + ['chip_smoke']:\n"

@@ -14,6 +14,12 @@ from multimodalbrainsurvival_torch.kernels.attention_pool import (
     attention_pool,
     attention_pool_plain,
 )
+from multimodalbrainsurvival_torch.kernels.qmm_requant import (
+    qconv_requant,
+    qconv_requant_plain,
+    qmm_requant,
+    qmm_requant_plain,
+)
 
 # (B, bag, D, real patches per bag; None = all real)
 SHAPES = {
@@ -74,3 +80,87 @@ def test_attention_pool_kernel_rejects_mixed_dtypes(cuda):
         attention_pool(x.to(torch.bfloat16), weight, v, mask)
     with pytest.raises(ValueError, match="contiguous"):
         attention_pool(x, weight.t(), v, mask)
+
+
+# K3: products (M, K, N) and convs (batch, H, W, C, N, kernel, stride, pad)
+QMM_SHAPES = {
+    "m_not_tile_multiple": (333, 64, 256),
+    "k72_n24": (517, 72, 24),
+    "deepest_k_4608": (300, 4608, 40),
+    "layer4_conv3": (12544, 512, 2048),
+}
+QCONV_SHAPES = {
+    "3x3_on_7x7_pad1": (2, 7, 7, 64, 48, 3, 1, 1),
+    "3x3_stride2_pad1": (3, 9, 9, 32, 64, 3, 2, 1),
+    "1x1_stride2": (2, 8, 8, 64, 128, 1, 2, 0),
+    "3x3_c24_byte_gather": (2, 7, 7, 24, 16, 3, 1, 1),
+}
+
+
+def _q_inputs(x_shape, w_shape, device, seed=0):
+    """int8 operands and a float32 epilogue whose outputs span ±127."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    x = torch.randint(-127, 128, x_shape, generator=g, dtype=torch.int8)
+    w = torch.randint(-127, 128, w_shape, generator=g, dtype=torch.int8)
+    n, k = w_shape[0], w[0].numel()
+    scale = (40.0 / (k**0.5 * 5376.0)) * (0.5 + torch.rand(n, generator=g))
+    bias = torch.rand(n, generator=g) * 10 - 5
+    return tuple(t.to(device) for t in (x, w, scale, bias))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("relu", [True, False], ids=["relu", "no_relu"])
+@pytest.mark.parametrize("name", sorted(QMM_SHAPES))
+def test_qmm_requant_kernel_equals_plain(cuda, name, relu):
+    """The int32 sum is exact and the epilogue rounds as the plain version
+    does, so the int8 outputs are identical."""
+    M, K, N = QMM_SHAPES[name]
+    a, w, scale, bias = _q_inputs((M, K), (N, K), cuda)
+    before = qmm_requant.launches
+    out = qmm_requant(a, w, scale, bias, relu=relu)
+    torch.cuda.synchronize()
+    assert qmm_requant.launches == before + 1
+    want = qmm_requant_plain(a, w, scale, bias, relu=relu)
+    assert out.dtype == torch.int8 and out.shape == (M, N)
+    assert int((out != want).sum()) == 0
+    assert 0 < float((out.abs() == 127).float().mean()) < 0.5
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("relu", [True, False], ids=["relu", "no_relu"])
+@pytest.mark.parametrize("name", sorted(QCONV_SHAPES))
+def test_qconv_requant_kernel_equals_plain(cuda, name, relu):
+    batch, H, W, C, N, k, stride, pad = QCONV_SHAPES[name]
+    x, w, scale, bias = _q_inputs((batch, H, W, C), (N, k, k, C), cuda)
+    out = qconv_requant(x, w, scale, bias, stride=stride, padding=pad, relu=relu)
+    torch.cuda.synchronize()
+    want = qconv_requant_plain(x, w, scale, bias, stride=stride, padding=pad,
+                               relu=relu)
+    assert out.shape == want.shape
+    assert int((out != want).sum()) == 0
+
+
+@pytest.mark.gpu
+def test_qconv_requant_kernel_takes_a_misaligned_input(cuda):
+    """An input that starts 1 byte into its storage cannot be read in
+    16-byte chunks; the kernel gathers it byte by byte."""
+    x, w, scale, bias = _q_inputs((1, 6, 6, 32), (32, 3, 3, 32), cuda)
+    base = torch.empty(x.numel() + 1, dtype=torch.int8, device=cuda)
+    shifted = base[1:].view(x.shape)
+    shifted.copy_(x)
+    assert shifted.data_ptr() % 16 != 0 and shifted.is_contiguous()
+    out = qconv_requant(shifted, w, scale, bias, padding=1)
+    want = qconv_requant_plain(shifted, w, scale, bias, padding=1)
+    assert int((out != want).sum()) == 0
+
+
+@pytest.mark.gpu
+def test_qmm_requant_kernel_rejects_bad_inputs(cuda):
+    a, w, scale, bias = _q_inputs((64, 32), (16, 32), cuda)
+    with pytest.raises(ValueError, match="int8"):
+        qmm_requant(a.float(), w, scale, bias)
+    with pytest.raises(ValueError, match="contiguous"):
+        qmm_requant(a.t().contiguous().t(), w, scale, bias)
+    x = a.view(2, 4, 8, 32)
+    with pytest.raises(ValueError, match="contiguous"):
+        qconv_requant(x.permute(0, 2, 1, 3), w.view(16, 1, 1, 32), scale, bias)
