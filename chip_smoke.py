@@ -1,4 +1,4 @@
-"""Drive the PyTorch/CUDA port's serving path on one NVIDIA card.
+"""Drive the PyTorch/CUDA port's paths on one NVIDIA card.
 
 Run from the root of the repository, on a machine with a card:
 
@@ -11,9 +11,11 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
 3. kernels: each kernel against its plain PyTorch version on the card at
    the main path's shapes (the attention pool in float32 with TF32 off and
    in bfloat16, within ``KERNEL_TOL``; the int8 product K3 at seven shapes
-   of ResNet-50 at 256 patches, relu on and off, identical int8), then
-   timed with CUDA events, L2 scrubbed before each launch, in turns with
-   the plain version and a one-call PyTorch yardstick;
+   of ResNet-50 at 256 patches, relu on and off, identical int8; K2a, the
+   seeded dropout-matmul, at both RNA layer shapes within ``K2A_TOL``, and
+   K2b, the seeded dropout alone, identical), then timed with CUDA events,
+   L2 scrubbed before each launch, in turns with the plain version and a
+   one-call PyTorch yardstick;
 4. main path: a synthetic cohort (8 slides x 64 patches at 224 px, packed
    shards, made from a seed) through the port's ``histo_savescore`` and
    ``histo_extractfeatures`` at ResNet-50 / attention 2048 / bfloat16 on
@@ -25,7 +27,16 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    patches through K3 against the same forward through K3's plain version
    (bit for bit); the bf16 and int8 encoders' device time;
 5. reference: a small cohort through ``histo_savescore`` in float32 on the
-   card and on the CPU (plain versions); the scores must agree.
+   card and on the CPU (plain versions); the scores must agree;
+6. RNA path: a synthetic 12,778-gene cohort (train 1,024 / val 256 / test
+   256, from a seed) through ``rna_train`` (2 epochs, batch 256, dropout
+   0.5, float32 at the reference width), then ``rna_savescore`` and
+   ``rna_extractfeatures`` on its ``model_last.pt``; the counters are set
+   to 0 just before and read just after each CLI, and every frame is
+   checked. Then one train step's device time (CUDA events) and profile;
+7. RNA reference: two dropout-free train steps of a small 12,778-gene
+   cohort on the card and on the CPU from one seeded init; the val scores
+   must agree.
 
 The last lines are the ``kernels`` JSON line, the nvidia-smi line and
 ``{"ok": true, "device": {...}}``. Without a card, or without the rest of
@@ -34,6 +45,7 @@ the repository beside it, the script exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import csv
 import json
 import math
 import os
@@ -45,15 +57,35 @@ import time
 import numpy as np
 import torch
 
-from multimodalbrainsurvival_torch.cli import histo_extractfeatures, histo_savescore
-from multimodalbrainsurvival_torch.cli._common import load_mil_model, serving_adapter
+from multimodalbrainsurvival_torch.cli import (
+    histo_extractfeatures,
+    histo_savescore,
+    rna_extractfeatures,
+    rna_savescore,
+    rna_train,
+)
+from multimodalbrainsurvival_torch.cli._common import (
+    load_mil_model,
+    serving_adapter,
+    tune_optimizer,
+)
 from multimodalbrainsurvival_torch.cli.histo_train import build_datasets, build_mil_model
+from multimodalbrainsurvival_torch.cli.rna_train import build_rna_model, build_rna_optimizer
 from multimodalbrainsurvival_torch.config import Config
+from multimodalbrainsurvival_torch.data import RNATableDataset
 from multimodalbrainsurvival_torch.device import configure_precision
 from multimodalbrainsurvival_torch.kernels import build
 from multimodalbrainsurvival_torch.kernels.attention_pool import (
     attention_pool,
     attention_pool_plain,
+)
+from multimodalbrainsurvival_torch.kernels.dropout_matmul import (
+    dropout_matmul,
+    dropout_matmul_plain,
+    keep_mask,
+    keep_scale,
+    seeded_dropout,
+    seeded_dropout_plain,
 )
 from multimodalbrainsurvival_torch.kernels.qmm_requant import (
     im2col,
@@ -62,7 +94,10 @@ from multimodalbrainsurvival_torch.kernels.qmm_requant import (
     qmm_requant,
 )
 from multimodalbrainsurvival_torch.models import quantize
-from multimodalbrainsurvival_torch.train.adapters import MILAdapter
+from multimodalbrainsurvival_torch.models.rna import RNA_GENES
+from multimodalbrainsurvival_torch.train import TrainSettings
+from multimodalbrainsurvival_torch.train.adapters import MILAdapter, TableAdapter
+from multimodalbrainsurvival_torch.train.loop import make_loss_fn, train_step
 
 SEED = 0
 # the main path's shape at the aggregator: 16 bags x 16 patches x 2048
@@ -91,6 +126,29 @@ K3_SHAPES = (
 K3_LAUNCHES_PER_BATCH = 52
 # the JAX package's contract for quantize: "int8" (tests/test_quantize.py)
 INT8_COSINE = 0.995
+# the RNA path: 12,778 genes -> 4,096 -> 2,048 -> 1 in float32, batches of
+# 256, dropout 0.5, 2 epochs over a synthetic cohort made from SEED
+RNA_BATCH, RNA_EPOCHS, RNA_DROPOUT = 256, 2, 0.5
+RNA_SPLITS = {"train": 1024, "val": 256, "test": 256}
+# K2a vs plain (cuBLAS SGEMM, TF32 off): the same masked operands, float32
+# sums over up to 12,778 terms in another order, outputs of order 1
+K2A_TOL = 1e-4
+# (where, M, K, N) of K2a on the RNA path: both Dropout -> Linear pairs
+K2_SHAPES = (("dense_0", RNA_BATCH, RNA_GENES, 4096), ("dense_1", RNA_BATCH, 4096, 2048))
+# per train step: K2a once per layer; K2b on each layer's x for dW, and on
+# dense_1's dx (dense_0's input is data, with no dx)
+K2A_PER_STEP, K2B_PER_STEP = 2, 3
+COUNTERS = {"attention_pool": attention_pool, "qmm_requant": qmm_requant,
+            "dropout_matmul": dropout_matmul, "seeded_dropout": seeded_dropout}
+
+
+def reset_counts() -> None:
+    for fn in COUNTERS.values():
+        fn.launches = 0
+
+
+def read_counts() -> dict:
+    return {name: fn.launches for name, fn in COUNTERS.items()}
 
 
 def _nvidia_smi() -> str:
@@ -357,12 +415,11 @@ def drive_main_path(root: str, device: torch.device, smi: str) -> tuple[dict, di
     launches, e2e = {}, {}
     for path, (c, c_path) in (("bf16", (cfg, cfg_path)), ("int8", (cfg8, cfg8_path))):
         expected = {"attention_pool": batches,
-                    "qmm_requant": K3_LAUNCHES_PER_BATCH * batches if path == "int8" else 0}
-        attention_pool.launches = 0
-        qmm_requant.launches = 0
+                    "qmm_requant": K3_LAUNCHES_PER_BATCH * batches if path == "int8" else 0,
+                    "dropout_matmul": 0, "seeded_dropout": 0}
+        reset_counts()
         wall = _run_clis(c_path)
-        counts = {"attention_pool": attention_pool.launches,
-                  "qmm_requant": qmm_requant.launches}
+        counts = read_counts()
         print(f"main path {path}: launches {counts} (expected {expected})")
         if counts != expected:
             raise AssertionError(f"{path} path launched {counts}, expected {expected}")
@@ -411,10 +468,12 @@ def check_main_path_batch(config: Config, device: torch.device, smi: str) -> dic
     return {"encoder_ms_per_batch": encoder_ms, "host_read_ms_per_batch": host_ms}
 
 
-def device_breakdown(fn, wall_ms: float, label: str) -> dict:
+def device_breakdown(fn, wall_ms: float, label: str, ours: dict[str, str]) -> dict:
     """Device time by kernel of one call of ``fn`` (mean of 3, from
     ``torch.profiler``), its busy share of ``wall_ms`` (the call's CUDA-event
-    time), and the K3 kernel's share of the device time."""
+    time), and the time and launches per call of each of the port's kernels
+    in ``ours`` (key → a substring of its kernel's name), as ``<key>_ms``
+    and ``<key>_launches``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -424,17 +483,24 @@ def device_breakdown(fn, wall_ms: float, label: str) -> dict:
         for _ in range(3):
             fn()
         torch.cuda.synchronize()
-    kernels = sorted(((e.key, e.self_device_time_total / 3e3, e.count // 3)
+    # user annotations (``Optimizer.step#Adam.step``) span kernels that are
+    # counted on their own
+    kernels = sorted(((e.key, e.self_device_time_total / 3e3, e.count / 3)
                       for e in prof.key_averages()
-                      if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0),
+                      if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
+                      and not getattr(e, "is_user_annotation", False)),
                      key=lambda r: -r[1])
     busy = sum(ms for _, ms, _ in kernels)
-    k3 = sum(ms for name, ms, _ in kernels if "qconv_requant" in name)
+    mine = {}
+    for key, sub in ours.items():
+        mine[f"{key}_ms"] = sum(ms for name, ms, _ in kernels if sub in name)
+        mine[f"{key}_launches"] = sum(n for name, _, n in kernels if sub in name)
     print(f"{label}: device busy {busy:.3f} ms of {wall_ms:.3f} ms "
-          f"({len(kernels)} kernel names); K3 {k3:.3f} ms; top kernels:")
+          f"({len(kernels)} kernel names); "
+          + ", ".join(f"{k} {v:.3f}" for k, v in mine.items()) + "; top kernels:")
     for name, ms, n in kernels[:8]:
-        print(f"  {ms:8.3f} ms  x{n:<4d} {name[:110]}")
-    return {"device_busy_ms": busy, "k3_ms": k3,
+        print(f"  {ms:8.3f} ms  x{n:<6.2f} {name[:110]}")
+    return {"device_busy_ms": busy, **mine,
             "top": [[name[:80], ms, n] for name, ms, n in kernels[:8]]}
 
 
@@ -490,9 +556,11 @@ def check_int8_batch(config: Config, config8: Config, device: torch.device,
           f"bf16 encoder {bf16_ms:.3f} ms on the card [{smi}]")
     with torch.inference_mode():
         int8_profile = device_breakdown(
-            lambda: quantize.quantized_extract(qtree, x), int8_ms, "int8 encoder")
+            lambda: quantize.quantized_extract(qtree, x), int8_ms, "int8 encoder",
+            {"k3": "qconv_requant"})
         bf16_profile = device_breakdown(
-            lambda: f_adapter.model.patch_features(xf), bf16_ms, "bf16 encoder")
+            lambda: f_adapter.model.patch_features(xf), bf16_ms, "bf16 encoder",
+            {"k3": "qconv_requant"})
     return {"int8_encoder_ms_per_batch": int8_ms,
             "bf16_encoder_ms_per_batch_int8_phase": bf16_ms,
             "int8_vs_bf16_bag_cosine_min": cos.min().item(),
@@ -518,6 +586,250 @@ def check_against_cpu(root: str, csv_path: str) -> None:
         raise AssertionError(f"cuda scores {out['cuda']} != cpu {out['cpu']}")
 
 
+def check_dropout_matmul(device: torch.device) -> dict:
+    """K2a against its plain version at both RNA layer shapes (batch 256,
+    drop probability 0.5; the mask and scaled values are the same, the
+    float32 sums run in another order: within ``K2A_TOL``), K2b against its
+    plain version on each layer's input (identical), then both timed after
+    an L2 scrub, in turns with the plain version and a one-call PyTorch
+    yardstick: ``torch.matmul`` of the pre-masked x (cuBLAS SGEMM, TF32 off)
+    for K2a, ``torch.mul`` by the pre-scaled mask for K2b."""
+    g = torch.Generator(device="cpu").manual_seed(SEED)
+    scrub = torch.empty(64 << 20, dtype=torch.uint8, device=device)
+    p, seed = RNA_DROPOUT, 20240607
+    k2a, k2b = [], []
+    for where, M, K, N in K2_SHAPES:
+        x = torch.randn(M, K, generator=g).to(device)
+        w = (torch.randn(N, K, generator=g) / math.sqrt(K)).to(device)
+        out = dropout_matmul(x, w, seed, p)
+        dropped = seeded_dropout(x, seed, p)
+        torch.cuda.synchronize()
+        err = (out - dropout_matmul_plain(x, w, seed, p)).abs().max().item()
+        mismatches = int((dropped != seeded_dropout_plain(x, seed, p)).sum())
+        xm = seeded_dropout_plain(x, seed, p)
+        mask = keep_mask(M, K, seed, p, device).float() * float(keep_scale(p))
+        fns = {
+            "k2a": lambda: dropout_matmul(x, w, seed, p),
+            "k2a_plain": lambda: dropout_matmul_plain(x, w, seed, p),
+            # yardsticks only: the port never calls them
+            "k2a_library": lambda: torch.matmul(xm, w.t()),
+            "k2b": lambda: seeded_dropout(x, seed, p),
+            "k2b_plain": lambda: seeded_dropout_plain(x, seed, p),
+            "k2b_library": lambda: torch.mul(x, mask),
+        }
+        times = {name: [] for name in fns}
+        for kind in ("k2a", "k2b"):
+            for suffix in ("_plain", "", "_library", "_library", "", "_plain"):
+                times[kind + suffix].append(_time_ms(fns[kind + suffix], 25, scrub))
+        ms = {name: sum(t) / len(t) for name, t in times.items()}
+        # K2a: x, w read and out written once; 2·M·K·N multiply-adds plus
+        # the scaling of the kept x at the float32 FMA rate
+        a_bytes = 4 * (M * K + N * K + M * N) / HBM_BYTES_PER_S * 1e3
+        a_ops = (2 * M * K * N + M * K) / PEAK_FLOPS[torch.float32] * 1e3
+        # K2b: x read, out written; one multiply per element
+        b_bytes = 8 * M * K / HBM_BYTES_PER_S * 1e3
+        b_ops = M * K / PEAK_FLOPS[torch.float32] * 1e3
+        a = {"where": where, "M": M, "K": K, "N": N, "max_abs_err": err,
+             "ms": ms["k2a"], "plain_ms": ms["k2a_plain"], "library_ms": ms["k2a_library"],
+             "bound_ms": max(a_bytes, a_ops),
+             "bound_by": "bytes" if a_bytes >= a_ops else "operations",
+             "tflops": 2 * M * K * N / ms["k2a"] / 1e9}
+        b = {"where": where, "M": M, "K": K, "mismatches": mismatches,
+             "ms": ms["k2b"], "plain_ms": ms["k2b_plain"], "library_ms": ms["k2b_library"],
+             "bound_ms": max(b_bytes, b_ops),
+             "bound_by": "bytes" if b_bytes >= b_ops else "operations"}
+        print(f"dropout_matmul {json.dumps(a)}")
+        print(f"seeded_dropout {json.dumps(b)}")
+        if not err <= K2A_TOL:
+            raise AssertionError(f"dropout_matmul at {where} disagrees with its plain "
+                                 f"version: {err} > {K2A_TOL}")
+        if mismatches:
+            raise AssertionError(f"seeded_dropout at {where}: {mismatches} values differ "
+                                 "from the plain version")
+        k2a.append(a)
+        k2b.append(b)
+        del x, w, out, dropped, xm, mask
+
+    def total(recs, key_err):
+        return {key_err: max(r[key_err] for r in recs),
+                **{k: sum(r[k] for r in recs)
+                   for k in ("ms", "plain_ms", "library_ms", "bound_ms")},
+                "bound_by": max(recs, key=lambda r: r["bound_ms"])["bound_by"],
+                "shapes": recs}
+
+    return {"dropout_matmul": total(k2a, "max_abs_err"),
+            "seeded_dropout": total(k2b, "mismatches")}
+
+
+def make_rna_cohort(root: str, sizes: dict, seed: int) -> dict:
+    """Synthetic RNA CSVs (case, survival_months, vital_status, rna_0 …
+    rna_12777; standard-normal expression, one case per row) from ``seed``.
+    Returns each split's path."""
+    rng = np.random.default_rng(seed)
+    os.makedirs(root, exist_ok=True)
+    header = "case,survival_months,vital_status," + ",".join(
+        f"rna_{i}" for i in range(RNA_GENES))
+    row = ",".join(["%.5g"] * RNA_GENES)
+    paths = {}
+    for split, n in sizes.items():
+        x = rng.standard_normal((n, RNA_GENES), dtype=np.float32)
+        months = rng.uniform(1, 120, n)
+        status = rng.integers(0, 2, n)
+        paths[split] = os.path.join(root, f"rna_{split}.csv")
+        with open(paths[split], "w") as f:
+            f.write(header + "\n")
+            for i in range(n):
+                f.write(f"{split}{i},{months[i]:.4f},{status[i]}," + row % tuple(x[i]) + "\n")
+    return paths
+
+
+def _rna_config(root: str, paths: dict, name: str, **overrides) -> tuple[dict, str]:
+    cfg = {
+        "batch_size": RNA_BATCH, "num_epochs": RNA_EPOCHS, "dropout": RNA_DROPOUT,
+        "lr_rna": 1e-4, "lr_mlp": 1e-4, "weight_decay": 1e-5, "flag": "rna_smoke",
+        "checkpoint_path": os.path.join(root, f"{name}_ckpt"),
+        "output_path": os.path.join(root, f"{name}_serve"),
+        **{f"{split}_csv_path": path for split, path in paths.items()},
+    }
+    cfg.update(overrides)
+    cfg["model_path"] = os.path.join(cfg["checkpoint_path"], "models", "rna_smoke",
+                                     "model_last.pt")
+    path = os.path.join(root, f"{name}.json")
+    with open(path, "w") as f:
+        json.dump(cfg, f)
+    return cfg, path
+
+
+def _read_csv_column(path: str, column: str) -> list[str]:
+    with open(path) as f:
+        rows = list(csv.reader(f))
+    return [r[rows[0].index(column)] for r in rows[1:]]
+
+
+def _check_rna_outputs(cfg: dict, sizes: dict) -> None:
+    """Every frame of the RNA path present, finite, of the expected shape."""
+    frames = os.path.join(cfg["checkpoint_path"], "outputs", "rna_smoke")
+    save = os.path.join(cfg["checkpoint_path"], "models", "rna_smoke")
+    for name in ("model_last.pt", "model_dict_best.pt", "train_state.pt"):
+        if not os.path.isfile(os.path.join(save, name)):
+            raise AssertionError(f"{save}/{name} missing")
+    for split, n in sizes.items():
+        for tag in ("last", "best"):
+            path = os.path.join(frames, f"{split}_output_{tag}.csv")
+            with open(path) as f:
+                header = f.readline().strip()
+            scores = np.array(_read_csv_column(path, "score"), float)
+            if header != "id,score,survival_months,vital_status" or scores.shape != (n,) \
+                    or not np.isfinite(scores).all():
+                raise AssertionError(f"{path}: bad frame {header} {scores.shape}")
+        out = cfg["output_path"]
+        scores = np.array(_read_csv_column(os.path.join(out, f"rna_{split}_df.csv"),
+                                           "score"), float)
+        feats = np.loadtxt(os.path.join(out, f"rna_features_{split}.csv"), delimiter=",")
+        cases = _read_csv_column(os.path.join(out, f"rna_cases_{split}.csv"), "0")
+        if not (scores.shape == (n,) and np.isfinite(scores).all() and len(cases) == n
+                and feats.shape == (n, 2048) and np.isfinite(feats).all()):
+            raise AssertionError(f"{split}: bad serving outputs {scores.shape} {feats.shape}")
+
+
+def drive_rna_path(root: str, device: torch.device, smi: str) -> tuple[dict, dict]:
+    """``rna_train`` (2 epochs, dropout 0.5), then ``rna_savescore`` and
+    ``rna_extractfeatures`` on its ``model_last.pt``, at the reference width
+    on ``cuda``. The counters are set to 0 just before each CLI and read just
+    after it; then the train step's device time and profile."""
+    paths = make_rna_cohort(os.path.join(root, "rna"), RNA_SPLITS, SEED)
+    cfg, cfg_path = _rna_config(root, paths, "rna")
+    steps = RNA_EPOCHS * math.ceil(RNA_SPLITS["train"] / RNA_BATCH)
+    by_cli = {}
+    for cli, main, expected in (
+        ("rna_train", rna_train.main,
+         {"dropout_matmul": K2A_PER_STEP * steps, "seeded_dropout": K2B_PER_STEP * steps}),
+        ("rna_savescore", rna_savescore.main, {}),
+        ("rna_extractfeatures", rna_extractfeatures.main, {}),
+    ):
+        expected = {name: expected.get(name, 0) for name in COUNTERS}
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        main(["--config", cfg_path])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        print(f"RNA path {cli}: launches {counts} (expected {expected}); {wall:.2f} s "
+              f"wall clock with CSV parsing and checkpoints [{smi}]")
+        if counts != expected:
+            raise AssertionError(f"{cli} launched {counts}, expected {expected}")
+        by_cli[cli] = {"launches": counts, "wall_s": wall}
+    _check_rna_outputs(cfg, RNA_SPLITS)
+    return by_cli, check_rna_train_step(Config(cfg), device, smi)
+
+
+def check_rna_train_step(config: Config, device: torch.device, smi: str) -> dict:
+    """Device time of one RNA train step on a batch already on the card
+    (CUDA events, mean of 10 after 3 warm-up steps), its profile, and the
+    host's time to read and place a batch."""
+    ds = RNATableDataset(config["train_csv_path"])
+    torch.manual_seed(SEED)
+    model = build_rna_model(config, ds.feature_dim).to(device)
+    adapter = TableAdapter(model=model, device=device)
+    optimizer = tune_optimizer(build_rna_optimizer(model, config), config, len(ds),
+                               num_epochs=RNA_EPOCHS, batch_size=RNA_BATCH)
+    settings = TrainSettings(batch_size=RNA_BATCH)
+    loss_fn, keys = make_loss_fn(settings)
+    keys = adapter.array_keys + keys
+    generator = torch.Generator().manual_seed(SEED)
+    t0 = time.perf_counter()
+    for batch in ds.batches(RNA_BATCH, shuffle=True, seed=SEED):
+        arrays = adapter.to_device(batch, keys)
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) / math.ceil(len(ds) / RNA_BATCH) * 1e3
+
+    def step():
+        return train_step(adapter, optimizer, loss_fn, arrays, settings, generator)
+
+    for _ in range(3):
+        step()
+    events = []
+    for _ in range(10):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        loss = step()
+        end.record()
+        events.append((start, end))
+    torch.cuda.synchronize()
+    step_ms = sum(s.elapsed_time(e) for s, e in events) / len(events)
+    if not torch.isfinite(loss):
+        raise AssertionError(f"RNA train step loss {loss.item()}")
+    print(f"RNA train step (batch {RNA_BATCH}, 12,778 -> 4,096 -> 2,048 -> 1, float32, "
+          f"dropout {RNA_DROPOUT}): {step_ms:.3f} ms on the card; host read and copy of "
+          f"a batch {host_ms:.2f} ms [{smi}]")
+    profile = device_breakdown(step, step_ms, "RNA train step",
+                               {"k2a": "dropout_matmul_kernel", "k2b": "seeded_dropout_kernel"})
+    return {"rna_train_step_ms": step_ms, "rna_host_batch_ms": host_ms,
+            "rna_train_step_profile": profile}
+
+
+def check_rna_against_cpu(root: str) -> None:
+    """A few dropout-free RNA train steps at the reference width on the card
+    (K2) and on the CPU (plain versions) from one seeded init: the val
+    scores must agree."""
+    paths = make_rna_cohort(os.path.join(root, "rna_small"),
+                            {"train": 32, "val": 16, "test": 16}, SEED + 1)
+    scores = {}
+    for dev in ("cuda", "cpu"):
+        cfg, cfg_path = _rna_config(root, paths, f"rna_ref_{dev}", batch_size=16,
+                                    num_epochs=1, dropout=0.0, lr_rna=1e-5, lr_mlp=1e-5)
+        rna_train.main(["--config", cfg_path, "--device", dev])
+        frame = os.path.join(cfg["checkpoint_path"], "outputs", "rna_smoke",
+                             "val_output_last.csv")
+        scores[dev] = np.array(_read_csv_column(frame, "score"), float)
+    diff = np.abs(scores["cuda"] - scores["cpu"]).max()
+    print(f"RNA reference: 2 dropout-free train steps, val scores cuda vs cpu "
+          f"max_abs_diff {diff:.3e} (scale {np.abs(scores['cpu']).max():.3e})")
+    if not np.allclose(scores["cuda"], scores["cpu"], rtol=1e-3, atol=1e-4):
+        raise AssertionError(f"cuda scores {scores['cuda']} != cpu {scores['cpu']}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -538,10 +850,16 @@ def main() -> int:
 
     timings = check_attention_pool(device)
     k3 = check_qmm_requant(device)
+    k2 = check_dropout_matmul(device)
 
     with tempfile.TemporaryDirectory() as root:
         launches, e2e = drive_main_path(root, device, smi)
         check_against_cpu(root, os.path.join(root, "cohort.csv"))
+        rna_launches, rna_e2e = drive_rna_path(root, device, smi)
+        check_rna_against_cpu(root)
+    e2e.update(rna_e2e)
+    k2_launches = {name: {cli: rec["launches"][name] for cli, rec in rna_launches.items()}
+                   for name in ("dropout_matmul", "seeded_dropout")}
 
     bf16 = timings["bfloat16"]
     by_path = {path: counts["attention_pool"] for path, counts in launches.items()}
@@ -578,7 +896,23 @@ def main() -> int:
         "bound_by": k3["bound_by"],
         "library_ms": k3["library_ms"],
         "shapes": k3["shapes"],
-    }], **e2e}))
+    }] + [{
+        "name": name,
+        "route": "cuda",
+        "source": "multimodalbrainsurvival_torch/kernels/csrc/dropout_matmul.cu",
+        # deleted from the JAX package; read it with git show 4fbc57a^:<file>
+        "replaces": "multimodalbrainsurvival_tpu/ops/pallas/dropout_matmul.py:" + line,
+        "launches": sum(k2_launches[name].values()),
+        "launches_by_path": k2_launches[name],
+        # times and bounds: sums over the shapes listed (drop probability 0.5)
+        **{key: k2[name][key] for key in (err, "ms", "plain_ms", "bound_ms", "bound_by",
+                                          "library_ms", "shapes")},
+        "tolerance": tol,
+    } for name, line, err, tol in (
+        ("dropout_matmul", "160", "max_abs_err", K2A_TOL),
+        ("seeded_dropout", "135", "mismatches", 0),
+    )], "rna_cli_wall_s": {cli: rec["wall_s"] for cli, rec in rna_launches.items()},
+        **e2e}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -5,14 +5,19 @@ point is ``python -m multimodalbrainsurvival_torch.cli.<name> --config
 cfg.json [--seed N] [--quick 0/1] [--device cuda|cpu]``; the device is
 ``cuda`` unless ``--device cpu`` is given, and a run without a card raises.
 The config's ``use_cuda`` key is not read: the device comes from
-``--device`` alone.
+``--device`` alone. ``--seed`` seeds training: the initial weights and the
+dropout seeds (serving draws no random numbers).
+
+Training runs keep the reference layout: checkpoints under
+``<checkpoint_path>/models/<flag>/``, score frames under
+``<checkpoint_path>/outputs/<flag>/``.
 """
 
 from __future__ import annotations
 
 import argparse
-import csv
 import datetime
+import os
 
 import numpy as np
 import torch
@@ -24,6 +29,11 @@ from multimodalbrainsurvival_torch.models.convert import load_reference_state_di
 from multimodalbrainsurvival_torch.models.folding import fold_resnet_state_dict
 from multimodalbrainsurvival_torch.models.quantize import quantize_mil_resnet
 from multimodalbrainsurvival_torch.train.adapters import MILAdapter, QuantizedMILAdapter
+from multimodalbrainsurvival_torch.train.optim import (
+    TrainOptimizer,
+    relative_lr_schedule,
+    wrap_optimizer,
+)
 
 
 def make_parser(description: str) -> argparse.ArgumentParser:
@@ -35,8 +45,8 @@ def make_parser(description: str) -> argparse.ArgumentParser:
     p.add_argument("--log", type=int, default=0,
                    help="accepted for reference CLI parity (unused)")
     p.add_argument("--seed", type=int, default=1111,
-                   help="accepted for reference CLI parity (serving draws "
-                        "no random numbers)")
+                   help="seed of training's initial weights and dropout "
+                        "(serving draws no random numbers)")
     p.add_argument("--save_images", type=int, default=0,
                    help="accepted for reference CLI parity (unused)")
     p.add_argument("--device", type=str, default="cuda",
@@ -51,10 +61,68 @@ def load_config(args) -> tuple[Config, str]:
     unknown = config.unknown_keys()
     if unknown:
         print(f"config: ignoring unrecognized keys: {', '.join(unknown)}")
+    ignored = config.ignored_keys()
+    if ignored:
+        print(f"config: ignoring keys with no meaning in the port: {', '.join(ignored)}")
+    config.check_ported()
     flag = config.get("flag", "") or "train_{date:%Y-%m-%d_%H:%M:%S}".format(
         date=datetime.datetime.now()
     )
     return config, flag
+
+
+def experiment_dirs(config: Config, flag: str) -> tuple[str, str]:
+    """``(<checkpoint_path>/models/<flag>, <checkpoint_path>/outputs/<flag>)``,
+    the first created."""
+    checkpoint_path = config.get("checkpoint_path", "checkpoints/")
+    save_dir = os.path.join(checkpoint_path, "models", flag)
+    output_dir = os.path.join(checkpoint_path, "outputs", flag)
+    os.makedirs(save_dir, exist_ok=True)
+    return save_dir, output_dir
+
+
+def maybe_restore(model: torch.nn.Module, config: Config, keys: tuple[str, ...]) -> None:
+    """Warm start: load each reference-keyed ``.pt`` the config names under
+    ``keys``, in order (``2_HistoPath_train.py:531-537``)."""
+    for key in keys:
+        path = config.get(key, "")
+        if path:
+            model.load_state_dict(load_reference_state_dict(path))
+            print("Loaded model from checkpoint for finetuning")
+
+
+def tune_optimizer(optimizer: torch.optim.Optimizer, config: Config, n_train: int,
+                   *, num_epochs: int, batch_size: int) -> TrainOptimizer:
+    """The config's whole-model optimizer knobs around the groups
+    (``cli/_common.py:184-229`` of the JAX package): ``lr_schedule``
+    ("constant" | "cosine" | "linear" | "step") over
+    ``ceil(n_train / batch_size) · num_epochs`` steps with ``warmup_steps``,
+    ``lr_min_factor``, ``lr_step_every_epochs`` + ``lr_step_gamma``; and
+    ``grad_clip_norm``."""
+    kind = str(config.get("lr_schedule", "constant"))
+    warmup = int(config.get("warmup_steps", 0))
+    clip = config.get("grad_clip_norm")
+    steps_per_epoch = max(1, -(-int(n_train) // int(batch_size)))
+    schedule = None
+    if kind != "constant" or warmup > 0:
+        schedule = relative_lr_schedule(
+            kind,
+            total_steps=steps_per_epoch * int(num_epochs),
+            warmup_steps=warmup,
+            min_factor=float(config.get("lr_min_factor", 0.0)),
+            step_every=int(config.get("lr_step_every_epochs", 0)) * steps_per_epoch,
+            step_gamma=float(config.get("lr_step_gamma", 0.1)),
+        )
+    return wrap_optimizer(optimizer, schedule=schedule,
+                          grad_clip_norm=float(clip) if clip is not None else None)
+
+
+def early_stop_kwargs(config: Config) -> dict:
+    """TrainSettings kwargs of the opt-in early stopping."""
+    return {
+        "early_stop_patience": int(config.get("early_stop_patience", 0)),
+        "early_stop_min_delta": float(config.get("early_stop_min_delta", 0.0)),
+    }
 
 
 def savescore_name(prefix: str, dataset: str, flag: str) -> str:
@@ -63,17 +131,6 @@ def savescore_name(prefix: str, dataset: str, flag: str) -> str:
     if "cv" in flag:
         return f"{prefix}_{dataset}_{flag}_df.csv"
     return f"{prefix}_{dataset}_df.csv"
-
-
-def write_frame(path: str, frame: dict[str, list]) -> None:
-    """Write ``{column: values}`` as ``DataFrame(frame).to_csv(path)`` does:
-    an unnamed leading index column, then the columns in order."""
-    columns = list(frame)
-    with open(path, "w", newline="") as f:
-        w = csv.writer(f)
-        w.writerow([""] + columns)
-        for i, row in enumerate(zip(*(frame[c] for c in columns))):
-            w.writerow([i] + [repr(v) if isinstance(v, float) else v for v in row])
 
 
 def extract_features_frames(cases: list[str], feats: np.ndarray):

@@ -19,10 +19,10 @@ from multimodalbrainsurvival_torch.cli._common import (
     load_config,
     make_parser,
     serving_adapter,
-    write_frame,
 )
 from multimodalbrainsurvival_torch.cli.histo_train import build_datasets
 from multimodalbrainsurvival_torch.device import resolve_device
+from multimodalbrainsurvival_torch.frames import write_frame
 from multimodalbrainsurvival_torch.train.adapters import MILAdapter
 
 

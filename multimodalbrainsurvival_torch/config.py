@@ -3,6 +3,12 @@
 The port's own copy of ``multimodalbrainsurvival_tpu/config.py`` (stdlib
 only): the same known keys, and the typed accessors the ported paths read,
 with the same defaults.
+
+Keys of the JAX package that mean nothing here (XLA buffer donation,
+checkify, the JAX profiler, multi-host preemption consensus) are reported
+as ignored, as ``use_cuda`` is (the device comes from ``--device``). Keys
+that change results but whose path is not ported yet raise, with a pointer
+to ROADMAP.md, rather than being dropped silently.
 """
 
 from __future__ import annotations
@@ -45,6 +51,11 @@ KNOWN_KEYS = {
 }
 
 
+#: read by the JAX package only; no meaning in the port
+IGNORED_KEYS = ("use_cuda", "donate_state", "debug_checkify", "profile_steps",
+                "profile_dir", "preempt_sync_every", "compile_cache_dir")
+
+
 @dataclass
 class Config:
     raw: dict[str, Any] = field(default_factory=dict)
@@ -63,6 +74,19 @@ class Config:
     def unknown_keys(self) -> list[str]:
         return sorted(k for k in self.raw if k not in KNOWN_KEYS)
 
+    def ignored_keys(self) -> list[str]:
+        return [k for k in IGNORED_KEYS if k in self.raw]
+
+    def check_ported(self) -> None:
+        """Raise on a ``mesh`` over more than one device: data and model
+        parallelism are not ported yet (ROADMAP.md, queue 1, item 7)."""
+        spec = self.raw.get("mesh") or {}
+        if spec and (int(spec.get("dp", 0)) or 0) * int(spec.get("mp", 1)) != 1:
+            raise NotImplementedError(
+                f"mesh {spec} is not ported yet: the port trains and serves on "
+                "one device (ROADMAP.md, queue 1, item 7)"
+            )
+
     @property
     def model_name(self) -> str:
         return self.raw.get("model_name", "resnet50")
@@ -74,6 +98,22 @@ class Config:
     @property
     def batch_size(self) -> int:
         return int(self.raw.get("batch_size", 128))
+
+    @property
+    def num_epochs(self) -> int:
+        return int(self.raw.get("num_epochs", 10))
+
+    @property
+    def weight_decay(self) -> float:
+        return float(self.raw.get("weight_decay", 0.0))
+
+    @property
+    def reference_parity(self) -> bool:
+        return bool(self.raw.get("reference_parity", True))
+
+    @property
+    def log_interval(self) -> int:
+        return int(self.raw.get("log_interval", 100))
 
     @property
     def img_size(self) -> int:

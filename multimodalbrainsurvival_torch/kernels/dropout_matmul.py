@@ -1,0 +1,207 @@
+"""Seeded dropout fused into a matrix product (K2a) and applied alone (K2b):
+CUDA kernel wrappers, plain versions and the autograd function.
+
+Replaces the TPU kernels of ``multimodalbrainsurvival_tpu/ops/pallas/
+dropout_matmul.py`` (deleted in commit ``4fbc57a``): ``_forward`` /
+``_dropout_matmul_kernel`` (``pallas_call`` at ``:160``) and
+``apply_seeded_dropout`` / ``_apply_dropout_kernel`` (``:135``), with the
+``custom_vjp`` ``_bwd`` (``:207-218``) as ``DropoutMatmul``. The kernel
+source is ``csrc/dropout_matmul.cu``; its header says what bounds it on the
+card and what its design does about that.
+
+The keep-mask is a counter hash of ``(seed, row, col)``, a copy of the TPU
+kernel's ``_mask_block`` (``:52-71``) in ``uint32``: ``gidx = row·65536 +
+col``, ``h = gidx ^ (seed·0x9E3779B1)``, a murmur3 finalizer, keep iff
+``h >= min(int(p·2³²), 2³²−1)``; a kept value is ``x·float32(1/(1−p))``.
+So the backward regenerates the mask instead of storing it::
+
+    y  = (M⊙x)·s @ Wᵀ
+    dx = M⊙(g W)·s          (K2b on the product)
+    dW = gᵀ (M⊙x)·s         (K2b on x, then the product)
+
+``W`` is in the ``nn.Linear`` layout (N, K). The two products of the
+backward stay ``torch.matmul``: the JAX package computed them outside
+Pallas too.
+
+``dropout_matmul`` and ``seeded_dropout`` dispatch on the device of their
+input: a CPU tensor goes to the plain version; a CUDA tensor launches the
+kernel or raises. ``dropout_matmul.launches`` and
+``seeded_dropout.launches`` count kernel launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+#: gidx = row·65536 + col: columns alias beyond this width
+MAX_K = 1 << 16
+_M32 = 0xFFFFFFFF
+
+_lib: ctypes.CDLL | None = None
+
+
+def keep_threshold(p: float) -> int:
+    """keep iff hash >= threshold, so P(keep) = 1 − p."""
+    return min(int(p * (1 << 32)), _M32)
+
+
+def keep_scale(p: float) -> np.float32:
+    """The float32 factor of a kept value."""
+    return np.float32(1.0 / (1.0 - p))
+
+
+def _mul32(a: torch.Tensor, b: int) -> torch.Tensor:
+    """``a·b mod 2³²`` for int64 ``a`` in [0, 2³²) and a 32-bit constant
+    ``b``, in 16-bit halves of ``b`` so no product passes 2⁴⁹."""
+    lo, hi = b & 0xFFFF, b >> 16
+    return (a * lo + ((a * hi) & 0xFFFF) * 65536) & _M32
+
+
+def keep_mask(rows: int, cols: int, seed: int, p: float,
+              device: torch.device | str = "cpu") -> torch.Tensor:
+    """(rows, cols) bool keep-mask of ``seed`` at drop probability ``p``."""
+    r = torch.arange(rows, dtype=torch.int64, device=device)
+    c = torch.arange(cols, dtype=torch.int64, device=device)
+    h = ((r[:, None] * 65536 + c[None, :]) & _M32) ^ ((int(seed) * 0x9E3779B1) & _M32)
+    h = h ^ (h >> 16)
+    h = _mul32(h, 0x85EBCA6B)
+    h = h ^ (h >> 13)
+    h = _mul32(h, 0xC2B2AE35)
+    h = h ^ (h >> 16)
+    return h >= keep_threshold(p)
+
+
+def seeded_dropout_plain(x: torch.Tensor, seed: int, p: float) -> torch.Tensor:
+    """(M, K) ``x`` with the mask of ``seed`` applied and the kept values
+    scaled; ``x`` itself at ``p == 0``."""
+    if p == 0:
+        return x
+    keep = keep_mask(x.shape[0], x.shape[1], seed, p, x.device)
+    scale = torch.tensor(keep_scale(p), device=x.device)
+    return torch.where(keep, x * scale, torch.zeros((), device=x.device))
+
+
+def dropout_matmul_plain(x: torch.Tensor, weight: torch.Tensor, seed: int,
+                         p: float) -> torch.Tensor:
+    """(M, K) ``x`` masked and scaled, times the (N, K) ``weight``
+    transposed → (M, N)."""
+    return seeded_dropout_plain(x, seed, p) @ weight.t()
+
+
+def _library() -> ctypes.CDLL:
+    global _lib
+    if _lib is None:
+        from multimodalbrainsurvival_torch.kernels import build
+
+        lib = build.load("dropout_matmul")
+        lib.dropout_matmul_f32.argtypes = (
+            [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
+            + [ctypes.c_uint32, ctypes.c_uint32, ctypes.c_float, ctypes.c_int,
+               ctypes.c_void_p]
+        )
+        lib.dropout_matmul_f32.restype = ctypes.c_int
+        lib.seeded_dropout_f32.argtypes = [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+            ctypes.c_uint32, ctypes.c_uint32, ctypes.c_float, ctypes.c_void_p,
+        ]
+        lib.seeded_dropout_f32.restype = ctypes.c_int
+        _lib = lib
+    return _lib
+
+
+def _check(x: torch.Tensor, p: float, *others: torch.Tensor) -> None:
+    if x.dim() != 2:
+        raise ValueError(f"x must be (M, K), got {tuple(x.shape)}")
+    if not 0.0 <= p < 1.0:
+        raise ValueError(f"drop probability must be in [0, 1), got {p}")
+    if x.shape[1] > MAX_K:
+        raise ValueError(f"K = {x.shape[1]} > {MAX_K}: the mask's column index "
+                         "would alias")
+    for t in (x, *others):
+        if t.dtype != torch.float32:
+            raise ValueError(f"the kernels take float32, got {t.dtype}")
+        if t.device != x.device:
+            raise ValueError(f"all inputs must be on {x.device}, got {t.device}")
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"runs on cpu or cuda, not {x.device}")
+    if x.device.type == "cuda":
+        if not all(t.is_contiguous() for t in (x, *others)):
+            raise ValueError("the kernels take contiguous inputs")
+        if x.numel() >= 2**31 or any(t.numel() >= 2**31 for t in others):
+            raise ValueError(f"shape {tuple(x.shape)} is beyond the kernel's range")
+
+
+def dropout_matmul(x: torch.Tensor, weight: torch.Tensor, seed: int,
+                   p: float) -> torch.Tensor:
+    """K2a: (M, K) float32 ``x`` with the mask of ``seed`` at drop
+    probability ``p`` applied, times the (N, K) float32 ``weight``
+    transposed → (M, N) float32. At ``p == 0`` a plain product."""
+    _check(x, p, weight)
+    if weight.dim() != 2 or weight.shape[1] != x.shape[1]:
+        raise ValueError(f"weight must be (N, {x.shape[1]}), got {tuple(weight.shape)}")
+    if x.device.type == "cpu":
+        return dropout_matmul_plain(x, weight, seed, p)
+    (M, K), N = x.shape, weight.shape[0]
+    out = torch.empty((M, N), dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = _library().dropout_matmul_f32(
+            x.data_ptr(), weight.data_ptr(), out.data_ptr(), M, N, K,
+            int(seed) & _M32, keep_threshold(p), float(keep_scale(p)),
+            int(p > 0), stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"dropout_matmul kernel launch failed: CUDA error {err}")
+    dropout_matmul.launches += 1
+    return out
+
+
+def seeded_dropout(x: torch.Tensor, seed: int, p: float) -> torch.Tensor:
+    """K2b: (M, K) float32 ``x`` with the mask of ``seed`` applied and kept
+    values scaled, bit for bit as the plain version; ``x`` itself at
+    ``p == 0`` (no launch)."""
+    _check(x, p)
+    if x.device.type == "cpu" or p == 0:
+        return seeded_dropout_plain(x, seed, p)
+    out = torch.empty_like(x)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = _library().seeded_dropout_f32(
+            x.data_ptr(), out.data_ptr(), x.numel(), x.shape[1],
+            int(seed) & _M32, keep_threshold(p), float(keep_scale(p)), stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"seeded_dropout kernel launch failed: CUDA error {err}")
+    seeded_dropout.launches += 1
+    return out
+
+
+dropout_matmul.launches = 0
+seeded_dropout.launches = 0
+
+
+class DropoutMatmul(torch.autograd.Function):
+    """``dropout(x; seed, p) @ weightᵀ`` with the mask regenerated in the
+    backward (``_bwd``, ``dropout_matmul.py:207-218``): K2a forward, K2b on
+    ``g W`` for dx and on ``x`` for dW. dx is skipped when ``x`` needs no
+    gradient (the data entering the first layer)."""
+
+    @staticmethod
+    def forward(ctx, x, weight, seed: int, p: float):
+        ctx.save_for_backward(x, weight)
+        ctx.seed, ctx.p = seed, p
+        return dropout_matmul(x, weight, seed, p)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, weight = ctx.saved_tensors
+        g = g.contiguous()
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = seeded_dropout(g @ weight, ctx.seed, ctx.p)
+        if ctx.needs_input_grad[1]:
+            dw = g.t() @ seeded_dropout(x, ctx.seed, ctx.p)
+        return dx, dw, None, None

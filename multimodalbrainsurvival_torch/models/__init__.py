@@ -1,4 +1,5 @@
-"""Models of the port: ResNet encoders, MIL aggregators and heads."""
+"""Models of the port: ResNet encoders, MIL aggregators and heads, the RNA
+MLP."""
 
 from multimodalbrainsurvival_torch.models.aggregators import (
     IdentityAggregator,
@@ -11,12 +12,15 @@ from multimodalbrainsurvival_torch.models.mil import (
     masked_bag_mean,
 )
 from multimodalbrainsurvival_torch.models.resnet import RESNET_CONSTRUCTORS
+from multimodalbrainsurvival_torch.models.rna import RNAEncoder, RNAOnlyModel
 
 __all__ = [
     "AggregationModel",
     "AggregationProjectModel",
     "IdentityAggregator",
     "RESNET_CONSTRUCTORS",
+    "RNAEncoder",
+    "RNAOnlyModel",
     "TanhAttention",
     "make_aggregator",
     "masked_bag_mean",

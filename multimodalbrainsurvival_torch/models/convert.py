@@ -14,6 +14,11 @@ the JAX package's ``torch_mil_to_flax``
   Dense ``kernel`` (in, out)                 → ``weight`` (out, in)
   ``aggregator/linear/kernel``, ``vector``   → ``aggregator.linear.weight``, ``aggregator.vector``
 
+``flax_rna_to_torch`` is the inverse of ``torch_rna_to_flax``
+(``multimodalbrainsurvival_tpu/models/convert.py:175-190``): ``encoder/
+dense_0``, ``encoder/dense_1`` and ``final`` → ``rna_mlp.1``, ``rna_mlp.4``
+and ``final_mlp.0`` (the reference's ``RNAOnlyModel`` keys).
+
 ``flax_qtree_to_torch`` carries the JAX package's int8 serving tree
 (``models/quantize.py::quantize_resnet``) into the port's layout
 (``multimodalbrainsurvival_torch/models/quantize.py``): the same keys, HWIO
@@ -71,6 +76,24 @@ def flax_mil_to_torch(params: Mapping, batch_stats: Mapping | None = None
     for path, value in _flatten(batch_stats or {}):
         key = f"{_torch_scope(path[:-1])}.{_STAT_RENAMES[path[-1]]}"
         state[key] = torch.tensor(np.asarray(value, np.float32))
+    return state
+
+
+_RNA_LINEARS = {("encoder", "dense_0"): "rna_mlp.1",
+                ("encoder", "dense_1"): "rna_mlp.4",
+                ("final",): "final_mlp.0"}
+
+
+def flax_rna_to_torch(params: Mapping) -> dict[str, torch.Tensor]:
+    """The JAX package's ``RNAOnlyModel`` params (numpy leaves) → the
+    port's ``state_dict``."""
+    state: dict[str, torch.Tensor] = {}
+    for path, name in _RNA_LINEARS.items():
+        dense = params
+        for key in path:
+            dense = dense[key]
+        state[f"{name}.weight"] = torch.tensor(np.asarray(dense["kernel"], np.float32).T)
+        state[f"{name}.bias"] = torch.tensor(np.asarray(dense["bias"], np.float32))
     return state
 
 

@@ -1,5 +1,6 @@
-"""Eval loop and model adapters of the port."""
+"""Train and eval loop, optimizers, checkpoints and model adapters of the
+port."""
 
-from multimodalbrainsurvival_torch.train.loop import TrainSettings, evaluate
+from multimodalbrainsurvival_torch.train.loop import TrainSettings, evaluate, train_model
 
-__all__ = ["TrainSettings", "evaluate"]
+__all__ = ["TrainSettings", "evaluate", "train_model"]

@@ -1,10 +1,11 @@
-"""Model adapters between host batches and the MIL model (eval path).
+"""Model adapters between host batches and the models.
 
-Counterpart of ``multimodalbrainsurvival_tpu/train/adapters.py:104-251``
-(``MILAdapter``, ``QuantizedMILAdapter``): they know which batch keys are
-device tensors, move them to the model's device, run the preprocessing on
-the device (``ops/image.py``) and apply the model. Train mode comes with the
-training slice.
+Counterpart of ``multimodalbrainsurvival_tpu/train/adapters.py:35-69,
+104-251`` (``TableAdapter``, ``MILAdapter``, ``QuantizedMILAdapter``): they
+know which batch keys are device tensors, move them to the model's device,
+run the preprocessing on the device (``ops/image.py``) and apply the model.
+``TableAdapter`` (the RNA MLP) trains and evaluates; the MIL adapters
+evaluate only until histopathology training is ported.
 """
 
 from __future__ import annotations
@@ -17,6 +18,45 @@ from torch import nn
 
 from multimodalbrainsurvival_torch.models.quantize import quantized_extract
 from multimodalbrainsurvival_torch.ops.image import preprocess_patches
+
+
+def to_device(batch: dict, keys: tuple, device: torch.device) -> dict:
+    """The batch's numpy arrays under ``keys`` as tensors on ``device``."""
+    return {k: torch.from_numpy(np.asarray(batch[k])).to(device) for k in keys}
+
+
+@dataclass
+class TableAdapter:
+    """Feature-vector models (the RNA MLP): ``data`` (B, D) float32 in,
+    ``mask`` (B,) marks the real rows of a padded batch."""
+
+    model: nn.Module
+    device: torch.device
+    loader_kwargs: dict = field(default_factory=dict)
+
+    input_key = "data"
+    sample_mask_key = "mask"
+    array_keys = ("data", "mask")
+    id_keys = ("case",)
+
+    def to_device(self, batch: dict, keys: tuple) -> dict:
+        return to_device(batch, keys, self.device)
+
+    def apply(self, arrays: dict, *, train: bool = False,
+              generator: torch.Generator | None = None) -> torch.Tensor:
+        """(B, num_classes) float32 outputs; train mode draws its dropout
+        seeds from ``generator`` and keeps the graph for the backward."""
+        self.model.train(train)
+        if train:
+            return self.model(arrays[self.input_key], generator)
+        with torch.inference_mode():
+            return self.model(arrays[self.input_key])
+
+    @torch.inference_mode()
+    def extract(self, arrays: dict) -> torch.Tensor:
+        """(B, D) float32 embeddings (eval mode)."""
+        self.model.eval()
+        return self.model.extract(arrays[self.input_key])
 
 
 @dataclass
@@ -32,10 +72,7 @@ class MILAdapter:
     id_keys = ("WSI", "case")
 
     def to_device(self, batch: dict, keys: tuple) -> dict:
-        return {
-            k: torch.from_numpy(np.asarray(batch[k])).to(self.device)
-            for k in keys
-        }
+        return to_device(batch, keys, self.device)
 
     @property
     def input_dtype(self) -> torch.dtype:

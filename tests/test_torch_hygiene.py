@@ -12,7 +12,13 @@ import pytest
 import torch
 
 import multimodalbrainsurvival_torch
-from multimodalbrainsurvival_torch.cli import histo_extractfeatures, histo_savescore
+from multimodalbrainsurvival_torch.cli import (
+    histo_extractfeatures,
+    histo_savescore,
+    rna_extractfeatures,
+    rna_savescore,
+    rna_train,
+)
 from multimodalbrainsurvival_torch.cli.histo_train import build_mil_model
 from multimodalbrainsurvival_torch.config import Config
 from multimodalbrainsurvival_torch.device import resolve_device
@@ -37,6 +43,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     assert "multimodalbrainsurvival_torch.kernels.attention_pool" in modules
     assert "multimodalbrainsurvival_torch.kernels.qmm_requant" in modules
     assert "multimodalbrainsurvival_torch.models.quantize" in modules
+    for name in ("kernels.dropout_matmul", "models.rna", "data.tables", "train.optim",
+                 "train.checkpoint", "cli.rna_train", "cli.rna_savescore",
+                 "cli.rna_extractfeatures"):
+        assert f"multimodalbrainsurvival_torch.{name}" in modules
     code = (
         "import importlib, json, sys\n"
         f"for m in {modules!r} + ['chip_smoke']:\n"
@@ -50,7 +60,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     assert json.loads(out.stdout.strip().splitlines()[-1]) == []
 
 
-@pytest.mark.parametrize("main", [histo_savescore.main, histo_extractfeatures.main])
+@pytest.mark.parametrize("main", [
+    histo_savescore.main, histo_extractfeatures.main, rna_train.main,
+    rna_savescore.main, rna_extractfeatures.main,
+])
 def test_cli_without_card_raises_unless_cpu_asked(main, tmp_path, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = tmp_path / "cfg.json"

@@ -14,6 +14,13 @@ from multimodalbrainsurvival_torch.kernels.attention_pool import (
     attention_pool,
     attention_pool_plain,
 )
+from multimodalbrainsurvival_torch.kernels.dropout_matmul import (
+    DropoutMatmul,
+    dropout_matmul,
+    dropout_matmul_plain,
+    seeded_dropout,
+    seeded_dropout_plain,
+)
 from multimodalbrainsurvival_torch.kernels.qmm_requant import (
     qconv_requant,
     qconv_requant_plain,
@@ -164,3 +171,78 @@ def test_qmm_requant_kernel_rejects_bad_inputs(cuda):
     x = a.view(2, 4, 8, 32)
     with pytest.raises(ValueError, match="contiguous"):
         qconv_requant(x.permute(0, 2, 1, 3), w.view(16, 1, 1, 32), scale, bias)
+
+
+# K2: (M, K, N) of x (M, K) and the nn.Linear-layout weight (N, K)
+DM_SHAPES = {
+    "rna_dense_0": (256, 12778, 4096),
+    "rna_dense_1": (256, 4096, 2048),
+    "ragged_37x300x65": (37, 300, 65),
+    "one_row": (1, 33, 7),
+    "k_not_tile_multiple": (130, 2100, 129),
+}
+
+
+def _dm_inputs(M, K, N, device, seed=0):
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    x = torch.randn(M, K, generator=g)
+    w = torch.randn(N, K, generator=g) / K**0.5
+    grad = torch.randn(M, N, generator=g)
+    return tuple(t.to(device) for t in (x, w, grad))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("p", [0.0, 0.5])
+@pytest.mark.parametrize("name", sorted(DM_SHAPES))
+def test_dropout_matmul_kernel_matches_plain(cuda, name, p):
+    """The same mask and scaled values, float32 sums over up to 12,778
+    terms in another order than cuBLAS's (TF32 off): ``atol=1e-4`` on
+    outputs of order 1."""
+    x, w, _ = _dm_inputs(*DM_SHAPES[name], cuda)
+    before = dropout_matmul.launches
+    out = dropout_matmul(x, w, 20240607, p)
+    torch.cuda.synchronize()
+    assert dropout_matmul.launches == before + 1
+    want = dropout_matmul_plain(x, w, 20240607, p)
+    torch.testing.assert_close(out, want, rtol=0, atol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("p", [0.1, 0.5, 0.9])
+@pytest.mark.parametrize("shape", [(256, 12778), (256, 4096), (37, 300), (1, 1)])
+def test_seeded_dropout_kernel_equals_plain(cuda, shape, p):
+    x = torch.randn(shape, generator=torch.Generator().manual_seed(1)).to(cuda)
+    before = seeded_dropout.launches
+    out = seeded_dropout(x, -12345, p)
+    torch.cuda.synchronize()
+    assert seeded_dropout.launches == before + 1
+    assert torch.equal(out, seeded_dropout_plain(x, -12345, p))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("p", [0.0, 0.5])
+def test_dropout_matmul_backward_matches_plain_autograd(cuda, p):
+    """dx and dW of ``DropoutMatmul`` (K2a forward, K2b twice in the
+    backward) against autograd through the plain version."""
+    x, w, grad = _dm_inputs(64, 1000, 96, cuda, seed=3)
+    launched = (dropout_matmul.launches, seeded_dropout.launches)
+    tx, tw = x.clone().requires_grad_(), w.clone().requires_grad_()
+    DropoutMatmul.apply(tx, tw, 77, p).backward(grad)
+    torch.cuda.synchronize()
+    assert (dropout_matmul.launches - launched[0],
+            seeded_dropout.launches - launched[1]) == (1, 2 if p else 0)
+    px, pw = x.clone().requires_grad_(), w.clone().requires_grad_()
+    dropout_matmul_plain(px, pw, 77, p).backward(grad)
+    torch.testing.assert_close(tx.grad, px.grad, rtol=0, atol=1e-4)
+    torch.testing.assert_close(tw.grad, pw.grad, rtol=0, atol=1e-4)
+
+
+@pytest.mark.gpu
+def test_dropout_matmul_kernel_rejects_bad_inputs(cuda):
+    x, w, _ = _dm_inputs(8, 16, 4, cuda)
+    with pytest.raises(ValueError, match="float32"):
+        dropout_matmul(x.double(), w.double(), 1, 0.5)
+    with pytest.raises(ValueError, match="contiguous"):
+        dropout_matmul(x.t().contiguous().t(), w, 1, 0.5)
+    with pytest.raises(ValueError, match="alias"):
+        seeded_dropout(torch.zeros(2, 65537, device=cuda), 1, 0.5)
