@@ -15,19 +15,25 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    seeded dropout-matmul, at both RNA layer shapes within ``K2A_TOL``, and
    K2b, the seeded dropout alone, identical), then timed with CUDA events,
    L2 scrubbed before each launch, in turns with the plain version and a
-   one-call PyTorch yardstick;
+   one-call PyTorch yardstick; K4, the fused folded-BN bottleneck stage,
+   at layer1's and layer2's stride-1 tail's shapes at 256 patches in
+   bfloat16 and float32 within ``K4_TOL``, timed against the same stage
+   through cuDNN;
 4. main path: a synthetic cohort (8 slides x 64 patches at 224 px, packed
    shards, made from a seed) through the port's ``histo_savescore`` and
    ``histo_extractfeatures`` at ResNet-50 / attention 2048 / bfloat16 on
-   ``cuda``, first in floating point, then with ``quantize: "int8"``; for
-   each path the launch counters are set to 0 just before and read just
-   after, and the CSVs are checked. On one batch: the pooled embedding
-   through the pool kernel against its plain version; the int8 bag
-   embeddings against the float ones (cosine); the int8 features of 32
+   ``cuda``, first in floating point, then with ``quantize: "int8"``, then
+   with ``fold_bn: true`` (the folded encoder, its layer1 and layer2 tail
+   through K4); for each path the launch counters are set to 0 just before
+   and read just after, and the CSVs are checked. On one batch: the pooled
+   embedding through the pool kernel against its plain version; the int8
+   bag embeddings against the float ones (cosine); the int8 features of 32
    patches through K3 against the same forward through K3's plain version
-   (bit for bit); the bf16 and int8 encoders' device time;
+   (bit for bit); the folded bag embeddings against the unfolded ones
+   (cosine); the bf16, int8 and folded encoders' device time;
 5. reference: a small cohort through ``histo_savescore`` in float32 on the
-   card and on the CPU (plain versions); the scores must agree;
+   card and on the CPU (plain versions), unfolded and with ``fold_bn:
+   true`` (K4 in float32 on the card); the scores must agree;
 6. RNA path: a synthetic 12,778-gene cohort (train 1,024 / val 256 / test
    256, from a seed) through ``rna_train`` (2 epochs, batch 256, dropout
    0.5, float32 at the reference width), then ``rna_savescore`` and
@@ -45,6 +51,7 @@ the repository beside it, the script exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import copy
 import csv
 import json
 import math
@@ -87,6 +94,12 @@ from multimodalbrainsurvival_torch.kernels.dropout_matmul import (
     seeded_dropout,
     seeded_dropout_plain,
 )
+from multimodalbrainsurvival_torch.kernels.fused_stage import (
+    fused_block_plan,
+    fused_bottleneck_stage,
+    fused_bottleneck_stage_plain,
+    pack_bottleneck,
+)
 from multimodalbrainsurvival_torch.kernels.qmm_requant import (
     im2col,
     qconv_requant,
@@ -94,6 +107,7 @@ from multimodalbrainsurvival_torch.kernels.qmm_requant import (
     qmm_requant,
 )
 from multimodalbrainsurvival_torch.models import quantize
+from multimodalbrainsurvival_torch.models.resnet import Bottleneck
 from multimodalbrainsurvival_torch.models.rna import RNA_GENES
 from multimodalbrainsurvival_torch.train import TrainSettings
 from multimodalbrainsurvival_torch.train.adapters import MILAdapter, TableAdapter
@@ -138,8 +152,22 @@ K2_SHAPES = (("dense_0", RNA_BATCH, RNA_GENES, 4096), ("dense_1", RNA_BATCH, 409
 # per train step: K2a once per layer; K2b on each layer's x for dW, and on
 # dense_1's dx (dense_0's input is data, with no dx)
 K2A_PER_STEP, K2B_PER_STEP = 2, 3
+# K4 at the main path's stage shapes, 256 patches at 224 px: (where, batch,
+# Cin, H, W, Cm, blocks); Cout = 4 Cm, block 0 projects when Cin != Cout
+K4_STAGES = (("layer1", 256, 64, 56, 56, 64, 3),
+             ("layer2 tail", 256, 512, 28, 28, 128, 3))
+# K4 vs plain, err / max(1, max|plain|): float32 sums in another order;
+# in bfloat16 both round y1, y2, z and the sum, and a sum on the other side
+# of a rounding moves an output by 1-2 ulps (2**-8 of its size each)
+K4_TOL = {torch.float32: 1e-4, torch.bfloat16: 2**-6}
+# per batch of a folded Bottleneck ResNet: layer1's 3 blocks and layer2's
+# 3 stride-1 blocks, one launch each
+K4_LAUNCHES_PER_BATCH = 6
+# folded vs unfolded bf16 bag embeddings (both bf16, rounded at other places)
+FOLDED_COSINE = 0.999
 COUNTERS = {"attention_pool": attention_pool, "qmm_requant": qmm_requant,
-            "dropout_matmul": dropout_matmul, "seeded_dropout": seeded_dropout}
+            "dropout_matmul": dropout_matmul, "seeded_dropout": seeded_dropout,
+            "fused_bottleneck_stage": fused_bottleneck_stage}
 
 
 def reset_counts() -> None:
@@ -304,6 +332,94 @@ def check_qmm_requant(device: torch.device) -> dict:
     }
 
 
+def _k4_stage(batch, cin, H, W, cm, n_blocks, g, device):
+    """Seeded folded blocks (LeCun-normal weights, biases of 0.1) as modules
+    and a post-ReLU channels_last float32 input."""
+    blocks = []
+    for j in range(n_blocks):
+        blk = Bottleneck(cin if j == 0 else 4 * cm, cm, fold_bn=True)
+        with torch.no_grad():
+            for p in blk.parameters():
+                p.copy_(torch.randn(p.shape, generator=g)
+                        * (p[0].numel() ** -0.5 if p.dim() > 1 else 0.1))
+        blocks.append(blk.to(device).eval())
+    x = torch.randn(batch, cin, H, W, generator=g).relu()
+    return blocks, x.to(device).contiguous(memory_format=torch.channels_last)
+
+
+def check_fused_stage(device: torch.device) -> dict:
+    """K4 against its plain version at both stage shapes of the main path,
+    in bfloat16 and float32 (within ``K4_TOL`` of the output scale), then
+    timed after an L2 scrub in turns with the plain version and the same
+    stage through cuDNN (the folded blocks as an ``nn.Sequential`` in the
+    dtype, ``channels_last``: a yardstick only, the port never calls it)."""
+    g = torch.Generator(device="cpu").manual_seed(SEED)
+    scrub = torch.empty(64 << 20, dtype=torch.uint8, device=device)
+    records = {}
+    for where, batch, cin, H, W, cm, n_blocks in K4_STAGES:
+        modules, x32 = _k4_stage(batch, cin, H, W, cm, n_blocks, g, device)
+        for dtype in (torch.bfloat16, torch.float32):
+            x = x32.to(dtype)
+            packed = [pack_bottleneck(blk, dtype) for blk in modules]
+            plans = [fused_block_plan(dtype, H, W, p.w1.shape[1], cm, p.w3.shape[0],
+                                      p.wd is not None) for p in packed]
+            with torch.inference_mode():
+                out = fused_bottleneck_stage(x, packed)
+                torch.cuda.synchronize()
+                want = fused_bottleneck_stage_plain(x, packed)
+                scale = max(1.0, want.abs().max().item())
+                err = (out.float() - want.float()).abs().max().item()
+                del out, want
+                library = torch.nn.Sequential(*(copy.deepcopy(m) for m in modules))
+                library = library.to(dtype).to(memory_format=torch.channels_last)
+                fns = {
+                    "kernel": lambda: fused_bottleneck_stage(x, packed),
+                    "plain": lambda: fused_bottleneck_stage_plain(x, packed),
+                    "library": lambda: library(x),
+                }
+                iters = {"kernel": 10, "plain": 3, "library": 10}
+                if dtype == torch.float32:
+                    iters["kernel"] = 3
+                times = {name: [] for name in fns}
+                for name in ("plain", "kernel", "library", "library", "kernel", "plain"):
+                    times[name].append(_time_ms(fns[name], iters[name], scrub))
+            px = batch * H * W
+            macs = px * sum(t.shape[0] * t.shape[1] for p in packed
+                            for t in (p.w1, p.w2, p.w3, p.wd) if t is not None)
+            nbytes = (x.numel() + px * packed[-1].w3.shape[0]) * x.element_size() + sum(
+                t.numel() * t.element_size() for p in packed for t in p if t is not None)
+            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+            t_ops = 2 * macs / PEAK_FLOPS[dtype] * 1e3
+            kernel_ms = sum(times["kernel"]) / 2
+            rec = {
+                "where": where, "dtype": str(dtype)[6:], "shape": list(x.shape),
+                "blocks": n_blocks, "plans": plans, "max_abs_err": err, "scale": scale,
+                "tolerance": K4_TOL[dtype] * scale,
+                "ms": kernel_ms, "plain_ms": sum(times["plain"]) / 2,
+                "library_ms": sum(times["library"]) / 2,
+                "bound_ms": max(t_bytes, t_ops),
+                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                "tflops": 2 * macs / kernel_ms / 1e9,
+            }
+            print(f"fused_bottleneck_stage {json.dumps(rec)}")
+            if not err <= K4_TOL[dtype] * scale:
+                raise AssertionError(f"fused_bottleneck_stage at {where} {dtype} disagrees "
+                                     f"with its plain version: {err} > {K4_TOL[dtype]} x {scale}")
+            records[(where, dtype)] = rec
+            del x, packed, library, fns
+        del modules, x32
+
+    def total(dtype):
+        recs = [r for (_, dt), r in records.items() if dt == dtype]
+        return {"max_abs_err": max(r["max_abs_err"] for r in recs),
+                **{k: sum(r[k] for r in recs)
+                   for k in ("ms", "plain_ms", "library_ms", "bound_ms")},
+                "bound_by": max(recs, key=lambda r: r["bound_ms"])["bound_by"],
+                "stages": recs}
+
+    return {"bfloat16": total(torch.bfloat16), "float32": total(torch.float32)}
+
+
 def random_state_dict(model: torch.nn.Module, seed: int) -> dict:
     """Seeded weights: LeCun-normal convs and linears (activations stay
     O(1) through 50 layers), BN statistics and affine near identity, and a
@@ -401,22 +517,28 @@ def _run_clis(cfg_path: str) -> float:
 
 
 def drive_main_path(root: str, device: torch.device, smi: str) -> tuple[dict, dict]:
-    """Both serving paths through both CLIs: floating point, then
-    ``quantize: "int8"``. Each path's launch counts are read just after
-    its runs, with the counters set to 0 just before."""
+    """The three serving paths through both CLIs: floating point, then
+    ``quantize: "int8"``, then ``fold_bn: true``. Each path's launch counts
+    are read just after its runs, with the counters set to 0 just before."""
     csv_path, n_cases = make_cohort(root)
     cfg, cfg_path = _config(root, csv_path, "main")
     model = build_mil_model(Config(cfg))
     torch.save(random_state_dict(model, SEED), cfg["model_path"])
     cfg8, cfg8_path = _config(root, csv_path, "int8", quantize="int8",
                               output_path=os.path.join(root, "out_int8"))
+    cfgf, cfgf_path = _config(root, csv_path, "folded", fold_bn=True,
+                              output_path=os.path.join(root, "out_folded"))
     batches = 3 * 3 * math.ceil(N_WSI * N_PATCH / BAG / B)  # 3 CLI runs x 3 splits
     patches = 3 * N_WSI * N_PATCH
     launches, e2e = {}, {}
-    for path, (c, c_path) in (("bf16", (cfg, cfg_path)), ("int8", (cfg8, cfg8_path))):
-        expected = {"attention_pool": batches,
-                    "qmm_requant": K3_LAUNCHES_PER_BATCH * batches if path == "int8" else 0,
-                    "dropout_matmul": 0, "seeded_dropout": 0}
+    for path, (c, c_path) in (("bf16", (cfg, cfg_path)), ("int8", (cfg8, cfg8_path)),
+                              ("bf16_folded", (cfgf, cfgf_path))):
+        expected = {name: 0 for name in COUNTERS}
+        expected["attention_pool"] = batches
+        if path == "int8":
+            expected["qmm_requant"] = K3_LAUNCHES_PER_BATCH * batches
+        if path == "bf16_folded":
+            expected["fused_bottleneck_stage"] = K4_LAUNCHES_PER_BATCH * batches
         reset_counts()
         wall = _run_clis(c_path)
         counts = read_counts()
@@ -428,9 +550,11 @@ def drive_main_path(root: str, device: torch.device, smi: str) -> tuple[dict, di
               f"calibration and host loading): {patches / wall:.1f} patches/s, "
               f"{wall:.3f} s [{smi}]")
         launches[path] = counts
-        e2e["extract_cli_patches_per_s" + ("_int8" if path == "int8" else "")] = patches / wall
+        e2e["extract_cli_patches_per_s" + ("" if path == "bf16" else "_" + path)] = \
+            patches / wall
     e2e.update(check_main_path_batch(Config(cfg), device, smi))
     e2e.update(check_int8_batch(Config(cfg), Config(cfg8), device, smi))
+    e2e.update(check_folded_batch(Config(cfg), Config(cfgf), device, smi))
     return launches, e2e
 
 
@@ -568,22 +692,80 @@ def check_int8_batch(config: Config, config8: Config, device: torch.device,
             "bf16_encoder_profile": bf16_profile}
 
 
+def check_folded_batch(config: Config, config_f: Config, device: torch.device,
+                       smi: str) -> dict:
+    """One main-path batch through the folded encoder (layer1 and layer2's
+    tail through K4): its bag embeddings against the unfolded bf16 path's
+    (per-sample cosine), device times in turns of the folded encoder, the
+    unfolded one and, as a yardstick the port never serves with, the same
+    folded weights through cuDNN alone (``ResNet.extract``), and the folded
+    encoder's profile."""
+    f_adapter = MILAdapter(model=load_mil_model(config_f, device), device=device)
+    u_adapter = MILAdapter(model=load_mil_model(config, device), device=device)
+    val = build_datasets(config, False)["val"]
+    arrays = f_adapter.to_device(next(val.batches(B, num_threads=8)), f_adapter.array_keys)
+    scrub = torch.empty(64 << 20, dtype=torch.uint8, device=device)
+    with torch.inference_mode():
+        real = arrays["sample_mask"]
+        launched = fused_bottleneck_stage.launches
+        folded = f_adapter.extract(arrays)
+        if fused_bottleneck_stage.launches - launched != K4_LAUNCHES_PER_BATCH:
+            raise AssertionError("the folded encoder did not run K4 once per block")
+        cos = torch.nn.functional.cosine_similarity(
+            folded[real].double(), u_adapter.extract(arrays)[real].double(), dim=1)
+        x = f_adapter.inputs(arrays)
+        flat = x.reshape((-1,) + tuple(x.shape[2:]))
+        fns = {"folded": lambda: f_adapter.model.patch_features(x),
+               "unfolded": lambda: u_adapter.model.patch_features(x),
+               "folded_cudnn": lambda: f_adapter.model.resnet.extract(flat)}
+        times = {name: [] for name in fns}
+        for name in ("unfolded", "folded", "folded_cudnn", "folded_cudnn", "folded",
+                     "unfolded"):
+            times[name].append(_time_ms(fns[name], 10, scrub))
+        folded_ms, unfolded_ms, cudnn_ms = (sum(times[n]) / 2 for n in
+                                            ("folded", "unfolded", "folded_cudnn"))
+    print(f"folded batch: bag embedding cosine vs the unfolded bf16 path min "
+          f"{cos.min().item():.6f} mean {cos.mean().item():.6f} over {int(real.sum())} "
+          f"bags (limit {FOLDED_COSINE})")
+    if not cos.min().item() >= FOLDED_COSINE:
+        raise AssertionError(f"folded bag embeddings off the unfolded path: {cos}")
+    print(f"per batch of {x.shape[0] * x.shape[1]} patches: folded bf16 encoder "
+          f"{folded_ms:.3f} ms, unfolded bf16 encoder {unfolded_ms:.3f} ms, folded "
+          f"through cuDNN alone {cudnn_ms:.3f} ms on the card [{smi}]")
+    with torch.inference_mode():
+        profile = device_breakdown(fns["folded"], folded_ms, "folded bf16 encoder",
+                                   {"k4": "fused_block_kernel"})
+    return {"folded_encoder_ms_per_batch": folded_ms,
+            "unfolded_encoder_ms_per_batch_folded_phase": unfolded_ms,
+            "folded_cudnn_encoder_ms_per_batch": cudnn_ms,
+            "folded_vs_unfolded_bag_cosine_min": cos.min().item(),
+            "folded_encoder_profile": profile}
+
+
 def check_against_cpu(root: str, csv_path: str) -> None:
-    """float32 scores on the card against the CPU path (plain versions)."""
-    out = {}
-    for dev in ("cuda", "cpu"):
-        cfg, cfg_path = _config(
-            root, csv_path, f"ref_{dev}", compute_dtype="float32", batch_size=4,
-            val_bag_size=4, train_bag_size=4, max_patch_per_wsi_train=4,
-            max_patch_per_wsi_val=4, output_path=os.path.join(root, f"ref_{dev}"))
-        histo_savescore.main(["--config", cfg_path, "--device", dev])
-        with open(os.path.join(cfg["output_path"], "model.pt_pathology_val_df.csv")) as f:
-            out[dev] = np.array([float(r.split(",")[2]) for r in f.read().splitlines()[1:]])
-    diff = np.abs(out["cuda"] - out["cpu"]).max()
-    print(f"reference: float32 scores cuda vs cpu max_abs_diff {diff:.3e} "
-          f"(scale {np.abs(out['cpu']).max():.3e})")
-    if not np.allclose(out["cuda"], out["cpu"], rtol=1e-3, atol=1e-4):
-        raise AssertionError(f"cuda scores {out['cuda']} != cpu {out['cpu']}")
+    """float32 scores on the card against the CPU path (plain versions),
+    unfolded and with ``fold_bn: true`` (K4 in float32 on the card)."""
+    for fold in (False, True):
+        out = {}
+        for dev in ("cuda", "cpu"):
+            name = f"ref_{dev}" + ("_folded" if fold else "")
+            cfg, cfg_path = _config(
+                root, csv_path, name, compute_dtype="float32", batch_size=4,
+                val_bag_size=4, train_bag_size=4, max_patch_per_wsi_train=4,
+                max_patch_per_wsi_val=4, fold_bn=fold,
+                output_path=os.path.join(root, name))
+            launched = fused_bottleneck_stage.launches
+            histo_savescore.main(["--config", cfg_path, "--device", dev])
+            if dev == "cuda" and fold and fused_bottleneck_stage.launches == launched:
+                raise AssertionError("the folded float32 path did not launch K4")
+            with open(os.path.join(cfg["output_path"], "model.pt_pathology_val_df.csv")) as f:
+                out[dev] = np.array([float(r.split(",")[2])
+                                     for r in f.read().splitlines()[1:]])
+        diff = np.abs(out["cuda"] - out["cpu"]).max()
+        print(f"reference{' (fold_bn)' if fold else ''}: float32 scores cuda vs cpu "
+              f"max_abs_diff {diff:.3e} (scale {np.abs(out['cpu']).max():.3e})")
+        if not np.allclose(out["cuda"], out["cpu"], rtol=1e-3, atol=1e-4):
+            raise AssertionError(f"cuda scores {out['cuda']} != cpu {out['cpu']}")
 
 
 def check_dropout_matmul(device: torch.device) -> dict:
@@ -605,7 +787,10 @@ def check_dropout_matmul(device: torch.device) -> dict:
         dropped = seeded_dropout(x, seed, p)
         torch.cuda.synchronize()
         err = (out - dropout_matmul_plain(x, w, seed, p)).abs().max().item()
-        mismatches = int((dropped != seeded_dropout_plain(x, seed, p)).sum())
+        dropped_plain = seeded_dropout_plain(x, seed, p)
+        mismatches = int((dropped != dropped_plain).sum())
+        b_err = (dropped - dropped_plain).abs().max().item()
+        del dropped_plain
         xm = seeded_dropout_plain(x, seed, p)
         mask = keep_mask(M, K, seed, p, device).float() * float(keep_scale(p))
         fns = {
@@ -634,7 +819,7 @@ def check_dropout_matmul(device: torch.device) -> dict:
              "bound_ms": max(a_bytes, a_ops),
              "bound_by": "bytes" if a_bytes >= a_ops else "operations",
              "tflops": 2 * M * K * N / ms["k2a"] / 1e9}
-        b = {"where": where, "M": M, "K": K, "mismatches": mismatches,
+        b = {"where": where, "M": M, "K": K, "mismatches": mismatches, "max_abs_err": b_err,
              "ms": ms["k2b"], "plain_ms": ms["k2b_plain"], "library_ms": ms["k2b_library"],
              "bound_ms": max(b_bytes, b_ops),
              "bound_by": "bytes" if b_bytes >= b_ops else "operations"}
@@ -650,15 +835,16 @@ def check_dropout_matmul(device: torch.device) -> dict:
         k2b.append(b)
         del x, w, out, dropped, xm, mask
 
-    def total(recs, key_err):
-        return {key_err: max(r[key_err] for r in recs),
+    def total(recs):
+        return {"max_abs_err": max(r["max_abs_err"] for r in recs),
                 **{k: sum(r[k] for r in recs)
                    for k in ("ms", "plain_ms", "library_ms", "bound_ms")},
                 "bound_by": max(recs, key=lambda r: r["bound_ms"])["bound_by"],
                 "shapes": recs}
 
-    return {"dropout_matmul": total(k2a, "max_abs_err"),
-            "seeded_dropout": total(k2b, "mismatches")}
+    return {"dropout_matmul": total(k2a),
+            "seeded_dropout": {"mismatches": sum(r["mismatches"] for r in k2b),
+                               **total(k2b)}}
 
 
 def make_rna_cohort(root: str, sizes: dict, seed: int) -> dict:
@@ -851,6 +1037,7 @@ def main() -> int:
     timings = check_attention_pool(device)
     k3 = check_qmm_requant(device)
     k2 = check_dropout_matmul(device)
+    k4 = check_fused_stage(device)
 
     with tempfile.TemporaryDirectory() as root:
         launches, e2e = drive_main_path(root, device, smi)
@@ -863,6 +1050,7 @@ def main() -> int:
 
     bf16 = timings["bfloat16"]
     by_path = {path: counts["attention_pool"] for path, counts in launches.items()}
+    k4_launches = {path: counts["fused_bottleneck_stage"] for path, counts in launches.items()}
     print(json.dumps({"kernels": [{
         "name": "attention_pool",
         "route": "cuda",
@@ -905,13 +1093,27 @@ def main() -> int:
         "launches": sum(k2_launches[name].values()),
         "launches_by_path": k2_launches[name],
         # times and bounds: sums over the shapes listed (drop probability 0.5)
-        **{key: k2[name][key] for key in (err, "ms", "plain_ms", "bound_ms", "bound_by",
-                                          "library_ms", "shapes")},
+        **k2[name],
         "tolerance": tol,
-    } for name, line, err, tol in (
-        ("dropout_matmul", "160", "max_abs_err", K2A_TOL),
-        ("seeded_dropout", "135", "mismatches", 0),
-    )], "rna_cli_wall_s": {cli: rec["wall_s"] for cli, rec in rna_launches.items()},
+    } for name, line, tol in (
+        ("dropout_matmul", "160", K2A_TOL),
+        ("seeded_dropout", "135", 0),
+    )] + [{
+        "name": "fused_bottleneck_stage",
+        "route": "cuda",
+        "source": "multimodalbrainsurvival_torch/kernels/csrc/fused_stage.cu",
+        # retired from the JAX package; read it with git show 183b10c^:<file>
+        "replaces": "multimodalbrainsurvival_tpu/ops/pallas/fused_stage.py:150",
+        "launches": sum(k4_launches.values()),
+        "launches_by_path": k4_launches,
+        # bfloat16, the main path's dtype; times and bounds: sums over
+        # layer1 and layer2's tail at 256 patches (per stage below)
+        **{key: k4["bfloat16"][key] for key in ("max_abs_err", "ms", "plain_ms",
+                                                 "bound_ms", "bound_by", "library_ms")},
+        "tolerance": "%g of max(1, max|plain|)" % K4_TOL[torch.bfloat16],
+        "stages": k4["bfloat16"]["stages"],
+        "float32": k4["float32"],
+    }], "rna_cli_wall_s": {cli: rec["wall_s"] for cli, rec in rna_launches.items()},
         **e2e}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -18,7 +18,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
-KERNEL_SOURCES = ("attention_pool", "qmm_requant", "dropout_matmul")
+KERNEL_SOURCES = ("attention_pool", "qmm_requant", "dropout_matmul", "fused_stage")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

@@ -14,6 +14,12 @@ the JAX package's ``torch_mil_to_flax``
   Dense ``kernel`` (in, out)                 → ``weight`` (out, in)
   ``aggregator/linear/kernel``, ``vector``   → ``aggregator.linear.weight``, ``aggregator.vector``
 
+``flax_folded_to_torch`` carries a folded tree across (the JAX package's
+``models/folding.py::fold_resnet_variables`` output: each conv a ``kernel``
+and a ``bias``, no BatchNorm) to the ``state_dict`` of the port's model built
+with ``fold_bn=True``, whose convolutions carry the bias
+(``layer1.0.conv1.bias``, ``layer1.0.downsample.0.bias``).
+
 ``flax_rna_to_torch`` is the inverse of ``torch_rna_to_flax``
 (``multimodalbrainsurvival_tpu/models/convert.py:175-190``): ``encoder/
 dense_0``, ``encoder/dense_1`` and ``final`` → ``rna_mlp.1``, ``rna_mlp.4``
@@ -77,6 +83,20 @@ def flax_mil_to_torch(params: Mapping, batch_stats: Mapping | None = None
         key = f"{_torch_scope(path[:-1])}.{_STAT_RENAMES[path[-1]]}"
         state[key] = torch.tensor(np.asarray(value, np.float32))
     return state
+
+
+def flax_folded_to_torch(params: Mapping) -> dict[str, torch.Tensor]:
+    """The JAX package's folded variables (numpy leaves; a MIL tree or a
+    bare ResNet's, with or without the ``{"params": ...}`` level) → the
+    port's ``state_dict`` of the same model with ``fold_bn=True``. Raises
+    on a tree that still holds a BatchNorm: the folded model has no place
+    for its numbers."""
+    params = params.get("params", params)
+    for path, _ in _flatten(params):
+        if any(p.startswith("bn") or p == "downsample_bn" for p in path):
+            raise ValueError(f"{'/'.join(path)}: not a folded tree (a BatchNorm "
+                             "remains; fold it with fold_resnet_variables)")
+    return flax_mil_to_torch(params)
 
 
 _RNA_LINEARS = {("encoder", "dense_0"): "rna_mlp.1",

@@ -7,13 +7,20 @@ embedding → aggregator → bag pool → linear head. Patches come in as
 
 The port's aggregators return the pooled ``(B, D)`` embedding themselves
 (``models/aggregators.py``): the gated-attention pool is one fused kernel
-that never materializes the rescaled per-patch features.
+that never materializes the rescaled per-patch features. A folded
+Bottleneck encoder (``fold_bn: true`` serving) runs through
+``models/serving.py::fused_folded_extract`` and its fused-stage kernel.
 """
 
 from __future__ import annotations
 
 import torch
 from torch import nn
+
+from multimodalbrainsurvival_torch.models.serving import (
+    fused_folded_extract,
+    takes_fused_stages,
+)
 
 
 def masked_bag_mean(x: torch.Tensor, mask: torch.Tensor | None) -> torch.Tensor:
@@ -36,7 +43,11 @@ class AggregationModel(nn.Module):
     def patch_features(self, x: torch.Tensor) -> torch.Tensor:
         """(B, bag, C, H, W) → (B, bag, D) float32 per-patch embeddings."""
         B, bag = x.shape[:2]
-        feats = self.resnet.extract(x.reshape((B * bag,) + x.shape[2:]))
+        flat = x.reshape((B * bag,) + x.shape[2:])
+        if takes_fused_stages(self.resnet):
+            feats = fused_folded_extract(self.resnet, flat)
+        else:
+            feats = self.resnet.extract(flat)
         return feats.reshape(B, bag, -1)
 
     def extract(self, x, mask=None):

@@ -13,7 +13,9 @@ kernel is zero padding at every size, even or odd).
 
 BatchNorm runs in eval mode with eps 1e-5 (serving). With ``fold_bn`` every
 BatchNorm is folded into the preceding convolution's weight and bias
-(``models/folding.py``) and the norms are identities.
+(``models/folding.py``) and the norms are identities; the MIL models serve
+a folded Bottleneck encoder through ``models/serving.py`` (the fused-stage
+kernel for layer1 and layer2), not through ``extract``.
 
 ``dtype=torch.bfloat16`` runs the encoder under autocast: convolutions in
 bfloat16, BatchNorm statistics and arithmetic in float32, as the JAX model's
@@ -112,6 +114,8 @@ class ResNet(nn.Module):
         super().__init__()
         self.in_channels = in_channels
         self.dtype = dtype
+        self.block_cls = block_cls
+        self.fold_bn = fold_bn
         self.feature_dim = num_filters * 8 * block_cls.expansion
         self.conv1 = _conv(in_channels, num_filters, 7, 2, 3, bias=fold_bn)
         self.bn1 = _norm(fold_bn, num_filters)
@@ -130,15 +134,18 @@ class ResNet(nn.Module):
         self.fc = (nn.Linear(self.feature_dim, num_classes)
                    if num_classes is not None else None)
 
-    def extract(self, x: torch.Tensor) -> torch.Tensor:
-        """(N, C, H, W) → (N, feature_dim) float32 pre-FC pooled embedding
-        (reference ``forward_extract``, ``resnet.py:151-165``)."""
+    def check_input(self, x: torch.Tensor) -> None:
         if x.shape[1] != self.in_channels:
             raise ValueError(
                 f"{type(self).__name__} was built for in_channels="
                 f"{self.in_channels} but got input with {x.shape[1]} "
                 f"channels (shape {tuple(x.shape)})"
             )
+
+    def extract(self, x: torch.Tensor) -> torch.Tensor:
+        """(N, C, H, W) → (N, feature_dim) float32 pre-FC pooled embedding
+        (reference ``forward_extract``, ``resnet.py:151-165``)."""
+        self.check_input(x)
         bf16 = self.dtype == torch.bfloat16
         with torch.autocast(x.device.type, dtype=torch.bfloat16, enabled=bf16):
             y = F.relu(self.bn1(self.conv1(x)))

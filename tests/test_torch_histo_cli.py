@@ -6,8 +6,12 @@ the JAX CLIs get the same numbers through ``torch_mil_to_flax`` +
 ``Checkpointer().save``, as ``tests/test_golden_inference.py`` does. The
 cohort mixes PNG patch directories and packed ``patches.npy`` shards, pads
 the last batch, and gives one case two slides. Frames are compared with
-``rtol=1e-4`` (``atol=1e-6`` for features near zero).
+``rtol=1e-4`` (``atol=1e-6`` for features near zero). The ``fold_bn`` case
+serves a ResNet-50, whose folded stride-1 bottleneck chains go through the
+fused-stage kernel K4 (its plain version on the CPU).
 """
+
+import contextlib
 
 import json
 import os
@@ -25,6 +29,7 @@ from multimodalbrainsurvival_torch.cli import (
 )
 from multimodalbrainsurvival_torch.cli.histo_train import build_mil_model
 from multimodalbrainsurvival_torch.config import Config
+from multimodalbrainsurvival_torch.kernels import fused_stage
 from tests.helpers import make_patch_dir, make_survival_csv
 
 IMG = 32
@@ -130,17 +135,49 @@ def _run_both(cohort, tmp, aggregator, fold_bn, **overrides):
     return tmp / "jax", tmp / "torch"
 
 
-@pytest.fixture(scope="module", params=[("identity", False), ("attention", False),
-                                        ("attention", True)],
+@contextlib.contextmanager
+def _count_k4_blocks():
+    """Counts the blocks K4's plain version runs (the CPU's K4 launches)."""
+    calls = []
+    plain = fused_stage.fused_block_plain
+
+    def counting(x, blk):
+        calls.append(tuple(x.shape))
+        return plain(x, blk)
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(fused_stage, "fused_block_plain", counting)
+        yield calls
+
+
+@pytest.fixture(scope="module", params=[("identity", False, "resnet18"),
+                                        ("attention", False, "resnet18"),
+                                        ("attention", True, "resnet50")],
                 ids=["identity", "attention", "attention_fold_bn"])
 def outputs(request, cohort, tmp_path_factory):
+    """(JAX output dir, port output dir, feature width, K4 blocks run)."""
+    aggregator, fold_bn, arch = request.param
     tmp = tmp_path_factory.mktemp("run")
-    return _run_both(cohort, tmp, *request.param)
+    dim = 2048 if arch == "resnet50" else 512
+    with _count_k4_blocks() as k4_blocks:
+        jax_dir, torch_dir = _run_both(cohort, tmp, aggregator, fold_bn,
+                                       model_name=arch, aggregator_hdim=dim)
+    return jax_dir, torch_dir, dim, len(k4_blocks)
+
+
+def test_fold_bn_serving_runs_k4(outputs):
+    """The folded ResNet-50 goes through K4 (6 blocks per batch: layer1 and
+    layer2's stride-1 tail); the unfolded ResNet-18s never do."""
+    jax_dir, torch_dir, dim, k4_blocks = outputs
+    if dim == 2048:
+        assert k4_blocks > 0 and k4_blocks % 6 == 0
+    else:
+        assert k4_blocks == 0
 
 
 @pytest.mark.parametrize("split", ["train", "val", "test"])
 def test_savescore_frames_match_jax(outputs, split):
-    jax_dir, torch_dir = outputs
+    jax_dir, torch_dir, _, _ = outputs
     want = pd.read_csv(jax_dir / f"init_flax_pathology_{split}_df.csv", index_col=0)
     got = pd.read_csv(torch_dir / f"init.pt_pathology_{split}_df.csv", index_col=0)
     assert list(got.columns) == ["id", "score", "survival_months", "vital_status"]
@@ -153,14 +190,19 @@ def test_savescore_frames_match_jax(outputs, split):
 
 @pytest.mark.parametrize("split", ["train", "val", "test"])
 def test_extractfeatures_frames_match_jax(outputs, split):
-    jax_dir, torch_dir = outputs
+    jax_dir, torch_dir, dim, _ = outputs
     want_cases = pd.read_csv(jax_dir / f"pathology_cases_{split}.csv", index_col=0)
     got_cases = pd.read_csv(torch_dir / f"pathology_cases_{split}.csv", index_col=0)
     pd.testing.assert_frame_equal(got_cases, want_cases)
     want = np.loadtxt(jax_dir / f"pathology_features_{split}.csv", delimiter=",")
     got = np.loadtxt(torch_dir / f"pathology_features_{split}.csv", delimiter=",")
-    assert got.shape == want.shape == (len(want_cases), 512)
-    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-6)
+    assert got.shape == want.shape == (len(want_cases), dim)
+    # near zero, float32 sums in another order move a feature by up to ~1e-6
+    # of the features' scale: ResNet-50's reach 15 here, and its stock folded
+    # forward (without K4) misses a 1e-6 floor by as much, so its floor
+    # scales with them
+    atol = 1e-6 * (np.abs(want).max() if dim == 2048 else 1.0)
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=atol)
 
 
 def _batches(ds_cls, **kw):

@@ -45,7 +45,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     assert "multimodalbrainsurvival_torch.models.quantize" in modules
     for name in ("kernels.dropout_matmul", "models.rna", "data.tables", "train.optim",
                  "train.checkpoint", "cli.rna_train", "cli.rna_savescore",
-                 "cli.rna_extractfeatures"):
+                 "cli.rna_extractfeatures", "kernels.fused_stage", "models.serving"):
         assert f"multimodalbrainsurvival_torch.{name}" in modules
     code = (
         "import importlib, json, sys\n"

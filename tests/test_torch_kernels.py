@@ -10,6 +10,8 @@ it runs on a machine that has only PyTorch:
 import pytest
 import torch
 
+from multimodalbrainsurvival_torch.models.resnet import Bottleneck
+
 from multimodalbrainsurvival_torch.kernels.attention_pool import (
     attention_pool,
     attention_pool_plain,
@@ -20,6 +22,11 @@ from multimodalbrainsurvival_torch.kernels.dropout_matmul import (
     dropout_matmul_plain,
     seeded_dropout,
     seeded_dropout_plain,
+)
+from multimodalbrainsurvival_torch.kernels.fused_stage import (
+    fused_bottleneck_stage,
+    fused_bottleneck_stage_plain,
+    pack_bottleneck,
 )
 from multimodalbrainsurvival_torch.kernels.qmm_requant import (
     qconv_requant,
@@ -246,3 +253,67 @@ def test_dropout_matmul_kernel_rejects_bad_inputs(cuda):
         dropout_matmul(x.t().contiguous().t(), w, 1, 0.5)
     with pytest.raises(ValueError, match="alias"):
         seeded_dropout(torch.zeros(2, 65537, device=cuda), 1, 0.5)
+
+
+# K4: (batch, H, W, Cin, Cm, Cout = 4 Cm, blocks); block 0 has a projection
+# residual when Cin != Cout, the others the identity
+STAGE_SHAPES = {
+    "retired_2x8x8": (2, 8, 8, 16, 8, 32, 2),
+    "three_blocks_1x6x10_no_projection": (1, 6, 10, 32, 8, 32, 3),
+    "ragged_tiles_3x13x11": (3, 13, 11, 32, 16, 64, 2),
+    "cm24_1x5x40": (1, 5, 40, 24, 24, 96, 2),
+    "layer1_2x56x56": (2, 56, 56, 64, 64, 256, 3),
+    "layer2_tail_2x28x28": (2, 28, 28, 512, 128, 512, 3),
+}
+# err / max(1, max|plain|): float32 sums in another order (FMA against the
+# plain version's products) stay near 1e-6; in bfloat16 both round y1, y2,
+# z and the sum to bfloat16, and a sum that lands on the other side of a
+# rounding moves an output by 1-2 ulps (2**-8 of its size each)
+STAGE_TOL = {torch.float32: 1e-4, torch.bfloat16: 2**-6}
+
+
+def _stage_inputs(batch, H, W, cin, cm, cout, n_blocks, device, dtype, seed=0):
+    """Seeded folded blocks (LeCun-normal weights, biases of 0.1) and a
+    post-ReLU channels_last input."""
+    assert cout == 4 * cm
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    blocks = []
+    for j in range(n_blocks):
+        blk = Bottleneck(cin if j == 0 else cout, cm, fold_bn=True)
+        with torch.no_grad():
+            for p in blk.parameters():
+                p.copy_(torch.randn(p.shape, generator=g)
+                        * (p[0].numel() ** -0.5 if p.dim() > 1 else 0.1))
+        blocks.append(pack_bottleneck(blk.to(device), dtype))
+    x = torch.randn(batch, cin, H, W, generator=g).relu()
+    return x.to(device, dtype).contiguous(memory_format=torch.channels_last), blocks
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", sorted(STAGE_SHAPES))
+def test_fused_stage_kernel_matches_plain(cuda, name, dtype):
+    x, blocks = _stage_inputs(*STAGE_SHAPES[name], cuda, dtype)
+    before = fused_bottleneck_stage.launches
+    out = fused_bottleneck_stage(x, blocks)
+    torch.cuda.synchronize()
+    assert fused_bottleneck_stage.launches == before + len(blocks)
+    want = fused_bottleneck_stage_plain(x, blocks)
+    assert out.shape == want.shape and out.dtype == dtype
+    assert out.is_contiguous(memory_format=torch.channels_last)
+    scale = max(1.0, want.abs().max().item())
+    err = (out.float() - want.float()).abs().max().item()
+    assert err <= STAGE_TOL[dtype] * scale, (err, scale)
+    assert torch.isfinite(out).all() and (out > 0).float().mean() > 0.2
+
+
+@pytest.mark.gpu
+def test_fused_stage_kernel_rejects_bad_inputs(cuda):
+    x, blocks = _stage_inputs(1, 6, 6, 16, 8, 32, 1, cuda, torch.bfloat16)
+    with pytest.raises(ValueError, match="channels_last"):
+        fused_bottleneck_stage(x.contiguous(), blocks)
+    with pytest.raises(ValueError, match="w1"):
+        fused_bottleneck_stage(x.float(), blocks)
+    with pytest.raises(ValueError, match="w1"):
+        fused_bottleneck_stage(torch.zeros_like(x[:, :8]).contiguous(
+            memory_format=torch.channels_last), blocks)
