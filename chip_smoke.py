@@ -8,10 +8,14 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
 
 1. device: the card's name, and its name and power limit from nvidia-smi;
 2. build: every CUDA source of the port, one nvcc per source, in parallel;
+   each kernel's registers, shared memory and spills as ptxas reports them;
 3. kernels: each kernel against its plain PyTorch version on the card at
    the main path's shapes (the attention pool in float32 with TF32 off and
    in bfloat16, within ``KERNEL_TOL``; the int8 product K3 at seven shapes
-   of ResNet-50 at 256 patches, relu on and off, identical int8; K2a, the
+   of ResNet-50 at 256 patches, relu on and off, identical int8, and in its
+   residual form at the conv3 shapes of layers 1-4 (identity and projection
+   skips), and the int8 stem pass at 224 px and 225 px, identical int8,
+   timed beside the sequences they replace; K2a, the
    seeded dropout-matmul, at both RNA layer shapes within ``K2A_TOL``, and
    K2b, the seeded dropout alone, identical), then timed with CUDA events,
    L2 scrubbed before each launch, in turns with the plain version and a
@@ -28,8 +32,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    and read just after, and the CSVs are checked. On one batch: the pooled
    embedding through the pool kernel against its plain version; the int8
    bag embeddings against the float ones (cosine); the int8 features of 32
-   patches through K3 against the same forward through K3's plain version
-   (bit for bit); the folded bag embeddings against the unfolded ones
+   patches through K3 and the stem pass against the same forward through
+   their plain versions (bit for bit); the folded bag embeddings against the
+   unfolded ones
    (cosine); the bf16, int8 and folded encoders' device time;
 5. reference: a small cohort through ``histo_savescore`` in float32 on the
    card and on the CPU (plain versions), unfolded and with ``fold_bn:
@@ -51,6 +56,7 @@ the repository beside it, the script exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import csv
 import json
@@ -104,9 +110,14 @@ from multimodalbrainsurvival_torch.kernels.qmm_requant import (
     im2col,
     qconv_requant,
     qconv_requant_plain,
+    qconv_residual_requant,
+    qconv_residual_requant_plain,
     qmm_requant,
+    residual_relu_q,
+    stem_requant_pool,
+    stem_requant_pool_plain,
 )
-from multimodalbrainsurvival_torch.models import quantize
+from multimodalbrainsurvival_torch.models import quantize, serving
 from multimodalbrainsurvival_torch.models.resnet import Bottleneck
 from multimodalbrainsurvival_torch.models.rna import RNA_GENES
 from multimodalbrainsurvival_torch.train import TrainSettings
@@ -136,8 +147,24 @@ K3_SHAPES = (
     ("layer1 conv2 (3x3)", 256, 56, 56, 64, 64, 3, 1, 1),
     ("layer2_0 conv2 (3x3, stride 2)", 256, 56, 56, 128, 128, 3, 2, 1),
 )
-# ResNet-50: 16 blocks x 3 convs + 4 downsamples, every one through K3
+# ResNet-50: 16 blocks x 3 convs + 4 downsamples, every one through K3; the
+# last conv of each block in K3's residual form; one stem pass
 K3_LAUNCHES_PER_BATCH = 52
+K3_RESIDUAL_PER_BATCH = 16
+STEM_PER_BATCH = 1
+# K3's residual form at the conv3 shapes of layers 1-4, 256 patches:
+# (where, batch, H, W, C, N, projection); a projection skip is the
+# downsample conv's int8 output (K3), an identity skip the block's input
+K3_RESIDUAL_SHAPES = (
+    ("layer1_0 conv3, projection skip", 256, 56, 56, 64, 256, True),
+    ("layer1 conv3, identity skip", 256, 56, 56, 64, 256, False),
+    ("layer2 conv3", 256, 28, 28, 128, 512, False),
+    ("layer3 conv3", 256, 14, 14, 256, 1024, False),
+    ("layer4 conv3", 256, 7, 7, 512, 2048, False),
+)
+# the stem pass on the float32 stem conv output (where, batch, C, H, W):
+# 256 patches at 224 px, and an odd size (225 px) with a ragged pool edge
+STEM_SHAPES = (("224 px", 256, 64, 112, 112), ("225 px", 16, 64, 113, 113))
 # the JAX package's contract for quantize: "int8" (tests/test_quantize.py)
 INT8_COSINE = 0.995
 # the RNA path: 12,778 genes -> 4,096 -> 2,048 -> 1 in float32, batches of
@@ -166,6 +193,8 @@ K4_LAUNCHES_PER_BATCH = 6
 # folded vs unfolded bf16 bag embeddings (both bf16, rounded at other places)
 FOLDED_COSINE = 0.999
 COUNTERS = {"attention_pool": attention_pool, "qmm_requant": qmm_requant,
+            "qconv_residual_requant": qconv_residual_requant,
+            "stem_requant_pool": stem_requant_pool,
             "dropout_matmul": dropout_matmul, "seeded_dropout": seeded_dropout,
             "fused_bottleneck_stage": fused_bottleneck_stage}
 
@@ -185,6 +214,21 @@ def _nvidia_smi() -> str:
         capture_output=True, text=True, check=True, timeout=60,
     )
     return out.stdout.strip().splitlines()[0]
+
+
+def ptxas_summary(log: str) -> list[str]:
+    """One line per kernel entry of an nvcc ``-Xptxas -v`` log: registers,
+    shared memory, spill stores and loads."""
+    lines, name = [], None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+        elif "bytes spill stores" in line and name:
+            spills = line.strip()
+        elif "Used" in line and "registers" in line and name:
+            lines.append(f"{name[:90]}: {line.split(':', 1)[1].strip()}; {spills}")
+            name = None
+    return lines
 
 
 def _time_ms(fn, iters: int, scrub: torch.Tensor) -> float:
@@ -330,6 +374,106 @@ def check_qmm_requant(device: torch.device) -> dict:
         "bound_by": max(shapes, key=lambda r: r["bound_ms"])["bound_by"],
         "shapes": shapes,
     }
+
+
+def _totals(recs: list) -> dict:
+    """Times and bounds summed over the shapes, the largest error."""
+    return {"max_abs_err": max(r["max_abs_err"] for r in recs),
+            **{k: sum(r[k] for r in recs) for k in ("ms", "plain_ms", "bound_ms")},
+            "bound_by": max(recs, key=lambda r: r["bound_ms"])["bound_by"],
+            "shapes": recs}
+
+
+def check_residual_and_stem(device: torch.device) -> dict:
+    """K3's residual form at the conv3 shapes of layers 1-4 and the stem
+    pass at 224 px and at an odd size, each against its plain version
+    (identical int8 required), then timed in turns with the plain version
+    and the sequence it replaces: for the residual form the conv form
+    (relu off) followed by the eager ``residual_relu_q``; for the stem the
+    eager passes (its plain version). No single PyTorch call computes either
+    function, so ``library_ms`` is null."""
+    g = torch.Generator(device="cpu").manual_seed(SEED + 1)
+    scrub = torch.empty(64 << 20, dtype=torch.uint8, device=device)
+    s_t, s_r, s_out = (torch.tensor(v, device=device) for v in (0.05, 0.04, 0.06))
+    residual = []
+    for where, batch, H, W, C, N, projection in K3_RESIDUAL_SHAPES:
+        x, w, scale, bias = _k3_inputs(batch, H, W, C, N, 1, g, device)
+        if projection:
+            xd, wd, sd, bd = _k3_inputs(batch, H, W, C, N, 1, g, device)
+            r = qconv_requant(xd, wd, sd, bd, relu=False)
+            del xd, wd
+        else:
+            r = torch.randint(-127, 128, (batch, H, W, N), generator=g,
+                              dtype=torch.int8).to(device)
+        args = (x, w, scale, bias, r, s_t, s_r, s_out)
+        out = qconv_residual_requant(*args)
+        torch.cuda.synchronize()
+        want = qconv_residual_requant_plain(*args)
+        mismatches = int((out != want).sum())
+        err = int((out.int() - want.int()).abs().max())
+        del want, out
+        fns = {
+            "kernel": lambda: qconv_residual_requant(*args),
+            "plain": lambda: qconv_residual_requant_plain(*args),
+            "two_calls": lambda: residual_relu_q(
+                qconv_requant(x, w, scale, bias, relu=False), s_t, r, s_r, s_out),
+        }
+        times = {name: [] for name in fns}
+        for name in ("plain", "kernel", "two_calls", "two_calls", "kernel", "plain"):
+            times[name].append(_time_ms(fns[name], 3 if name == "plain" else 20, scrub))
+        M = batch * H * W
+        t_bytes = (x.numel() + w.numel() + 8 * N + 2 * M * N) / HBM_BYTES_PER_S * 1e3
+        t_ops = 2 * M * C * N / PEAK_INT8_OPS * 1e3
+        rec = {"where": where, "M": M, "K": C, "N": N, "mismatches": mismatches,
+               "max_abs_err": err, "ms": sum(times["kernel"]) / 2,
+               "plain_ms": sum(times["plain"]) / 2,
+               "two_calls_ms": sum(times["two_calls"]) / 2,
+               "bound_ms": max(t_bytes, t_ops),
+               "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+        print(f"qconv_residual_requant {json.dumps(rec)}")
+        if mismatches:
+            raise AssertionError(f"qconv_residual_requant at {where}: {mismatches} "
+                                 "int8 outputs differ from the plain version")
+        residual.append(rec)
+        del x, w, r, args, fns
+    stem = []
+    for where, batch, C, H, W in STEM_SHAPES:
+        y = (torch.randn(batch, C, H, W, generator=g) * 2).to(device).contiguous(
+            memory_format=torch.channels_last)
+        bias = (torch.randn(C, generator=g) * 0.5).to(device)
+        s = torch.tensor(0.02, device=device)
+        out = stem_requant_pool(y, bias, s)
+        torch.cuda.synchronize()
+        want = stem_requant_pool_plain(y, bias, s)
+        mismatches = int((out != want).sum())
+        err = int((out.int() - want.int()).abs().max())
+        del out, want
+        fns = {"kernel": lambda: stem_requant_pool(y, bias, s),
+               "plain": lambda: stem_requant_pool_plain(y, bias, s)}
+        times = {name: [] for name in fns}
+        for name in ("plain", "kernel", "kernel", "plain"):
+            times[name].append(_time_ms(fns[name], 10, scrub))
+        ho, wo = (H - 1) // 2 + 1, (W - 1) // 2 + 1
+        # y read once, the int8 map written once; 9 compares, an add and a
+        # division per output at the float32 rate
+        t_bytes = (4 * y.numel() + batch * ho * wo * C) / HBM_BYTES_PER_S * 1e3
+        t_ops = 11 * batch * ho * wo * C / PEAK_FLOPS[torch.float32] * 1e3
+        rec = {"where": where, "shape": [batch, C, H, W], "mismatches": mismatches,
+               "max_abs_err": err, "ms": sum(times["kernel"]) / 2,
+               "plain_ms": sum(times["plain"]) / 2, "bound_ms": max(t_bytes, t_ops),
+               "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+        print(f"stem_requant_pool {json.dumps(rec)}")
+        if mismatches:
+            raise AssertionError(f"stem_requant_pool at {where}: {mismatches} int8 "
+                                 "outputs differ from the plain version")
+        stem.append(rec)
+        del y, fns
+    residual_total = _totals(residual)
+    residual_total["two_calls_ms"] = sum(r["two_calls_ms"] for r in residual)
+    # the main path's shape: 256 patches at 224 px
+    return {"residual": residual_total,
+            "stem": {**{k: v for k, v in stem[0].items() if k not in ("where", "shape")},
+                     "shapes": stem}}
 
 
 def _k4_stage(batch, cin, H, W, cm, n_blocks, g, device):
@@ -537,6 +681,8 @@ def drive_main_path(root: str, device: torch.device, smi: str) -> tuple[dict, di
         expected["attention_pool"] = batches
         if path == "int8":
             expected["qmm_requant"] = K3_LAUNCHES_PER_BATCH * batches
+            expected["qconv_residual_requant"] = K3_RESIDUAL_PER_BATCH * batches
+            expected["stem_requant_pool"] = STEM_PER_BATCH * batches
         if path == "bf16_folded":
             expected["fused_bottleneck_stage"] = K4_LAUNCHES_PER_BATCH * batches
         reset_counts()
@@ -632,8 +778,9 @@ def check_int8_batch(config: Config, config8: Config, device: torch.device,
                      smi: str) -> dict:
     """One main-path batch through the int8 path, calibrated as the CLIs
     calibrate: its bag embeddings against the float (bf16) path's; its
-    int8 features on 32 patches through K3 against the same forward through
-    K3's plain version, bit for bit; both encoders' device time."""
+    int8 features on 32 patches through K3 (conv and residual forms) and the
+    stem pass against the same forward through their plain versions, bit
+    for bit; both encoders' device time."""
     datasets = build_datasets(config8, False)
     q_adapter = serving_adapter(config8, device, datasets)
     f_adapter = MILAdapter(model=load_mil_model(config, device), device=device)
@@ -651,18 +798,26 @@ def check_int8_batch(config: Config, config8: Config, device: torch.device,
         sub = x[:32]
         deterministic = torch.backends.cudnn.deterministic
         torch.backends.cudnn.deterministic = True
+        kernels = {"qconv_requant": qconv_requant,
+                   "qconv_residual_requant": qconv_residual_requant,
+                   "stem_requant_pool": stem_requant_pool}
+        plains = {"qconv_requant": qconv_requant_plain,
+                  "qconv_residual_requant": qconv_residual_requant_plain,
+                  "stem_requant_pool": stem_requant_pool_plain}
         try:
             got_map, _ = quantize.quantized_stages(qtree, sub, stages=4)
             got = quantize.quantized_extract(qtree, sub)
-            launched = qmm_requant.launches
-            quantize.qconv_requant = qconv_requant_plain
+            launched = read_counts()
+            for name, fn in plains.items():
+                setattr(quantize, name, fn)
             want_map, _ = quantize.quantized_stages(qtree, sub, stages=4)
             want = quantize.quantized_extract(qtree, sub)
         finally:
-            quantize.qconv_requant = qconv_requant
+            for name, fn in kernels.items():
+                setattr(quantize, name, fn)
             torch.backends.cudnn.deterministic = deterministic
-        if qmm_requant.launches != launched:
-            raise AssertionError("the plain forward launched the kernel")
+        if read_counts() != launched:
+            raise AssertionError("the plain forward launched a kernel")
         same = torch.equal(got_map, want_map) and torch.equal(got, want)
         int8_ms = _time_ms(lambda: quantize.quantized_extract(qtree, x), 10, scrub)
         xf = f_adapter.inputs(arrays)
@@ -670,7 +825,8 @@ def check_int8_batch(config: Config, config8: Config, device: torch.device,
     print(f"int8 batch: bag embedding cosine vs the bf16 path min "
           f"{cos.min().item():.6f} mean {cos.mean().item():.6f} over "
           f"{int(real.sum())} bags (contract > {INT8_COSINE}); int8 features of "
-          f"{sub.shape[0]} patches through K3 equal the plain forward: {same}")
+          f"{sub.shape[0]} patches through K3 and the stem pass equal the plain "
+          f"forward: {same}")
     if not cos.min().item() > INT8_COSINE:
         raise AssertionError(f"int8 bag embeddings off the float path: {cos}")
     if not same:
@@ -681,10 +837,10 @@ def check_int8_batch(config: Config, config8: Config, device: torch.device,
     with torch.inference_mode():
         int8_profile = device_breakdown(
             lambda: quantize.quantized_extract(qtree, x), int8_ms, "int8 encoder",
-            {"k3": "qconv_requant"})
+            {"k3": "qconv_requant_kernel", "stem": "stem_requant_pool_kernel"})
         bf16_profile = device_breakdown(
             lambda: f_adapter.model.patch_features(xf), bf16_ms, "bf16 encoder",
-            {"k3": "qconv_requant"})
+            {"k3": "qconv_requant_kernel"})
     return {"int8_encoder_ms_per_batch": int8_ms,
             "bf16_encoder_ms_per_batch_int8_phase": bf16_ms,
             "int8_vs_bf16_bag_cosine_min": cos.min().item(),
@@ -692,14 +848,29 @@ def check_int8_batch(config: Config, config8: Config, device: torch.device,
             "bf16_encoder_profile": bf16_profile}
 
 
+@contextlib.contextmanager
+def _stock_convs():
+    """``fused_folded_extract`` with the stock folded modules around K4 (a
+    convolution with its bias, then eager ReLU and residual add) in place of
+    cuDNN's fused convolution + bias (+ residual) + ReLU calls."""
+    saved = serving._conv_relu, serving._cudnn_bottleneck
+    serving._conv_relu = lambda x, conv, wb: torch.relu(conv(x))
+    serving._cudnn_bottleneck = lambda blk, x, weights: blk(x)
+    try:
+        yield
+    finally:
+        serving._conv_relu, serving._cudnn_bottleneck = saved
+
+
 def check_folded_batch(config: Config, config_f: Config, device: torch.device,
                        smi: str) -> dict:
     """One main-path batch through the folded encoder (layer1 and layer2's
     tail through K4): its bag embeddings against the unfolded bf16 path's
     (per-sample cosine), device times in turns of the folded encoder, the
-    unfolded one and, as a yardstick the port never serves with, the same
-    folded weights through cuDNN alone (``ResNet.extract``), and the folded
-    encoder's profile."""
+    same with the stock modules around K4 (what cuDNN's fused calls save),
+    the unfolded one and, as a yardstick the port never serves with, the
+    same folded weights through cuDNN alone (``ResNet.extract``), and the
+    folded encoder's profile."""
     f_adapter = MILAdapter(model=load_mil_model(config_f, device), device=device)
     u_adapter = MILAdapter(model=load_mil_model(config, device), device=device)
     val = build_datasets(config, False)["val"]
@@ -715,27 +886,35 @@ def check_folded_batch(config: Config, config_f: Config, device: torch.device,
             folded[real].double(), u_adapter.extract(arrays)[real].double(), dim=1)
         x = f_adapter.inputs(arrays)
         flat = x.reshape((-1,) + tuple(x.shape[2:]))
+        def folded_stock_convs():
+            with _stock_convs():
+                return f_adapter.model.patch_features(x)
+
         fns = {"folded": lambda: f_adapter.model.patch_features(x),
+               "folded_stock_convs": folded_stock_convs,
                "unfolded": lambda: u_adapter.model.patch_features(x),
                "folded_cudnn": lambda: f_adapter.model.resnet.extract(flat)}
         times = {name: [] for name in fns}
-        for name in ("unfolded", "folded", "folded_cudnn", "folded_cudnn", "folded",
-                     "unfolded"):
+        order = ("unfolded", "folded", "folded_stock_convs", "folded_cudnn")
+        for name in order + order[::-1]:
             times[name].append(_time_ms(fns[name], 10, scrub))
-        folded_ms, unfolded_ms, cudnn_ms = (sum(times[n]) / 2 for n in
-                                            ("folded", "unfolded", "folded_cudnn"))
+        folded_ms, stock_ms, unfolded_ms, cudnn_ms = (
+            sum(times[n]) / 2 for n in ("folded", "folded_stock_convs", "unfolded",
+                                        "folded_cudnn"))
     print(f"folded batch: bag embedding cosine vs the unfolded bf16 path min "
           f"{cos.min().item():.6f} mean {cos.mean().item():.6f} over {int(real.sum())} "
           f"bags (limit {FOLDED_COSINE})")
     if not cos.min().item() >= FOLDED_COSINE:
         raise AssertionError(f"folded bag embeddings off the unfolded path: {cos}")
     print(f"per batch of {x.shape[0] * x.shape[1]} patches: folded bf16 encoder "
-          f"{folded_ms:.3f} ms, unfolded bf16 encoder {unfolded_ms:.3f} ms, folded "
-          f"through cuDNN alone {cudnn_ms:.3f} ms on the card [{smi}]")
+          f"{folded_ms:.3f} ms ({stock_ms:.3f} ms with the stock modules around K4), "
+          f"unfolded bf16 encoder {unfolded_ms:.3f} ms, folded through cuDNN alone "
+          f"{cudnn_ms:.3f} ms on the card [{smi}]")
     with torch.inference_mode():
         profile = device_breakdown(fns["folded"], folded_ms, "folded bf16 encoder",
-                                   {"k4": "fused_block_kernel"})
+                                   {"k4": "fused_block_wgmma"})
     return {"folded_encoder_ms_per_batch": folded_ms,
+            "folded_stock_convs_encoder_ms_per_batch": stock_ms,
             "unfolded_encoder_ms_per_batch_folded_phase": unfolded_ms,
             "folded_cudnn_encoder_ms_per_batch": cudnn_ms,
             "folded_vs_unfolded_bag_cosine_min": cos.min().item(),
@@ -1032,10 +1211,15 @@ def main() -> int:
     print(f"build: {time.perf_counter() - t0:.1f} s -> "
           + ", ".join(str(p) for p in libs.values()))
     for name, log in build.build_logs.items():
-        print(f"nvcc {name}:\n{log.strip()}")
+        warnings = [line for line in log.splitlines()
+                    if "warning" in line.lower() or "Performance Loss" in line]
+        print(f"nvcc {name}: {len(warnings)} warnings")
+        for line in warnings[:20] + ptxas_summary(log):
+            print(f"  {line}")
 
     timings = check_attention_pool(device)
     k3 = check_qmm_requant(device)
+    k3_more = check_residual_and_stem(device)
     k2 = check_dropout_matmul(device)
     k4 = check_fused_stage(device)
 
@@ -1084,6 +1268,31 @@ def main() -> int:
         "bound_by": k3["bound_by"],
         "library_ms": k3["library_ms"],
         "shapes": k3["shapes"],
+    }, {
+        "name": "qconv_residual_requant",
+        "route": "cuda",
+        "source": "multimodalbrainsurvival_torch/kernels/csrc/qmm_requant.cu",
+        # K3's kernel with the residual epilogue of the JAX package's
+        # _residual_relu_q (multimodalbrainsurvival_tpu/models/quantize.py:214)
+        "replaces": "benchmarks/int8_pallas_probe.py:80",
+        "launches": launches["int8"]["qconv_residual_requant"],
+        "tolerance": 0,
+        # times and bounds: sums over the shapes listed below
+        **k3_more["residual"],
+        "library_ms": None,
+    }, {
+        "name": "stem_requant_pool",
+        "route": "cuda",
+        "source": "multimodalbrainsurvival_torch/kernels/csrc/qmm_requant.cu",
+        # the int8 stem's requant and max-pool after its conv (the JAX
+        # package's _quantized_stages, multimodalbrainsurvival_tpu/models/
+        # quantize.py:245-250), part of K3's int8 path
+        "replaces": "benchmarks/int8_pallas_probe.py:80",
+        "launches": launches["int8"]["stem_requant_pool"],
+        "tolerance": 0,
+        # times and bound: 256 patches at 224 px (the odd size below)
+        **k3_more["stem"],
+        "library_ms": None,
     }] + [{
         "name": name,
         "route": "cuda",

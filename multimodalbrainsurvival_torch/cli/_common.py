@@ -6,7 +6,10 @@ cfg.json [--seed N] [--quick 0/1] [--device cuda|cpu]``; the device is
 ``cuda`` unless ``--device cpu`` is given, and a run without a card raises.
 The config's ``use_cuda`` key is not read: the device comes from
 ``--device`` alone. ``--seed`` seeds training: the initial weights and the
-dropout seeds (serving draws no random numbers).
+dropout seeds (serving draws no random numbers). ``--log 1`` makes
+``rna_train`` write its scalars to ``<summary_path>/<date>_<flag>/
+metrics.jsonl`` (``summary_path`` defaults to ``<checkpoint_path>/summary``);
+the serving CLIs accept ``--log`` and write nothing, as the JAX ones do.
 
 Training runs keep the reference layout: checkpoints under
 ``<checkpoint_path>/models/<flag>/``, score frames under
@@ -34,6 +37,7 @@ from multimodalbrainsurvival_torch.train.optim import (
     relative_lr_schedule,
     wrap_optimizer,
 )
+from multimodalbrainsurvival_torch.utils.logging import MetricWriter
 
 
 def make_parser(description: str) -> argparse.ArgumentParser:
@@ -43,7 +47,7 @@ def make_parser(description: str) -> argparse.ArgumentParser:
     p.add_argument("--quick", type=int, default=0,
                    help="use small datasets to check that the script runs")
     p.add_argument("--log", type=int, default=0,
-                   help="accepted for reference CLI parity (unused)")
+                   help="0 = do not use a summary writer")
     p.add_argument("--seed", type=int, default=1111,
                    help="seed of training's initial weights and dropout "
                         "(serving draws no random numbers)")
@@ -79,6 +83,22 @@ def experiment_dirs(config: Config, flag: str) -> tuple[str, str]:
     output_dir = os.path.join(checkpoint_path, "outputs", flag)
     os.makedirs(save_dir, exist_ok=True)
     return save_dir, output_dir
+
+
+def make_writer(log: bool, config: Config, flag: str) -> MetricWriter | None:
+    """A ``MetricWriter`` on ``<summary_path>/<date>_<flag>/`` that has
+    logged the config, or None without ``--log`` (the JAX ``make_writer``;
+    ``summary_path`` defaults to ``<checkpoint_path>/summary`` as at the
+    JAX ``cli/_common.py:106``)."""
+    if not log:
+        return None
+    checkpoint_path = config.get("checkpoint_path", "checkpoints/")
+    summary = config.get("summary_path", os.path.join(checkpoint_path, "summary"))
+    d = os.path.join(
+        summary, datetime.datetime.now().strftime("%Y-%m-%d_%H:%M:%S") + f"_{flag}")
+    writer = MetricWriter(d)
+    writer.text("config", dict(config.raw))
+    return writer
 
 
 def maybe_restore(model: torch.nn.Module, config: Config, keys: tuple[str, ...]) -> None:

@@ -11,7 +11,8 @@ mode both Dropout → Linear pairs run through the K2 kernels
 
 Writes ``<checkpoint_path>/models/<flag>/{model_last,model_dict_best,
 train_state}.pt`` and ``<checkpoint_path>/outputs/<flag>/<split>_output_
-{last,best}.csv``.
+{last,best}.csv``; with ``--log 1`` also ``<summary_path>/<date>_<flag>/
+metrics.jsonl``, the JAX CLI's tags and steps.
 
 Usage: ``python -m multimodalbrainsurvival_torch.cli.rna_train --config
 cfg.json [--device cpu]``
@@ -26,6 +27,7 @@ from multimodalbrainsurvival_torch.cli._common import (
     experiment_dirs,
     load_config,
     make_parser,
+    make_writer,
     maybe_restore,
     quantize_mode,
     tune_optimizer,
@@ -111,7 +113,12 @@ def main(argv=None):
         build_rna_optimizer(model, config), config, len(datasets["train"]),
         num_epochs=settings.num_epochs, batch_size=settings.batch_size,
     )
-    train_model(adapter, datasets, optimizer, settings)
+    writer = make_writer(args.log, config, flag)
+    try:
+        train_model(adapter, datasets, optimizer, settings, writer=writer)
+    finally:
+        if writer is not None:
+            writer.close()
 
 
 if __name__ == "__main__":

@@ -6,7 +6,9 @@ with the same defaults.
 
 Keys of the JAX package that mean nothing here (XLA buffer donation,
 checkify, the JAX profiler, multi-host preemption consensus) are reported
-as ignored, as ``use_cuda`` is (the device comes from ``--device``). Keys
+as ignored, as ``use_cuda`` is (the device comes from ``--device``), and so
+is ``emergency_checkpoint``: the port has no SIGTERM save yet (ROADMAP.md,
+item 10), so a run keeps only its epoch-boundary ``train_state.pt``. Keys
 that change results but whose path is not ported yet raise, with a pointer
 to ROADMAP.md, rather than being dropped silently.
 """
@@ -51,9 +53,11 @@ KNOWN_KEYS = {
 }
 
 
-#: read by the JAX package only; no meaning in the port
+#: read by the JAX package only; no meaning (or, for emergency_checkpoint,
+#: no implementation yet) in the port
 IGNORED_KEYS = ("use_cuda", "donate_state", "debug_checkify", "profile_steps",
-                "profile_dir", "preempt_sync_every", "compile_cache_dir")
+                "profile_dir", "preempt_sync_every", "compile_cache_dir",
+                "emergency_checkpoint")
 
 
 @dataclass

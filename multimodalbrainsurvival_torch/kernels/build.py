@@ -2,7 +2,8 @@
 
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for Hopper (``sm_90a``) into
 ``build/lib<name>-<digest>.so`` at first use and loaded with ``ctypes``. The
-digest covers the source and the flags, so a changed source is rebuilt and
+digest covers the source, every header it includes from ``csrc/``
+(``hopper.cuh``) and the flags, so a changed source or header is rebuilt and
 a stale library is never loaded. The build directory is not part of the
 repository. Nothing is compiled or loaded when a module is imported.
 """
@@ -12,6 +13,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -40,9 +42,24 @@ def _nvcc() -> str:
     return nvcc
 
 
+def _sources(name: str) -> list[Path]:
+    """``csrc/<name>.cu`` and the ``csrc/`` headers it includes, directly or
+    through another header (``#include "..."``), each once."""
+    found, todo = [], [CSRC / f"{name}.cu"]
+    while todo:
+        path = todo.pop()
+        if path in found:
+            continue
+        found.append(path)
+        for inc in re.findall(r'^\s*#\s*include\s*"([^"]+)"', path.read_text(),
+                              flags=re.MULTILINE):
+            todo.append(CSRC / inc)
+    return found
+
+
 def library_path(name: str) -> Path:
     digest = hashlib.sha256(
-        (CSRC / f"{name}.cu").read_bytes() + " ".join(NVCC_FLAGS).encode()
+        b"".join(p.read_bytes() for p in _sources(name)) + " ".join(NVCC_FLAGS).encode()
     ).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 

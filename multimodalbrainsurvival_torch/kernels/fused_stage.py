@@ -16,7 +16,9 @@ and ReLU, rounded to the compute dtype after each of y1 and y2; z and the
 residual are each rounded, added in the compute dtype, then ReLU.
 
 Layouts: ``x`` is an NCHW tensor in ``channels_last`` memory (NHWC), as the
-port's encoder makes it, float32 or bfloat16; the output is the same.
+port's encoder makes it, float32 or bfloat16; the output is the same. On
+the card bfloat16 runs ``wgmma`` fed by TMA (``Cm`` ≤ 128: layer1 and
+layer2 of the ResNet family), float32 plain FMA.
 ``pack_bottleneck`` puts a folded ``Bottleneck``'s weights into the
 kernel's layout: each (N, K) with K contiguous, the 3×3's K in (dy, dx, c)
 order (the TPU kernel's ``(3, 3, Cm, Cm) → (9·Cm, Cm)`` reshape), in the
@@ -180,8 +182,9 @@ def fused_bottleneck_stage(x: torch.Tensor, blocks: Sequence[PackedBlock]
     if x.device.type != "cuda":
         raise ValueError(f"fused_bottleneck_stage runs on cpu or cuda, not {x.device}")
     _check(x, blocks)
-    if x.data_ptr() % 16:
-        raise ValueError("the kernel takes a 16-byte aligned x")
+    if x.data_ptr() % 16 or any(t.data_ptr() % 16 for b in blocks
+                                for t in (b.w1, b.w2, b.w3, b.wd) if t is not None):
+        raise ValueError("the kernel takes a 16-byte aligned x and weights")
     B, _, H, W = x.shape
     if x.numel() >= 2**31 or B * H * W * max(b.w3.shape[0] for b in blocks) >= 2**31:
         raise ValueError(f"shape {tuple(x.shape)} is beyond the kernel's range")

@@ -15,9 +15,15 @@ come with their slices, ROADMAP.md). The scheme is the JAX package's:
   per-channel scale ``(s_in·ws)/s_out`` and bias ``b/s_out``, relu,
   round half to even, clip ±127 → int8 (``kernels/qmm_requant.py``, K3: a
   hand-written kernel on the card for every conv, 1×1 and 3×3 alike);
+- the last conv of every block (and its downsample, where there is one)
+  ends in the residual form of K3 (``qconv_residual_requant``): relu off,
+  then the residual add, ReLU and requant to the ``.out`` site in the same
+  epilogue, bit-identical to ``qconv_q`` followed by
+  ``kernels/qmm_requant.py::residual_relu_q``;
 - the stem is a float32 conv of the bfloat16-rounded input and dequantized
-  kernel (the JAX package's bf16 operands with float32 sums), requantized to
-  the ``stem`` site; the max-pool runs on the int8 values.
+  kernel (the JAX package's bf16 operands with float32 sums), then one pass
+  (``stem_requant_pool``, a kernel on the card) requantizes it to the
+  ``stem`` site and max-pools the int8 values into NHWC.
 
 Layouts are the port's: the float input is NCHW (``channels_last``), int8
 activations are NHWC, conv weights are (O, kh, kw, I) int8. The qtree is
@@ -36,7 +42,11 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from multimodalbrainsurvival_torch.kernels.qmm_requant import qconv_requant
+from multimodalbrainsurvival_torch.kernels.qmm_requant import (
+    qconv_requant,
+    qconv_residual_requant,
+    stem_requant_pool,
+)
 from multimodalbrainsurvival_torch.ops.image import preprocess_patches
 
 STAGE_SIZES = {
@@ -149,10 +159,6 @@ def quantize_resnet(state: dict, amax: dict, *, arch: str = "resnet50") -> dict:
 # --- int8 forward -------------------------------------------------------------
 
 
-def requant(y: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
-    return torch.round(y / s).clamp(-127, 127).to(torch.int8)
-
-
 def qconv_q(x_q, s_in, cp: dict, s_out, *, stride: int = 1, padding: int = 0,
             relu: bool = True) -> torch.Tensor:
     """NHWC int8 conv whose epilogue lands directly at an int8 tensor of
@@ -163,11 +169,14 @@ def qconv_q(x_q, s_in, cp: dict, s_out, *, stride: int = 1, padding: int = 0,
                          padding=padding, relu=relu)
 
 
-def residual_relu_q(t_q, s_t, r_q, s_r, s_out) -> torch.Tensor:
-    """relu(t + r) from two int8 branches with their own scales, requantized
-    to the output site."""
-    y = t_q.float() * s_t + r_q.float() * s_r
-    return requant(torch.relu(y), s_out)
+def qconv_residual_q(x_q, s_in, cp: dict, s_t, r_q, s_r, s_out, *,
+                     stride: int = 1, padding: int = 0) -> torch.Tensor:
+    """``residual_relu_q(qconv_q(x_q, s_in, cp, s_t, relu=False), s_t, r_q,
+    s_r, s_out)`` in one launch of K3's residual form."""
+    scale = (s_in * cp["ws"]) / s_t
+    bias = cp["b"] / s_t
+    return qconv_residual_requant(x_q, cp["k"], scale, bias, r_q, s_t, s_r,
+                                  s_out, stride=stride, padding=padding)
 
 
 def quantized_stages(qtree: dict, x: torch.Tensor, *, stages: int,
@@ -182,27 +191,15 @@ def quantized_stages(qtree: dict, x: torch.Tensor, *, stages: int,
     # bfloat16 operands, float32 products and sums (TF32 is off)
     y = F.conv2d(x.to(torch.bfloat16).float(), kb.float().permute(0, 3, 1, 2),
                  stride=2, padding=3)
-    y_q = requant(torch.clamp_min(y + cp["b"][:, None, None], 0.0), s["stem"])
-    # max-pool on the int8 values (exact in float32; every window holds a
-    # real pixel, so the -inf padding acts as the JAX package's -128)
-    y_q = F.max_pool2d(y_q.float(), 3, 2, 1).to(torch.int8)
-    y_q = y_q.permute(0, 2, 3, 1).contiguous()
+    # bias, relu, requant to the stem site, then the max-pool on the int8
+    # values, NHWC out
+    y_q = stem_requant_pool(y, cp["b"], s["stem"])
     s_in = s["stem"]
     for ln, _, stride, i in _blocks(arch):
         if i >= stages:
             break
         bq = qtree[ln]
         s_out, s_t = s[f"{ln}.out"], s[f"{ln}.t"]
-        if basic:
-            t_q = qconv_q(y_q, s_in, bq["conv1"], s[f"{ln}.r1"],
-                          stride=stride, padding=1)
-            t_q = qconv_q(t_q, s[f"{ln}.r1"], bq["conv2"], s_t, padding=1,
-                          relu=False)
-        else:
-            t_q = qconv_q(y_q, s_in, bq["conv1"], s[f"{ln}.r1"])
-            t_q = qconv_q(t_q, s[f"{ln}.r1"], bq["conv2"], s[f"{ln}.r2"],
-                          stride=stride, padding=1)
-            t_q = qconv_q(t_q, s[f"{ln}.r2"], bq["conv3"], s_t, relu=False)
         if "downsample_conv" in bq:
             s_r = s[f"{ln}.skip"]
             r_q = qconv_q(y_q, s_in, bq["downsample_conv"], s_r, stride=stride,
@@ -210,7 +207,19 @@ def quantized_stages(qtree: dict, x: torch.Tensor, *, stages: int,
         else:
             # identity skip: the block input is already int8 at s_in
             s_r, r_q = s_in, y_q
-        y_q = residual_relu_q(t_q, s_t, r_q, s_r, s_out)
+        # the block's last conv ends in the residual add (relu(t + r),
+        # requantized to s_out)
+        if basic:
+            t_q = qconv_q(y_q, s_in, bq["conv1"], s[f"{ln}.r1"],
+                          stride=stride, padding=1)
+            y_q = qconv_residual_q(t_q, s[f"{ln}.r1"], bq["conv2"], s_t, r_q,
+                                   s_r, s_out, padding=1)
+        else:
+            t_q = qconv_q(y_q, s_in, bq["conv1"], s[f"{ln}.r1"])
+            t_q = qconv_q(t_q, s[f"{ln}.r1"], bq["conv2"], s[f"{ln}.r2"],
+                          stride=stride, padding=1)
+            y_q = qconv_residual_q(t_q, s[f"{ln}.r2"], bq["conv3"], s_t, r_q,
+                                   s_r, s_out)
         s_in = s_out
     return y_q, s_in
 

@@ -22,7 +22,15 @@ run draws the seeds an uninterrupted run would.
 The ``survival_prediction`` task is ported; ``survival_bin`` and
 ``classification`` raise ``NotImplementedError`` until their losses and
 metrics are ported (ROADMAP.md, queue 1, item 1). The SIGTERM emergency save
-and mid-epoch resume are not ported (ROADMAP.md).
+and mid-epoch resume are not ported (ROADMAP.md, item 10): ``train_model``
+says so on stderr when it starts, since a SIGTERM loses the work done since
+the last epoch boundary.
+
+With a ``writer`` (``--log 1``, ``utils/logging.py``) the scalars are the
+JAX loop's, under its tags and steps: ``train/loss`` and
+``train/bags_per_s`` at every ``log_interval``-th step, and
+``<split>/<metric>`` of every evaluation at its epoch (the final ones at
+``num_epochs - 1`` for the last weights and at the best epoch for the best).
 """
 
 from __future__ import annotations
@@ -30,6 +38,7 @@ from __future__ import annotations
 import copy
 import dataclasses
 import os
+import sys
 import time
 from dataclasses import dataclass
 
@@ -95,8 +104,10 @@ def make_loss_fn(settings: TrainSettings):
     raise ValueError(f"Unknown task: {settings.task!r}")
 
 
-def evaluate(adapter, dataset, settings: TrainSettings, *, split: str = "val"):
-    """Full-split eval → ``(loss, frames, metrics)``.
+def evaluate(adapter, dataset, settings: TrainSettings, *, split: str = "val",
+             writer=None, epoch: int = 0):
+    """Full-split eval → ``(loss, frames, metrics)``; the metrics go to
+    ``writer`` as ``<split>/<metric>`` at step ``epoch``.
 
     ``loss`` is the unweighted mean of the batch losses, as the reference's
     ``np.mean(loss_list)`` (``2_HistoPath_train.py:148``); the padded final
@@ -148,6 +159,9 @@ def evaluate(adapter, dataset, settings: TrainSettings, *, split: str = "val"):
         ci, frames[level] = M.survival_ci(outputs, ids[key], months, status)
         metrics[f"{level}_CI"] = ci
         print(f"{split} {level}  | CI {ci:.3f}")
+    if writer is not None:
+        for k, v in metrics.items():
+            writer.scalar(f"{split}/{k}", v, epoch)
     return val_loss, frames, metrics
 
 
@@ -204,10 +218,13 @@ def _score_frame(frames: dict):
 
 
 def train_model(adapter, datasets: dict, optimizer: TrainOptimizer,
-                settings: TrainSettings) -> dict:
+                settings: TrainSettings, writer=None) -> dict:
     """Train ``adapter.model`` in place; returns the final frames and
     metrics (``<split>_output_{last,best}``, ``<split>_metrics_{last,best}``).
-    The model ends holding the last weights."""
+    The model ends holding the last weights. ``writer``: a
+    ``MetricWriter`` or None."""
+    print("train: no emergency checkpoint on SIGTERM (not ported); a SIGTERM "
+          "loses the work done since the last epoch boundary", file=sys.stderr)
     loss_fn, loss_keys = make_loss_fn(settings)
     keys = tuple(dict.fromkeys(adapter.array_keys + loss_keys))
     model = adapter.model
@@ -261,13 +278,17 @@ def train_model(adapter, datasets: dict, optimizer: TrainOptimizer,
                 t_last, steps_since_log = time.time(), 0
                 print(f"train | epoch {epoch} | step {step} | loss {window:10.3f} "
                       f"|{speed:10.3f} bags/s")
+                if writer is not None:
+                    writer.scalar("train/loss", window, step)
+                    writer.scalar("train/bags_per_s", speed, step)
         running_loss, seen = _drain_losses(pending, running_loss, seen, epoch)
         print(f"EPOCH Loss: {running_loss / max(seen, 1e-9):.4f}")
 
         for split in ("train", "val"):
             if split not in datasets:
                 continue
-            split_loss, _, _ = evaluate(adapter, datasets[split], settings, split=split)
+            split_loss, _, _ = evaluate(adapter, datasets[split], settings, split=split,
+                                        writer=writer, epoch=epoch)
             print(f"{split.upper()} Loss: {split_loss:.4f}")
             if split != "val":
                 continue
@@ -314,7 +335,9 @@ def train_model(adapter, datasets: dict, optimizer: TrainOptimizer,
         for split in ("train", "val", "test"):
             if split not in datasets:
                 continue
-            _, frames, metrics = evaluate(a, datasets[split], settings, split=split)
+            _, frames, metrics = evaluate(
+                a, datasets[split], settings, split=split, writer=writer,
+                epoch=best_epoch if tag == "best" else settings.num_epochs - 1)
             outputs[f"{split}_output_{tag}"] = _score_frame(frames)
             outputs[f"{split}_metrics_{tag}"] = metrics
     if settings.output_dir:

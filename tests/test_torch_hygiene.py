@@ -108,3 +108,31 @@ def test_load_reference_state_dict_drops_resnet_classifier(tmp_path):
     loaded = load_reference_state_dict(str(path))
     assert not any(k.startswith("resnet.fc.") for k in loaded)
     model.load_state_dict(loaded)
+
+
+def test_kernel_library_digest_covers_included_headers(tmp_path, monkeypatch):
+    """A changed ``csrc/`` header (``#include "x.cuh"``, directly or through
+    another header) names another library, so it is rebuilt; an angle-bracket
+    include and a change elsewhere do not."""
+    from multimodalbrainsurvival_torch.kernels import build
+
+    (tmp_path / "k.cu").write_text('#include <cuda.h>\n#include "a.cuh"\nint k;\n')
+    (tmp_path / "a.cuh").write_text('#pragma once\n#include "b.cuh"\n')
+    (tmp_path / "b.cuh").write_text("int b;\n")
+    (tmp_path / "other.cuh").write_text("int o;\n")
+    monkeypatch.setattr(build, "CSRC", tmp_path)
+    assert [p.name for p in build._sources("k")] == ["k.cu", "a.cuh", "b.cuh"]
+    first = build.library_path("k")
+    (tmp_path / "other.cuh").write_text("int o2;\n")
+    assert build.library_path("k") == first
+    (tmp_path / "b.cuh").write_text("int b2;\n")
+    assert build.library_path("k") != first
+    assert first.name.startswith("libk-") and first.suffix == ".so"
+
+
+def test_every_kernel_source_includes_only_files_in_csrc():
+    from multimodalbrainsurvival_torch.kernels import build
+
+    for name in build.KERNEL_SOURCES:
+        for path in build._sources(name):
+            assert path.is_file() and path.parent == build.CSRC, path

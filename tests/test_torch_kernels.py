@@ -31,8 +31,12 @@ from multimodalbrainsurvival_torch.kernels.fused_stage import (
 from multimodalbrainsurvival_torch.kernels.qmm_requant import (
     qconv_requant,
     qconv_requant_plain,
+    qconv_residual_requant,
+    qconv_residual_requant_plain,
     qmm_requant,
     qmm_requant_plain,
+    stem_requant_pool,
+    stem_requant_pool_plain,
 )
 
 # (B, bag, D, real patches per bag; None = all real)
@@ -168,6 +172,87 @@ def test_qconv_requant_kernel_takes_a_misaligned_input(cuda):
     assert int((out != want).sum()) == 0
 
 
+# K3's residual form: (batch, H, W, C, N, kernel, stride, pad) of the last
+# conv of a block; ragged M and N (N not a multiple of 16 writes byte by
+# byte), C = 24 gathers byte by byte
+RESIDUAL_SHAPES = {
+    "layer1_conv3_2x56x56": (2, 56, 56, 64, 256, 1, 1, 0),
+    "layer4_conv3_n2048": (2, 7, 7, 512, 2048, 1, 1, 0),
+    "basic_conv2_3x3": (2, 9, 9, 64, 64, 3, 1, 1),
+    "ragged_m105_n40": (3, 5, 7, 32, 40, 1, 1, 0),
+    "c24_byte_gather": (2, 7, 7, 24, 48, 3, 1, 1),
+}
+
+
+def _residual_inputs(shape, device, shift=0, seed=0):
+    batch, H, W, C, N, k, stride, pad = shape
+    x, w, scale, bias = _q_inputs((batch, H, W, C), (N, k, k, C), device, seed)
+    if shift:  # x starting `shift` bytes into its storage
+        base = torch.empty(x.numel() + shift, dtype=torch.int8, device=device)
+        base[shift:].view(x.shape).copy_(x)
+        x = base[shift:].view(x.shape)
+    ho, wo = (H + 2 * pad - k) // stride + 1, (W + 2 * pad - k) // stride + 1
+    g = torch.Generator(device="cpu").manual_seed(seed + 1)
+    r = torch.randint(-127, 128, (batch, ho, wo, N), generator=g, dtype=torch.int8)
+    scales = [torch.tensor(v, device=device) for v in (0.05, 0.04, 0.06)]
+    return (x, w, scale, bias, r.to(device), *scales), dict(stride=stride, padding=pad)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", sorted(RESIDUAL_SHAPES))
+def test_qconv_residual_requant_kernel_equals_plain(cuda, name):
+    """The conv with relu off, then relu(t·s_t + r·s_r) requantized to s_out,
+    all in one launch: identical to the plain version's int8."""
+    args, conv = _residual_inputs(RESIDUAL_SHAPES[name], cuda)
+    before = qmm_requant.launches, qconv_residual_requant.launches
+    out = qconv_residual_requant(*args, **conv)
+    torch.cuda.synchronize()
+    assert (qmm_requant.launches, qconv_residual_requant.launches) == \
+        (before[0] + 1, before[1] + 1)
+    want = qconv_residual_requant_plain(*args, **conv)
+    assert out.shape == want.shape and out.dtype == torch.int8
+    assert int((out != want).sum()) == 0
+    assert 0 < float((out == 0).float().mean()) < 0.9 and int(out.max()) > 32
+
+
+@pytest.mark.gpu
+def test_qconv_residual_requant_kernel_takes_a_misaligned_input(cuda):
+    args, conv = _residual_inputs((1, 6, 6, 32, 32, 3, 1, 1), cuda, shift=1)
+    assert args[0].data_ptr() % 16 != 0
+    out = qconv_residual_requant(*args, **conv)
+    want = qconv_residual_requant_plain(*args, **conv)
+    assert int((out != want).sum()) == 0
+
+
+# the stem pass: (batch, C, H, W) of the float32 stem conv output
+STEM_SHAPES = {
+    "resnet_224px_4x64x112x112": (4, 64, 112, 112),
+    "odd_2x64x15x13": (2, 64, 15, 13),
+    "c3_1x3x9x7": (1, 3, 9, 7),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("channels_last", [True, False], ids=["nhwc", "nchw"])
+@pytest.mark.parametrize("name", sorted(STEM_SHAPES))
+def test_stem_requant_pool_kernel_equals_plain(cuda, name, channels_last):
+    batch, C, H, W = STEM_SHAPES[name]
+    g = torch.Generator(device="cpu").manual_seed(3)
+    y = (torch.randn(batch, C, H, W, generator=g) * 2).to(cuda)
+    if channels_last:
+        y = y.contiguous(memory_format=torch.channels_last)
+    bias = (torch.randn(C, generator=g) * 0.5).to(cuda)
+    s = torch.tensor(0.02, device=cuda)
+    before = stem_requant_pool.launches
+    out = stem_requant_pool(y, bias, s)
+    torch.cuda.synchronize()
+    assert stem_requant_pool.launches == before + 1
+    want = stem_requant_pool_plain(y, bias, s)
+    assert out.shape == want.shape == (batch, (H + 1) // 2, (W + 1) // 2, C)
+    assert out.is_contiguous() and int((out != want).sum()) == 0
+    assert int(out.min()) == 0 and int(out.max()) == 127
+
+
 @pytest.mark.gpu
 def test_qmm_requant_kernel_rejects_bad_inputs(cuda):
     a, w, scale, bias = _q_inputs((64, 32), (16, 32), cuda)
@@ -264,6 +349,11 @@ STAGE_SHAPES = {
     "cm24_1x5x40": (1, 5, 40, 24, 24, 96, 2),
     "layer1_2x56x56": (2, 56, 56, 64, 64, 256, 3),
     "layer2_tail_2x28x28": (2, 28, 28, 512, 128, 512, 3),
+    # padded tile rows and halo rows at the image edge, with a last pass of
+    # output channels that is not a multiple of 64 (96 = 64 + 32; 160 =
+    # 128 + 32), identity and projection
+    "cout96_edge_2x30x30": (2, 30, 30, 96, 24, 96, 2),
+    "cout160_projection_edge_1x15x29": (1, 15, 29, 64, 40, 160, 2),
 }
 # err / max(1, max|plain|): float32 sums in another order (FMA against the
 # plain version's products) stay near 1e-6; in bfloat16 both round y1, y2,
@@ -305,6 +395,60 @@ def test_fused_stage_kernel_matches_plain(cuda, name, dtype):
     err = (out.float() - want.float()).abs().max().item()
     assert err <= STAGE_TOL[dtype] * scale, (err, scale)
     assert torch.isfinite(out).all() and (out > 0).float().mean() > 0.2
+
+
+@pytest.mark.gpu
+def test_folded_bf16_extract_on_the_card_tracks_the_stock_modules(cuda):
+    """The folded bf16 encoder on the card (K4 for layer1 and layer2's tail,
+    cuDNN's fused conv + bias (+ residual) + ReLU for the rest) against the
+    same folded weights through the stock modules: per-sample cosine, the
+    two round at other places in bfloat16."""
+    from multimodalbrainsurvival_torch.models.resnet import resnet50
+    from multimodalbrainsurvival_torch.models.serving import fused_folded_extract
+
+    torch.manual_seed(0)
+    net = resnet50(num_classes=None, fold_bn=True, dtype=torch.bfloat16)
+    with torch.no_grad():
+        for name, p in net.named_parameters():
+            if name.endswith("bias"):
+                p.uniform_(-0.1, 0.1)
+    net = net.to(cuda, memory_format=torch.channels_last).eval()
+    x = torch.randn(6, 3, 64, 64, device=cuda, dtype=torch.bfloat16).contiguous(
+        memory_format=torch.channels_last)
+    before = fused_bottleneck_stage.launches
+    with torch.inference_mode():
+        got = fused_folded_extract(net, x)
+        want = net.extract(x)
+    assert fused_bottleneck_stage.launches == before + 6
+    assert got.shape == want.shape == (6, 2048) and torch.isfinite(got).all()
+    cos = torch.nn.functional.cosine_similarity(got.double(), want.double(), dim=1)
+    assert cos.min().item() >= 0.999, cos
+
+
+@pytest.mark.gpu
+def test_folded_float32_extract_on_the_card_matches_the_stock_modules(cuda):
+    """In float32 the card's folded path (K4's FMA path and cuDNN's fused
+    conv + bias (+ residual) + ReLU calls, TF32 off) computes what the stock
+    folded modules compute, up to the order of float32 sums."""
+    from multimodalbrainsurvival_torch.models.resnet import resnet50
+    from multimodalbrainsurvival_torch.models.serving import fused_folded_extract
+
+    torch.manual_seed(0)
+    net = resnet50(num_classes=None, fold_bn=True)
+    with torch.no_grad():
+        for name, p in net.named_parameters():
+            if name.endswith("bias"):
+                p.uniform_(-0.1, 0.1)
+    net = net.to(cuda, memory_format=torch.channels_last).eval()
+    x = torch.randn(4, 3, 64, 64, device=cuda).contiguous(
+        memory_format=torch.channels_last)
+    before = fused_bottleneck_stage.launches
+    with torch.inference_mode():
+        got = fused_folded_extract(net, x)
+        want = net.extract(x)
+    assert fused_bottleneck_stage.launches == before + 6
+    scale = want.abs().max().item()
+    assert (got - want).abs().max().item() <= 1e-4 * scale
 
 
 @pytest.mark.gpu

@@ -10,7 +10,11 @@ versions (``kernels/qmm_requant.py``), whose float64 product is exact.
   (``benchmarks/int8_pallas_probe.py::qmm_requant``) under the Pallas
   interpreter: identical int8.
 - (b) its conv form against ``_qconv_q`` (jitted, as the serving path runs
-  it) on every geometry of the family: identical int8.
+  it) on every geometry of the family: identical int8; its residual form
+  against ``_residual_relu_q(_qconv_q(..., relu=False), ...)`` with identity
+  and projection skips at Bottleneck (1×1) and Basic (3×3) shapes, and the
+  stem pass (``quantized_stages(..., stages=0)``) against JAX's
+  ``_quantized_stages(..., stages=0)``: identical int8.
 - (c) ``float_extract_amax``: features and site abs-maxes at ``rtol=1e-4``
   (float32 convolutions summed in another order).
 - (d) ``quantize_resnet``: from the same folded weights and amaxes, equal
@@ -39,8 +43,10 @@ from multimodalbrainsurvival_torch.cli.histo_train import build_mil_model
 from multimodalbrainsurvival_torch.config import Config
 from multimodalbrainsurvival_torch.kernels.qmm_requant import (
     qconv_requant,
+    qconv_residual_requant,
     qmm_requant,
     qmm_requant_plain,
+    stem_requant_pool,
 )
 from multimodalbrainsurvival_torch.models import quantize as tq
 from multimodalbrainsurvival_torch.models.convert import (
@@ -96,8 +102,8 @@ def _folded(arch: str):
     return fv, flax_mil_to_torch(fv["params"])
 
 
-def _input(seed: int, n: int = 3) -> np.ndarray:
-    return np.random.default_rng(seed).normal(size=(n, IMG, IMG, 3)).astype(np.float32)
+def _input(seed: int, n: int = 3, img: int = IMG) -> np.ndarray:
+    return np.random.default_rng(seed).normal(size=(n, img, img, 3)).astype(np.float32)
 
 
 def _int8(rng, shape):
@@ -178,6 +184,75 @@ def test_qconv_plain_matches_jax_qconv_q(geom, relu):
                      relu=relu).numpy()
     assert got.shape == want.shape and got.dtype == np.int8
     np.testing.assert_array_equal(got, want)
+
+
+# (last conv's kernel and padding, skip) of a block: Bottleneck conv3 (1×1)
+# and Basic conv2 (3×3), each with the identity skip (the block input at its
+# own scale) and a projection skip (a stride-2 downsample of a larger input)
+RESIDUAL_CASES = {"bottleneck_identity": (1, 0, False),
+                  "bottleneck_projection": (1, 0, True),
+                  "basic_identity": (3, 1, False),
+                  "basic_projection": (3, 1, True)}
+
+
+def _conv_params(rng, k, cin, cout):
+    return {"k": _int8(rng, (k, k, cin, cout)),
+            "ws": (rng.uniform(0.5, 2.0, cout) * 1e-3).astype(np.float32),
+            "b": rng.uniform(-5, 5, cout).astype(np.float32)}
+
+
+@pytest.mark.parametrize("case", sorted(RESIDUAL_CASES))
+def test_residual_form_plain_matches_jax(case):
+    k, pad, projection = RESIDUAL_CASES[case]
+    rng = np.random.default_rng(11)
+    t_in = _int8(rng, (2, 7, 7, 32))  # the last conv's input
+    cp = _conv_params(rng, k, 32, 24)
+    s_a, s_t, s_out = np.float32(0.05), np.float32(0.08), np.float32(0.1)
+    if projection:
+        s_in, s_r = np.float32(0.04), np.float32(0.07)
+        block_in = _int8(rng, (2, 13, 13, 16))
+        dcp = _conv_params(rng, 1, 16, 24)
+        r = np.asarray(jax.jit(functools.partial(jq._qconv_q, stride=2, relu=False))(
+            jnp.asarray(block_in), s_in, dcp, s_r))
+    else:
+        s_r = np.float32(0.06)
+        r = _int8(rng, (2, 7, 7, 24))
+
+    # the conv jitted as in the test above; the residual op by op: under
+    # jit XLA's CPU backend fuses t·s_t + r·s_r + requant and rounds
+    # differently (a few outputs move by one step), while the port, on the
+    # CPU and in the kernel, rounds each operation as written
+    t = jax.jit(functools.partial(jq._qconv_q, padding=((pad, pad), (pad, pad)),
+                                  relu=False))(jnp.asarray(t_in), s_a, cp, s_t)
+    want = np.asarray(jq._residual_relu_q(t, s_t, jnp.asarray(r), s_r, s_out))
+    got = tq.qconv_residual_q(
+        torch.from_numpy(t_in), torch.tensor(s_a),
+        flax_qtree_to_torch({"conv1": cp})["conv1"], torch.tensor(s_t),
+        torch.from_numpy(r.copy()), torch.tensor(s_r), torch.tensor(s_out),
+        padding=pad).numpy()
+    assert got.shape == want.shape == (2, 7, 7, 24) and got.dtype == np.int8
+    assert 0 < (got == 0).mean() < 0.9 and got.max() >= 32
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("img", [IMG, IMG + 1], ids=["even", "odd"])
+@pytest.mark.parametrize("arch", ARCHS)
+def test_stem_pass_matches_jax_stages_0(arch, img):
+    """``quantized_stages(..., stages=0)``: the stem conv, then the stem pass
+    (on the CPU its plain version); an odd size has a ragged pool edge."""
+    fv, _ = _folded(arch)
+    amax = jq.merge_amax([jax.device_get(
+        jq.float_extract_amax(fv, jnp.asarray(_input(5, n=4)), arch=arch)[1])])
+    qtree = jq.quantize_resnet(fv, amax, arch=arch)
+    x = _input(12, n=2, img=img)
+    want, want_s = jax.jit(functools.partial(jq._quantized_stages, stages=0, arch=arch))(
+        qtree, jnp.asarray(x))
+    got, got_s = tq.quantized_stages(flax_qtree_to_torch(qtree), _nchw(x), stages=0,
+                                     arch=arch)
+    assert got.shape == want.shape == (2, img // 4 + img % 2, img // 4 + img % 2, 64)
+    assert got.dtype == torch.int8 and got.is_contiguous()
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    assert got_s.item() == float(want_s)
 
 
 # --- (c)-(e) calibration, weight quantization, int8 forward ------------------
@@ -367,3 +442,13 @@ def test_conv_wrapper_rejects_what_the_kernel_does_not_take():
         qconv_requant(x, w[..., :4].contiguous(), s, s)
     with pytest.raises(ValueError, match="float32"):
         qconv_requant(x, w, s.double(), s)
+    one = torch.tensor(1.0)
+    r = torch.zeros(1, 4, 4, 3, dtype=torch.int8)
+    with pytest.raises(ValueError, match="s_t must be one float32"):
+        qconv_residual_requant(x, w, s, s, r, s, one, one)
+    with pytest.raises(ValueError, match="s_out must be one float32"):
+        qconv_residual_requant(x, w, s, s, r, one, one, one.double())
+    with pytest.raises(ValueError, match="bias"):
+        stem_requant_pool(torch.zeros(1, 3, 4, 4), torch.zeros(4), one)
+    with pytest.raises(ValueError, match="float32"):
+        stem_requant_pool(torch.zeros(1, 3, 4, 4).double(), torch.zeros(3), one)

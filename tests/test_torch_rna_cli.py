@@ -19,6 +19,10 @@ blind to a constant added to every score, so the embedding layer's bias
 gets a gradient of ~1e-10. At LR 1e-4 those steps reach the scores at
 ~1e-4, the size of the tolerance.
 
+Both train runs pass ``--log 1``: the port's ``metrics.jsonl`` holds the
+JAX CLI's (tag, step) sequence, its values at ``rtol=1e-4`` (the
+throughput ``train/bags_per_s`` is a wall-clock rate and is not compared).
+
 K2 at ``dropout > 0`` is held to its own contracts in
 ``tests/test_torch_dropout_matmul.py``; here a port-only run at
 ``dropout: 0.5`` shows that resuming from ``train_state.pt`` is exact.
@@ -149,8 +153,11 @@ def runs(request, cohort, tmp_path_factory):
          "model_last.pt", ["--device", "cpu"]),
     ):
         out = tmp / name
-        cfg = _config(cohort, out, restore_path=restore, **VARIANTS[request.param])
-        log = _run(train.main, ["--config", _write(tmp / f"{name}_train.json", cfg)] + extra)
+        # a log line every 2 steps: train/loss and train/bags_per_s are logged
+        cfg = _config(cohort, out, restore_path=restore, log_interval=2,
+                      **VARIANTS[request.param])
+        log = _run(train.main, ["--config", _write(tmp / f"{name}_train.json", cfg),
+                                "--log", "1"] + extra)
         serve = dict(cfg, model_path=str(out / "models/rna_model" / last),
                      output_path=str(out / "serve"))
         serve_cfg = _write(tmp / f"{name}_serve.json", serve)
@@ -193,6 +200,25 @@ def test_best_epoch_and_last_weights_match_jax(runs):
     start = torch.load(torch_out.parent / "init.pt", weights_only=True)
     last = torch.load(save_dir / "model_last.pt", weights_only=True)
     assert min(float((last[k] - v).abs().max()) for k, v in start.items()) > 3e-5
+
+
+def _metrics(out):
+    (path,) = (out / "summary").glob("*_rna_model/metrics.jsonl")
+    return [json.loads(line) for line in path.read_text().splitlines()]
+
+
+def test_log_writes_the_jax_metrics(runs):
+    (jax_out, _), (torch_out, _) = runs["jax"], runs["torch"]
+    want, got = _metrics(jax_out), _metrics(torch_out)
+    assert [(r["tag"], r.get("step")) for r in got] == \
+        [(r["tag"], r.get("step")) for r in want]
+    assert got[0]["tag"] == "config" and "lr_rna" in got[0]["text"]
+    assert {r["tag"] for r in got} >= {"train/loss", "train/bags_per_s", "val/loss",
+                                       "val/case_CI", "test/case_CI"}
+    for g, w in zip(got, want):
+        if "value" in w and w["tag"] != "train/bags_per_s":
+            np.testing.assert_allclose(g["value"], w["value"], rtol=1e-4,
+                                       err_msg=f"{w['tag']} at step {w['step']}")
 
 
 def test_early_stop_at_the_jax_epoch(runs):
@@ -242,6 +268,19 @@ def test_resume_at_dropout_is_exact(cohort, tmp_path):
                                    weights_only=True)
     for k, v in weights["straight"].items():
         assert torch.equal(weights["resumed"][k], v), k
+
+
+def test_emergency_checkpoint_is_reported_ignored(cohort, tmp_path, capsys):
+    """The port has no SIGTERM save: the key is reported as ignored, and
+    training says on stderr what a SIGTERM loses."""
+    from multimodalbrainsurvival_torch.config import Config
+
+    cfg = _config(cohort, tmp_path / "out", num_epochs=1, emergency_checkpoint=True)
+    assert Config(cfg).ignored_keys() == ["emergency_checkpoint"]
+    rna_train.main(["--config", _write(tmp_path / "cfg.json", cfg), "--device", "cpu"])
+    out, err = capsys.readouterr()
+    assert "ignoring keys with no meaning in the port: emergency_checkpoint" in out
+    assert "a SIGTERM loses the work done since the last epoch boundary" in err
 
 
 def test_train_without_card_defaults_to_cuda_and_raises(cohort, tmp_path, monkeypatch):
