@@ -10,17 +10,20 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
 2. build: every CUDA source of the port, one nvcc per source, in parallel;
    each kernel's registers, shared memory and spills as ptxas reports them;
 3. kernels: each kernel against its plain PyTorch version on the card at
-   the main path's shapes (the attention pool in float32 with TF32 off and
-   in bfloat16, within ``KERNEL_TOL``; the int8 product K3 at seven shapes
+   the main path's shapes (the attention pool in float32, 3xTF32 against
+   the plain version's float32 with TF32 off, and in bfloat16, within
+   ``KERNEL_TOL``; the int8 product K3 at seven shapes
    of ResNet-50 at 256 patches, relu on and off, identical int8, and in its
    residual form at the conv3 shapes of layers 1-4 (identity and projection
    skips), and the int8 stem pass at 224 px and 225 px, identical int8,
    timed beside the sequences they replace; K2a, the
    seeded dropout-matmul, at both RNA layer shapes within ``K2A_TOL``, and
    K2b, the seeded dropout alone, identical), then timed with CUDA events,
-   L2 scrubbed before each launch, in turns with the plain version and a
-   one-call PyTorch yardstick; K4, the fused folded-BN bottleneck stage,
-   at layer1's and layer2's stride-1 tail's shapes at 256 patches in
+   L2 scrubbed before each launch and every launch queued behind a sleep
+   kernel (so the host's time to prepare it is not timed), in turns with
+   the plain version and a one-call PyTorch yardstick; K4, the fused
+   folded-BN bottleneck stage, at layer1's and layer2's stride-1 tail's
+   shapes at 256 patches in
    bfloat16 and float32 within ``K4_TOL``, timed against the same stage
    through cuDNN;
 4. main path: a synthetic cohort (8 slides x 64 patches at 224 px, packed
@@ -35,7 +38,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    patches through K3 and the stem pass against the same forward through
    their plain versions (bit for bit); the folded bag embeddings against the
    unfolded ones
-   (cosine); the bf16, int8 and folded encoders' device time;
+   (cosine); the bf16, int8 and folded encoders' device time, and the
+   attention pool's (K1) share of the bf16 batch's device time;
 5. reference: a small cohort through ``histo_savescore`` in float32 on the
    card and on the CPU (plain versions), unfolded and with ``fold_bn:
    true`` (K4 in float32 on the card); the scores must agree;
@@ -44,7 +48,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    0.5, float32 at the reference width), then ``rna_savescore`` and
    ``rna_extractfeatures`` on its ``model_last.pt``; the counters are set
    to 0 just before and read just after each CLI, and every frame is
-   checked. Then one train step's device time (CUDA events) and profile;
+   checked. Then one train step's device time (CUDA events) and profile,
+   with K2a's share of the step and the card's idle share taken from K2a's
+   own timing in phase 3 (the profiler drops some K2a records);
 7. RNA reference: two dropout-free train steps of a small 12,778-gene
    cohort on the card and on the CPU from one seeded init; the val scores
    must agree.
@@ -132,10 +138,14 @@ N_WSI, N_PATCH, IMG = 8, 64, 224
 # softmax amplifies the rounding of the logits
 KERNEL_TOL = 2e-4
 # H100 SXM peaks (NVIDIA data sheet, dense): memory, bf16 tensor, f32 FMA,
-# int8 tensor
+# int8 tensor, TF32 tensor
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 PEAK_INT8_OPS = 1979e12
+PEAK_TF32_FLOPS = 495e12
+# a sleep kernel's length in clock cycles (≈50 ms at the H100's 1.98 GHz):
+# long enough for the host to queue every timed launch behind it
+SLEEP_CYCLES = 100_000_000
 # K3 at the main path's shapes, 256 patches at 224 px:
 # (where, batch, H, W, C, N, kernel, stride, pad) of the NHWC conv
 K3_SHAPES = (
@@ -234,9 +244,16 @@ def ptxas_summary(log: str) -> list[str]:
 def _time_ms(fn, iters: int, scrub: torch.Tensor) -> float:
     """Mean device time of ``fn`` over ``iters`` launches, each timed with
     CUDA events after writing ``scrub`` (larger than L2) so every launch
-    finds its inputs in device memory, as a serving caller would."""
+    finds its inputs in device memory, as a serving caller would. A sleep
+    kernel queued first holds the card while the host queues every launch,
+    so the host's time to prepare a launch (the wrapper's checks and
+    allocations, a tensor map's encoding) does not fall between the events
+    as idle card time: what is timed is the work on the card, as in a
+    caller that queues ahead (unless ``fn`` itself waits for the card)."""
     for _ in range(3):
         fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(SLEEP_CYCLES)
     events = []
     for _ in range(iters):
         scrub.zero_()
@@ -249,22 +266,24 @@ def _time_ms(fn, iters: int, scrub: torch.Tensor) -> float:
     return sum(s.elapsed_time(e) for s, e in events) / iters
 
 
-def _bound(x, weight, v, mask) -> tuple[float, str]:
+def _bound(x, weight, v, mask, peak=None, products=1) -> tuple[float, str]:
     """Least time for the pool's work on these inputs: bytes moved (each input
     read once, each output written once) over the memory rate, against the
-    operations over the peak rate for the input dtype. Only real (unmasked)
+    operations over the peak rate for the input dtype (or ``peak``, with the
+    projection done ``products`` times: 3xTF32). Only real (unmasked)
     patches need the projection, the gate and the pool."""
     n_b, bag, d = x.shape
     nbytes = (sum(t.numel() * t.element_size() for t in (x, weight, v, mask))
               + (n_b * d + n_b * bag) * 4)
     real = int(mask.sum())
-    flops = 2 * real * d * d + 4 * real * d  # projection, gate dot, pool
+    flops = products * 2 * real * d * d + 4 * real * d  # projection, gate dot, pool
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FLOPS[x.dtype] * 1e3
+    t_ops = flops / (peak or PEAK_FLOPS[x.dtype]) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def check_attention_pool(device: torch.device) -> dict:
+def k1_inputs(device: torch.device) -> tuple:
+    """The pool's inputs at the main path's shape (float32), from SEED."""
     g = torch.Generator(device="cpu").manual_seed(SEED)
     x = torch.randn(B, BAG, D, generator=g).relu().to(device)
     weight = (torch.randn(D, D, generator=g) / math.sqrt(D)).to(device)
@@ -272,6 +291,16 @@ def check_attention_pool(device: torch.device) -> dict:
     mask = torch.ones(B, BAG, dtype=torch.bool, device=device)
     mask[1, 10:] = False  # a short bag
     mask[2] = False       # a padded sample
+    return x, weight, v, mask
+
+
+def check_attention_pool(device: torch.device) -> dict:
+    """K1 against its plain version in float32 and bfloat16 (within
+    ``KERNEL_TOL``), then timed after an L2 scrub in turns with the plain
+    version and ``torch.matmul`` of its product. The float32 kernel runs
+    3xTF32 on the tensor cores: its route's bound (3x the products at the
+    TF32 rate) stands beside the float32 FMA bound."""
+    x, weight, v, mask = k1_inputs(device)
     scrub = torch.empty(64 << 20, dtype=torch.uint8, device=device)
     result = {}
     for dtype in (torch.float32, torch.bfloat16):
@@ -306,6 +335,9 @@ def check_attention_pool(device: torch.device) -> dict:
             "bound_ms": bound_ms,
             "bound_by": bound_by,
         }
+        if dtype == torch.float32:
+            result["float32"]["bound_tf32x3_ms"] = _bound(
+                xd, wd, v, mask, PEAK_TF32_FLOPS, 3)[0]
         print(f"attention_pool {str(dtype)[6:]}: {json.dumps(result[str(dtype)[6:]])}")
     return result
 
@@ -722,6 +754,7 @@ def check_main_path_batch(config: Config, device: torch.device, smi: str) -> dic
             feats.to(agg.dtype), agg.linear.weight.to(agg.dtype), agg.vector,
             arrays["bag_mask"])
         encoder_ms = _time_ms(lambda: model.patch_features(x), 10, scrub)
+        pool_ms = _time_ms(lambda: agg(feats, arrays["bag_mask"]), 25, scrub)
     err = (pooled - want).abs().max().item()
     rel = err / want.abs().max().item()
     print(f"main path batch: pooled max_abs_err {err:.3e} (relative {rel:.3e}), "
@@ -733,9 +766,12 @@ def check_main_path_batch(config: Config, device: torch.device, smi: str) -> dic
     t0 = time.perf_counter()
     n_batches = sum(1 for _ in val.batches(B, num_threads=8))
     host_ms = (time.perf_counter() - t0) / n_batches * 1e3
-    print(f"per batch of {B * BAG} patches: encoder {encoder_ms:.3f} ms on the "
-          f"card; host read {host_ms:.1f} ms [{smi}]")
-    return {"encoder_ms_per_batch": encoder_ms, "host_read_ms_per_batch": host_ms}
+    share = pool_ms / (encoder_ms + pool_ms)
+    print(f"per batch of {B * BAG} patches: encoder {encoder_ms:.3f} ms, attention "
+          f"pool (K1) {pool_ms:.4f} ms on the card, K1 {100 * share:.2f}% of the "
+          f"two; host read {host_ms:.1f} ms [{smi}]")
+    return {"encoder_ms_per_batch": encoder_ms, "pool_ms_per_batch": pool_ms,
+            "pool_share_of_batch_device_time": share, "host_read_ms_per_batch": host_ms}
 
 
 def device_breakdown(fn, wall_ms: float, label: str, ours: dict[str, str]) -> dict:
@@ -990,6 +1026,8 @@ def check_dropout_matmul(device: torch.device) -> dict:
         # the scaling of the kept x at the float32 FMA rate
         a_bytes = 4 * (M * K + N * K + M * N) / HBM_BYTES_PER_S * 1e3
         a_ops = (2 * M * K * N + M * K) / PEAK_FLOPS[torch.float32] * 1e3
+        # the route taken: 3xTF32, three products at the TF32 tensor rate
+        a_tf32 = 3 * 2 * M * K * N / PEAK_TF32_FLOPS * 1e3
         # K2b: x read, out written; one multiply per element
         b_bytes = 8 * M * K / HBM_BYTES_PER_S * 1e3
         b_ops = M * K / PEAK_FLOPS[torch.float32] * 1e3
@@ -997,6 +1035,7 @@ def check_dropout_matmul(device: torch.device) -> dict:
              "ms": ms["k2a"], "plain_ms": ms["k2a_plain"], "library_ms": ms["k2a_library"],
              "bound_ms": max(a_bytes, a_ops),
              "bound_by": "bytes" if a_bytes >= a_ops else "operations",
+             "bound_tf32x3_ms": max(a_bytes, a_tf32),
              "tflops": 2 * M * K * N / ms["k2a"] / 1e9}
         b = {"where": where, "M": M, "K": K, "mismatches": mismatches, "max_abs_err": b_err,
              "ms": ms["k2b"], "plain_ms": ms["k2b_plain"], "library_ms": ms["k2b_library"],
@@ -1014,14 +1053,14 @@ def check_dropout_matmul(device: torch.device) -> dict:
         k2b.append(b)
         del x, w, out, dropped, xm, mask
 
-    def total(recs):
+    def total(recs, extra=()):
         return {"max_abs_err": max(r["max_abs_err"] for r in recs),
                 **{k: sum(r[k] for r in recs)
-                   for k in ("ms", "plain_ms", "library_ms", "bound_ms")},
+                   for k in ("ms", "plain_ms", "library_ms", "bound_ms", *extra)},
                 "bound_by": max(recs, key=lambda r: r["bound_ms"])["bound_by"],
                 "shapes": recs}
 
-    return {"dropout_matmul": total(k2a),
+    return {"dropout_matmul": total(k2a, ("bound_tf32x3_ms",)),
             "seeded_dropout": {"mismatches": sum(r["mismatches"] for r in k2b),
                                **total(k2b)}}
 
@@ -1097,11 +1136,13 @@ def _check_rna_outputs(cfg: dict, sizes: dict) -> None:
             raise AssertionError(f"{split}: bad serving outputs {scores.shape} {feats.shape}")
 
 
-def drive_rna_path(root: str, device: torch.device, smi: str) -> tuple[dict, dict]:
+def drive_rna_path(root: str, device: torch.device, smi: str,
+                   k2a_ms_per_step: float) -> tuple[dict, dict]:
     """``rna_train`` (2 epochs, dropout 0.5), then ``rna_savescore`` and
     ``rna_extractfeatures`` on its ``model_last.pt``, at the reference width
     on ``cuda``. The counters are set to 0 just before each CLI and read just
-    after it; then the train step's device time and profile."""
+    after it; then the train step's device time and profile, with K2a's
+    share from its own timing (``k2a_ms_per_step``)."""
     paths = make_rna_cohort(os.path.join(root, "rna"), RNA_SPLITS, SEED)
     cfg, cfg_path = _rna_config(root, paths, "rna")
     steps = RNA_EPOCHS * math.ceil(RNA_SPLITS["train"] / RNA_BATCH)
@@ -1126,13 +1167,17 @@ def drive_rna_path(root: str, device: torch.device, smi: str) -> tuple[dict, dic
             raise AssertionError(f"{cli} launched {counts}, expected {expected}")
         by_cli[cli] = {"launches": counts, "wall_s": wall}
     _check_rna_outputs(cfg, RNA_SPLITS)
-    return by_cli, check_rna_train_step(Config(cfg), device, smi)
+    return by_cli, check_rna_train_step(Config(cfg), device, smi, k2a_ms_per_step)
 
 
-def check_rna_train_step(config: Config, device: torch.device, smi: str) -> dict:
+def check_rna_train_step(config: Config, device: torch.device, smi: str,
+                         k2a_ms_per_step: float) -> dict:
     """Device time of one RNA train step on a batch already on the card
     (CUDA events, mean of 10 after 3 warm-up steps), its profile, and the
-    host's time to read and place a batch."""
+    host's time to read and place a batch. ``torch.profiler`` drops some K2a
+    records, so K2a's share of the step and the card's idle share use
+    ``k2a_ms_per_step`` (K2a's own time at both layers) in place of the
+    profiled K2a time."""
     ds = RNATableDataset(config["train_csv_path"])
     torch.manual_seed(SEED)
     model = build_rna_model(config, ds.feature_dim).to(device)
@@ -1169,8 +1214,15 @@ def check_rna_train_step(config: Config, device: torch.device, smi: str) -> dict
           f"dropout {RNA_DROPOUT}): {step_ms:.3f} ms on the card; host read and copy of "
           f"a batch {host_ms:.2f} ms [{smi}]")
     profile = device_breakdown(step, step_ms, "RNA train step",
-                               {"k2a": "dropout_matmul_kernel", "k2b": "seeded_dropout_kernel"})
+                               {"k2a": "::Dropout>", "k2b": "seeded_dropout_kernel"})
+    busy = profile["device_busy_ms"] - profile["k2a_ms"] + k2a_ms_per_step
+    print(f"RNA train step: K2a {k2a_ms_per_step:.3f} ms a step (its own timing), "
+          f"{100 * k2a_ms_per_step / step_ms:.1f}% of the step; the card idle "
+          f"{100 * (1 - busy / step_ms):.1f}% of it [{smi}]")
     return {"rna_train_step_ms": step_ms, "rna_host_batch_ms": host_ms,
+            "rna_k2a_ms_per_step": k2a_ms_per_step,
+            "rna_k2a_share_of_step": k2a_ms_per_step / step_ms,
+            "rna_step_idle_share": 1 - busy / step_ms,
             "rna_train_step_profile": profile}
 
 
@@ -1226,7 +1278,8 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as root:
         launches, e2e = drive_main_path(root, device, smi)
         check_against_cpu(root, os.path.join(root, "cohort.csv"))
-        rna_launches, rna_e2e = drive_rna_path(root, device, smi)
+        rna_launches, rna_e2e = drive_rna_path(root, device, smi,
+                                               k2["dropout_matmul"]["ms"])
         check_rna_against_cpu(root)
     e2e.update(rna_e2e)
     k2_launches = {name: {cli: rec["launches"][name] for cli, rec in rna_launches.items()}

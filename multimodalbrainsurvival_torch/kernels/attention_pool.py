@@ -3,12 +3,13 @@
 Replaces the TPU kernel ``fused_gated_attention_pool`` / ``_pool_forward``
 (``multimodalbrainsurvival_tpu/ops/pallas/tanh_attention.py``, retired in
 commit ``183b10c``; ``pallas_call`` at ``:111``). The kernel source is
-``csrc/attention_pool.cu``; its header says what bounds it on the card and
-what its design does about that. In short: at the serving shape (B·bag =
-256, D = 2048, bfloat16) the ideal time is set by memory, 9.4 MB (mostly W)
-in 2.8 µs at 3.35 TB/s, against 2.2 µs for the 2.15 GFLOP of the projection
-at 989 TFLOP/s; this first kernel uses plain FMA tiles and sits far from
-that bound.
+``csrc/attention_pool.cu`` (its product is ``csrc/splitk_tn.cuh``); its
+header says what bounds it on the card and what its design does about that.
+In short: at the serving shape (B·bag = 256, D = 2048, bfloat16) the ideal
+time is set by memory, 9.4 MB (mostly W) in 2.8 µs at 3.35 TB/s, against
+2.2 µs for the 2.15 GFLOP of the projection at 989 TFLOP/s; the kernel runs
+the projection on the tensor cores (bf16 ``wgmma``, or 3xTF32 in float32)
+with D split over a cluster, so W is read once by a full wave of blocks.
 
 ``attention_pool`` dispatches on the device of its input: a CPU tensor goes
 to ``attention_pool_plain``; a CUDA tensor launches the kernel or raises.
@@ -49,19 +50,23 @@ def attention_pool_plain(x, weight, v, mask):
     return pooled, weights
 
 
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C entry points' signatures on a built library."""
+    lib.attention_pool_col_tiles.argtypes = [ctypes.c_int]
+    lib.attention_pool_col_tiles.restype = ctypes.c_int
+    lib.attention_pool_forward.argtypes = (
+        [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    )
+    lib.attention_pool_forward.restype = ctypes.c_int
+    return lib
+
+
 def _library() -> ctypes.CDLL:
     global _lib
     if _lib is None:
         from multimodalbrainsurvival_torch.kernels import build
 
-        lib = build.load("attention_pool")
-        lib.attention_pool_col_tiles.argtypes = [ctypes.c_int]
-        lib.attention_pool_col_tiles.restype = ctypes.c_int
-        lib.attention_pool_forward.argtypes = (
-            [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-        )
-        lib.attention_pool_forward.restype = ctypes.c_int
-        _lib = lib
+        _lib = bind(build.load("attention_pool"))
     return _lib
 
 
@@ -86,7 +91,9 @@ def attention_pool(x, weight, v, mask):
     bool mask → ((B, D) pooled, (B, bag) attention weights), float32.
 
     On the card ``x`` and ``weight`` are float32 or bfloat16 of the same
-    dtype and contiguous; ``v`` is read as float32.
+    dtype, contiguous, and start on 16-byte boundaries with rows of a
+    multiple of 16 bytes (D a multiple of 8 in bfloat16, of 4 in float32:
+    the kernel loads them by TMA); ``v`` is read as float32.
     """
     _check(x, weight, v, mask)
     if x.device.type == "cpu":
@@ -101,6 +108,12 @@ def attention_pool(x, weight, v, mask):
     if not (x.is_contiguous() and weight.is_contiguous() and mask.is_contiguous()):
         raise ValueError("the kernel takes contiguous x, weight and mask")
     B, bag, D = x.shape
+    if (D * x.element_size()) % 16 or x.data_ptr() % 16 or weight.data_ptr() % 16:
+        raise ValueError(
+            f"the kernel loads x and weight by TMA: rows of D = {D} {x.dtype} "
+            "values must be a multiple of 16 bytes and both must start on a "
+            "16-byte boundary"
+        )
     if B * bag * D >= 2**31 or bag * 4 > 227 * 1024:
         raise ValueError(f"shape {tuple(x.shape)} is beyond the kernel's range")
     lib = _library()

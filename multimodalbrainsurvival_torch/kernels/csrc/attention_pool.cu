@@ -11,124 +11,88 @@
 //                    clamped at 1e-30, so an all-masked bag gives zeros)
 //     out[b, :]    = sum_t w[b, t] x[b, t, :]
 //
-// x and W are float32 or bfloat16; every product and sum is float32 (plain
-// FMA, never TF32: the softmax amplifies error in the logits). Outputs are
-// float32.
+// x and W are float32 or bfloat16; tanh, the logits and every sum are
+// float32 (the softmax amplifies error in the logits). Outputs are float32.
 //
 // Bound on the card. At the serving shape (B * bag = 256 rows, D = 2048,
 // bfloat16) the work is 2 * 256 * 2048^2 = 2.15 GFLOP (2.2 us at 989
 // TFLOP/s) against about 9.4 MB of traffic, mostly W (2.8 us at 3.35 TB/s),
-// so the kernel is bound by memory. This first version uses plain FMA tiles
-// and sits far from that bound; wgmma, TMA and a single read of x per
-// sample are later work.
+// so the kernel is bound by memory: W has to come from device memory about
+// once, on enough SMs to draw the card's bandwidth. The first version of
+// this kernel (float32 FMA tiles, no tensor core, one element a load, W
+// read four times and x 32 times) took 0.156 ms there (PERF.md).
 //
-// Design. The TPU kernel walked W's column tiles in a sequential grid and
-// accumulated the logits in scratch. Blocks on Hopper run in no order, so
-// the work is split into two launches with no atomics (deterministic):
-//   1. project_gate_kernel: grid (column tiles of D) x (row tiles of B*bag).
-//      Each block computes a BM x BN tile of x @ W^T through shared memory,
-//      applies tanh, multiplies by v and sums over its columns, writing one
-//      partial logit per row to partial[col_tile, row].
+// Design. Two launches, no atomics (deterministic):
+//   1. the projection and gate: splitk_tn.cuh's product x W^T (x as (B *
+//      bag, D), W in nn.Linear layout: both K-major as stored), bf16 wgmma
+//      or 3xTF32 wgmma in float32, fed by TMA into a ring of swizzled
+//      tiles; 128 x 128 tiles with D split over a cluster (at the serving
+//      shape 2 x 16 tiles x 3 blocks along D = 96 blocks in one wave; W
+//      read from device memory once, x 16 times from L2). Its epilogue adds the cluster's
+//      float32 sums, applies tanh(.) . v and sums over the tile's 128
+//      columns, one warp a row, writing one partial logit per row to
+//      partial[column tile, row].
 //   2. softmax_pool_kernel: grid (B) x (slices of D). Each block sums its
 //      sample's partials in a fixed order, applies the mask and the softmax,
-//      and writes its slice of out; the first slice's block also writes w.
-// Ragged edges (rows, columns, depth) are masked in the kernels; nothing is
-// padded.
+//      and writes its slice of out, reading x (L2-resident) once; the first
+//      slice's block also writes w. It is launched with programmatic stream
+//      serialization: scheduled while the projection runs, it waits for the
+//      projection's end on the device, so no launch gap separates the two.
+// x and W must have 16-byte-aligned rows and bases (D a multiple of 8 in
+// bf16, of 4 in float32): the wrapper refuses others.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "splitk_tn.cuh"
+
 namespace {
 
-constexpr int BM = 64;  // rows of x per block
-constexpr int BN = 64;  // columns of W per block
-constexpr int BK = 16;  // depth of one shared-memory stage
-constexpr int TM = 4;   // rows per thread
-constexpr int TN = 4;   // columns per thread
-constexpr int PROJ_THREADS = (BM / TM) * (BN / TN);  // 256
 constexpr int POOL_THREADS = 256;
 constexpr float NEG_INF = -1e30f;
-// the loader gives each thread 4 k of one row of x and the same row of W
-static_assert(BM == BN && PROJ_THREADS == BM * BK / 4, "loader mapping");
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
   return __bfloat162float(v);
 }
 
-template <typename T>
-__global__ void __launch_bounds__(PROJ_THREADS)
-project_gate_kernel(const T* __restrict__ x, const T* __restrict__ weight,
-                    const float* __restrict__ v, float* __restrict__ partial,
-                    int R, int D) {
-  __shared__ float As[BK][BM];
-  __shared__ float Bs[BK][BN];
-  const int tid = threadIdx.x;
-  const int tx = tid % (BN / TN);  // column group: 16 neighbouring lanes
-  const int ty = tid / (BN / TN);  // row group
-  const int row0 = blockIdx.y * BM;
-  const int col0 = blockIdx.x * BN;
-  // loader: each thread brings 4 consecutive k of one row of x and of W
-  const int lrow = tid / (BK / 4);
-  const int lk = (tid % (BK / 4)) * 4;
-  const int r_load = row0 + lrow;
-  const int c_load = col0 + lrow;
-
-  float acc[TM][TN];
+// The product's epilogue: logit part of row m over column tile n_tile,
+// sum_n tanh(h[m, n]) v[n], in a fixed order (4 columns a lane, then a
+// butterfly over the warp).
+struct Gate {
+  struct Params {
+    const float* v;
+    float* partial;  // (n_col_tiles, B * bag)
+  };
+  struct Cols {
+    float v[4];  // the gate vector at the lane's columns (0 past D)
+  };
+  static __device__ __forceinline__ void transform(const Params&, float4&, int, int) {}
+  static __device__ __forceinline__ Cols cols(const Params& ep,
+                                              const splitk::Problem& p,
+                                              int n_tile, int lane) {
+    const int n = n_tile * splitk::BN + 4 * lane;
+    Cols c;
 #pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
-
-  for (int k0 = 0; k0 < D; k0 += BK) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int k = k0 + lk + i;
-      As[lk + i][lrow] =
-          (r_load < R && k < D) ? to_f32(x[(size_t)r_load * D + k]) : 0.f;
-      Bs[lk + i][lrow] =
-          (c_load < D && k < D) ? to_f32(weight[(size_t)c_load * D + k]) : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < BK; ++kk) {
-      float a[TM], b[TN];
-#pragma unroll
-      for (int i = 0; i < TM; ++i) a[i] = As[kk][ty * TM + i];
-#pragma unroll
-      for (int j = 0; j < TN; ++j) b[j] = Bs[kk][tx * TN + j];
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
+    for (int e = 0; e < 4; ++e) c.v[e] = n + e < p.N ? ep.v[n + e] : 0.f;
+    return c;
   }
-
-  float part[TM];
+  static __device__ __forceinline__ void row(const Params& ep,
+                                             const splitk::Problem& p,
+                                             const Cols& cols, int m,
+                                             int n_tile, int lane, float4 h) {
+    const int n = n_tile * splitk::BN + 4 * lane;
+    const float hv[4] = {h.x, h.y, h.z, h.w};
+    float part = 0.f;
 #pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    part[i] = 0.f;
+    for (int e = 0; e < 4; ++e)
+      if (n + e < p.N) part = fmaf(tanhf(hv[e]), cols.v[e], part);
 #pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const int c = col0 + tx * TN + j;
-      if (c < D) part[i] = fmaf(tanhf(acc[i][j]), v[c], part[i]);
-    }
+    for (int off = 16; off > 0; off >>= 1)
+      part += __shfl_xor_sync(0xffffffffu, part, off);
+    if (lane == 0 && m < p.M) ep.partial[(size_t)n_tile * p.M + m] = part;
   }
-  // sum over the block's columns: the 16 tx of one ty are one half-warp
-#pragma unroll
-  for (int off = (BN / TN) / 2; off > 0; off >>= 1)
-#pragma unroll
-    for (int i = 0; i < TM; ++i)
-      part[i] += __shfl_xor_sync(0xffffffffu, part[i], off);
-  if (tx == 0) {
-#pragma unroll
-    for (int i = 0; i < TM; ++i) {
-      const int r = row0 + ty * TM + i;
-      if (r < R) partial[(size_t)blockIdx.x * R + r] = part[i];
-    }
-  }
-}
+};
 
 // Every thread returns the same value; `red` is free again on return.
 template <bool IS_MAX>
@@ -160,12 +124,14 @@ softmax_pool_kernel(const T* __restrict__ x, const float* __restrict__ partial,
   const int tid = threadIdx.x;
   const size_t R = (size_t)B * bag;
   const size_t base = (size_t)b * bag;
+  hopper::pdl_wait();  // the projection's partial logits are written
 
   float lmax = NEG_INF;
   for (int t = tid; t < bag; t += blockDim.x) {
     float l = NEG_INF;
     if (mask[base + t]) {
       l = 0.f;
+#pragma unroll 8
       for (int j = 0; j < n_col_tiles; ++j) l += partial[j * R + base + t];
     }
     w[t] = l;
@@ -190,6 +156,7 @@ softmax_pool_kernel(const T* __restrict__ x, const float* __restrict__ partial,
   if (d < D) {
     const T* xb = x + base * D + d;
     float acc = 0.f;
+#pragma unroll 8
     for (int t = 0; t < bag; ++t) acc = fmaf(w[t], to_f32(xb[(size_t)t * D]), acc);
     out[(size_t)b * D + d] = acc;
   }
@@ -200,7 +167,7 @@ cudaError_t launch(const void* x, const void* weight, const float* v,
                    const unsigned char* mask, float* partial, float* out,
                    float* attn, int B, int bag, int D, cudaStream_t stream) {
   const int R = B * bag;
-  const int n_col = (D + BN - 1) / BN;
+  const int n_col = (D + splitk::BN - 1) / splitk::BN;
   const size_t smem = (size_t)bag * sizeof(float);
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
@@ -208,15 +175,29 @@ cudaError_t launch(const void* x, const void* weight, const float* v,
         (int)smem);
     if (err != cudaSuccess) return err;
   }
-  const dim3 grid1(n_col, (R + BM - 1) / BM);
-  project_gate_kernel<T><<<grid1, PROJ_THREADS, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(weight), v, partial, R,
-      D);
-  const cudaError_t err = cudaGetLastError();
+  if (R <= 0 || D <= 0 || splitk::route_of<T>(x, weight, D) != splitk::kTma)
+    return cudaErrorInvalidValue;  // the wrapper refuses such inputs first
+  const splitk::Problem p{x, weight, R, D, D, 0, 0};
+  cudaError_t err = splitk::launch_route<T, splitk::kTma, Gate>(
+      p, Gate::Params{v, partial}, stream);
   if (err != cudaSuccess) return err;
-  const dim3 grid2(B, (D + POOL_THREADS - 1) / POOL_THREADS);
-  softmax_pool_kernel<T><<<grid2, POOL_THREADS, smem, stream>>>(
-      static_cast<const T*>(x), partial, mask, out, attn, B, bag, D, n_col);
+  // launched behind the projection with programmatic stream serialization:
+  // its blocks are scheduled while the projection runs and wait for it in
+  // pdl_wait, so no launch gap separates the two
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(B, (D + POOL_THREADS - 1) / POOL_THREADS);
+  cfg.blockDim = dim3(POOL_THREADS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr.val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, softmax_pool_kernel<T>, static_cast<const T*>(x),
+                           static_cast<const float*>(partial), mask, out, attn, B,
+                           bag, D, n_col);
+  if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
 
@@ -225,10 +206,13 @@ cudaError_t launch(const void* x, const void* weight, const float* v,
 extern "C" {
 
 // Rows of the (n_col_tiles, B * bag) float32 scratch the caller allocates.
-int attention_pool_col_tiles(int D) { return (D + BN - 1) / BN; }
+int attention_pool_col_tiles(int D) {
+  return (D + splitk::BN - 1) / splitk::BN;
+}
 
-// dtype: 0 = float32, 1 = bfloat16 (x and weight). Returns the CUDA error
-// code of the launches (0 = cudaSuccess); nothing is synchronised.
+// dtype: 0 = float32, 1 = bfloat16 (x and weight, rows and bases 16-byte
+// aligned). Returns the CUDA error code of the launches (0 = cudaSuccess);
+// nothing is synchronised.
 int attention_pool_forward(const void* x, const void* weight, const float* v,
                            const unsigned char* mask, float* partial,
                            float* out, float* attn, int B, int bag, int D,

@@ -22,33 +22,43 @@
 //
 // What bounds it on this card: at the RNA encoder's first layer (M = 256,
 // K = 12,778, N = 4,096) the product is 26.8 GFLOP against 227 MB of
-// traffic, so operations bound it: 0.40 ms at the 67 TFLOP/s float32 FMA
-// rate (the port keeps float32 products out of TF32, as the reference
-// computes them in full float32). This first kernel is a plain shared-memory
-// FMA tiling: 64 x 64 output tiles, 256 threads each holding a 4 x 4 block
-// of sums, depth steps of 32 staged through registers into a second shared
-// buffer while the first is consumed. The mask is hashed as each x tile is
-// loaded, once per output column tile, which costs integer operations but
-// no memory traffic. K2b is one pass over memory, bound by bytes.
+// traffic (mostly the 209 MB weight, read once). In float32 FMA that is
+// bound by operations: 0.40 ms at 67 TFLOP/s. The first version of this
+// kernel (64 x 64 FMA tiles, 4 x 4 sums a thread, loads staged through
+// registers, the mask hashed 64 times over x; 128 blocks of 4,096 depth at
+// the second layer, one per SM) took 1.85 / 0.60 ms at the two layers
+// (PERF.md).
+//
+// Design. K2a is splitk_tn.cuh's product with x as A and the weight as B,
+// both K-major as stored:
+//   - 3xTF32 on the tensor cores (hi·hi + hi·lo + lo·hi, each value split
+//     once in shared memory; 3 x 26.8 GFLOP at 495 TFLOP/s is 0.163 ms),
+//     float32 to within 1e-4 of the float32 FMA product at both layers, each
+//     k-tile's sum added into registers in IEEE float32;
+//   - 128 x 128 output tiles, so each x value is masked once per 128
+//     columns (32 times over dense_0's x), and K split over a cluster of
+//     2 (dense_0, 64 tiles: 128 blocks) or 3 (dense_1, 32 tiles: 96
+//     blocks) blocks, one wave each; the cluster adds its float32 tiles in
+//     a fixed order through distributed shared memory;
+//   - the mask is hashed as each x k-tile lies in shared memory, with
+//     global (row, col) indices, just before the hi/lo split: never a pass
+//     of its own, and k-tile i + 1's hashing runs while the tensor cores
+//     work on k-tile i;
+//   - loads by TMA where rows are 16-byte aligned (K % 4 == 0: dense_1),
+//     else by cp.async in 8-byte (K even: dense_0's 51,112-byte rows) or
+//     4-byte pieces; the route follows from K and the base addresses alone.
+// K2b is one pass over memory, bound by bytes.
 //
 // Both functions launch on the caller's stream, allocate nothing, and
-// return cudaGetLastError() of the launch.
+// return the CUDA error code of the launch.
 
 #include <cstdint>
 
 #include <cuda_runtime.h>
 
-namespace {
+#include "splitk_tn.cuh"
 
-constexpr int BM = 64;
-constexpr int BN = 64;
-constexpr int BK = 32;
-constexpr int TM = 4;
-constexpr int TN = 4;
-constexpr int THREADS = (BM / TM) * (BN / TN);  // 256
-constexpr int A_LOADS = BM * BK / THREADS;      // 8
-constexpr int B_LOADS = BN * BK / THREADS;      // 8
-constexpr int PAD = 4;  // keeps rows 16-byte aligned for float4 reads
+namespace {
 
 struct Mask {
   uint32_t seed_mix;   // seed * 0x9E3779B1 (mod 2^32)
@@ -67,94 +77,47 @@ __device__ __forceinline__ bool keep(uint32_t row, uint32_t col, const Mask& mas
   return h >= mask.threshold;
 }
 
-__global__ void __launch_bounds__(THREADS)
-dropout_matmul_kernel(const float* __restrict__ x, const float* __restrict__ w,
-                      float* __restrict__ out, int M, int N, int K, Mask mask) {
-  __shared__ __align__(16) float As[2][BK][BM + PAD];  // As[k][m]
-  __shared__ __align__(16) float Bs[2][BK][BN + PAD];  // Bs[k][n]
-  const int tid = threadIdx.x;
-  const int m0 = blockIdx.y * BM;
-  const int n0 = blockIdx.x * BN;
-  const int ty = tid / (BN / TN);
-  const int tx = tid % (BN / TN);
-
-  float ra[A_LOADS];
-  float rb[B_LOADS];
-  float acc[TM][TN];
-#pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
-
-  // a warp reads 32 consecutive k of one row of x and of w: coalesced
-  auto load = [&](int k0) {
-#pragma unroll
-    for (int i = 0; i < A_LOADS; ++i) {
-      const int idx = tid + i * THREADS;
-      const int r = idx / BK, c = idx % BK;
-      const int row = m0 + r, col = k0 + c;
-      float v = 0.f;
-      if (row < M && col < K) {
-        v = x[static_cast<size_t>(row) * K + col];
-        if (mask.on) v = keep(row, col, mask) ? __fmul_rn(v, mask.scale) : 0.f;
-      }
-      ra[i] = v;
-    }
-#pragma unroll
-    for (int i = 0; i < B_LOADS; ++i) {
-      const int idx = tid + i * THREADS;
-      const int r = idx / BK, c = idx % BK;
-      const int row = n0 + r, col = k0 + c;
-      rb[i] = (row < N && col < K) ? w[static_cast<size_t>(row) * K + col] : 0.f;
-    }
-  };
-  auto store = [&](int buf) {
-#pragma unroll
-    for (int i = 0; i < A_LOADS; ++i) {
-      const int idx = tid + i * THREADS;
-      As[buf][idx % BK][idx / BK] = ra[i];
-    }
-#pragma unroll
-    for (int i = 0; i < B_LOADS; ++i) {
-      const int idx = tid + i * THREADS;
-      Bs[buf][idx % BK][idx / BK] = rb[i];
-    }
-  };
-
-  const int nk = (K + BK - 1) / BK;
-  load(0);
-  store(0);
-  __syncthreads();
-  for (int t = 0; t < nk; ++t) {
-    const int buf = t & 1;
-    if (t + 1 < nk) load((t + 1) * BK);  // in flight while this tile is used
-#pragma unroll
-    for (int kk = 0; kk < BK; ++kk) {
-      const float4 a = *reinterpret_cast<const float4*>(&As[buf][kk][ty * TM]);
-      const float4 b = *reinterpret_cast<const float4*>(&Bs[buf][kk][tx * TN]);
-      const float av[TM] = {a.x, a.y, a.z, a.w};
-      const float bv[TN] = {b.x, b.y, b.z, b.w};
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-    }
-    // buf ^ 1 was last read before the previous barrier: free to refill
-    if (t + 1 < nk) store(buf ^ 1);
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int row = m0 + ty * TM + i;
-    if (row >= M) continue;
-#pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const int col = n0 + tx * TN + j;
-      if (col < N) out[static_cast<size_t>(row) * N + col] = acc[i][j];
-    }
-  }
+__device__ __forceinline__ float dropped(float v, uint32_t row, uint32_t col,
+                                         const Mask& mask) {
+  return keep(row, col, mask) ? __fmul_rn(v, mask.scale) : 0.f;
 }
+
+// K2a's parts of the product: the mask on x's k-tiles, and the store of C.
+struct Dropout {
+  struct Params {
+    float* out;  // (M, N)
+    Mask mask;
+  };
+  struct Cols {};
+  static __device__ __forceinline__ Cols cols(const Params&, const splitk::Problem&,
+                                              int, int) {
+    return Cols{};
+  }
+  static __device__ __forceinline__ void transform(const Params& ep, float4& v,
+                                                   int m, int k) {
+    if (!ep.mask.on) return;
+    v.x = dropped(v.x, m, k, ep.mask);
+    v.y = dropped(v.y, m, k + 1, ep.mask);
+    v.z = dropped(v.z, m, k + 2, ep.mask);
+    v.w = dropped(v.w, m, k + 3, ep.mask);
+  }
+  static __device__ __forceinline__ void row(const Params& ep,
+                                             const splitk::Problem& p,
+                                             const Cols&, int m, int n_tile,
+                                             int lane, float4 c) {
+    const int n = n_tile * splitk::BN + 4 * lane;
+    if (m >= p.M || n >= p.N) return;
+    float* const dst = ep.out + (size_t)m * p.N + n;
+    if (p.N % 4 == 0) {  // rows 16-byte aligned (the output is fresh)
+      *reinterpret_cast<float4*>(dst) = c;
+      return;
+    }
+    const float cv[4] = {c.x, c.y, c.z, c.w};
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      if (n + e < p.N) dst[e] = cv[e];
+  }
+};
 
 __global__ void seeded_dropout_kernel(const float* __restrict__ x,
                                       float* __restrict__ out, long long total,
@@ -164,7 +127,7 @@ __global__ void seeded_dropout_kernel(const float* __restrict__ x,
        i < total; i += stride) {
     const uint32_t row = static_cast<uint32_t>(i / K);
     const uint32_t col = static_cast<uint32_t>(i % K);
-    out[i] = keep(row, col, mask) ? __fmul_rn(x[i], mask.scale) : 0.f;
+    out[i] = dropped(x[i], row, col, mask);
   }
 }
 
@@ -174,14 +137,16 @@ Mask make_mask(uint32_t seed, uint32_t threshold, float scale, int on) {
 
 }  // namespace
 
+// out (M, N) = dropout(x (M, K)) @ w (N, K)^T, all float32 row-major on
+// the device; out must be 16-byte aligned.
 extern "C" int dropout_matmul_f32(const float* x, const float* w, float* out,
                                   int M, int N, int K, uint32_t seed,
                                   uint32_t threshold, float scale, int apply_mask,
                                   void* stream) {
-  const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
-  dropout_matmul_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      x, w, out, M, N, K, make_mask(seed, threshold, scale, apply_mask));
-  return static_cast<int>(cudaGetLastError());
+  const splitk::Problem p{x, w, M, N, K, 0, 0};
+  const Dropout::Params ep{out, make_mask(seed, threshold, scale, apply_mask)};
+  return static_cast<int>(splitk::launch<float, Dropout>(
+      p, ep, static_cast<cudaStream_t>(stream)));
 }
 
 extern "C" int seeded_dropout_f32(const float* x, float* out, long long total,

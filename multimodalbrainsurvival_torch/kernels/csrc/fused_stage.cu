@@ -56,7 +56,7 @@
 // -> 128 rows, its 10 x 16 halo 160 -> 192; 4 x 28 for layer2's 28 x 28:
 // 112 -> 128, its 6 x 30 halo 180 -> 192). Variants (ring depth, no wgmma in
 // flight, a consumer barrier on every chunk as the first design had, no
-// products) are timed on the card by tools/k4_variants.py.
+// products) are timed on the card by tools/kernel_variants.py.
 //
 // float32: plain FMA (no TF32, so the card's float32 path can be held to
 // the CPU's) in mma.sync's fragment ownership, the weights streamed in K

@@ -1,8 +1,9 @@
 // Hopper (sm_90a) primitives shared by the port's kernels, as inline PTX:
 // mbarriers, named barriers and register reallocation for warp-specialised
-// kernels, TMA tile loads from a CUtensorMap, cp.async, ldmatrix, the
-// shared-memory matrix descriptor and the wgmma instructions the kernels
-// issue, and the host-side encoding of a tensor map.
+// kernels, TMA tile loads from a CUtensorMap, cp.async (16, 8 and 4 bytes),
+// ldmatrix, the tf32 hi/lo split, the shared-memory matrix descriptor and
+// the wgmma instructions the kernels issue (bf16, tf32 and s8), and the
+// host-side encoding of a tensor map.
 //
 // Shared-memory operand layout. Every wgmma operand read from shared memory
 // here is K-major with the 128-byte swizzle: a tile is rows of 128 bytes
@@ -111,6 +112,20 @@ __device__ __forceinline__ void setmaxnreg_inc() {
   asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
 }
 
+// --- programmatic dependent launch ---------------------------------------
+
+// Let the grid launched after this one on the stream with programmatic
+// stream serialization start now; it waits in `pdl_wait` for this grid's end.
+__device__ __forceinline__ void pdl_launch_dependents() {
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+}
+
+// Wait until the grids this one depends on have completed and their writes
+// are visible (a no-op in a grid launched without the attribute).
+__device__ __forceinline__ void pdl_wait() {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+}
+
 // --- TMA -----------------------------------------------------------------
 
 // The box at coordinates (c0 innermost, c1) of `map` into shared memory at
@@ -148,6 +163,20 @@ __device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
                : "memory");
 }
 
+// The same for a piece of BYTES = 4 or 8 bytes (gmem aligned to BYTES; the
+// piece lands in one 16-byte chunk of a swizzled tile, so `sw128_offset`
+// addresses it as it does a chunk).
+template <int BYTES>
+__device__ __forceinline__ void cp_async_small(void* smem, const void* gmem,
+                                               bool full) {
+  static_assert(BYTES == 4 || BYTES == 8, "cp.async.ca copies 4, 8 or 16 bytes");
+  const int src_size = full ? BYTES : 0;
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(
+                   smem_u32(smem)),
+               "l"(gmem), "n"(BYTES), "r"(src_size)
+               : "memory");
+}
+
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
@@ -161,6 +190,19 @@ __device__ __forceinline__ void cp_async_wait() {
 // visible to the async proxy (wgmma, TMA) that reads them after a barrier.
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// --- tf32 ----------------------------------------------------------------
+
+// x = hi + lo with hi and lo tf32 values: hi keeps x's sign, exponent and top
+// 10 mantissa bits (x - hi is exact in float32 and below 2^-10 |x|), lo is
+// x - hi rounded to nearest tf32. hi·b_hi + hi·b_lo + lo·b_hi (3xTF32) then
+// misses x·b by about 2^-21 of |x·b|, near float32's own rounding.
+__device__ __forceinline__ void tf32_split(float x, float& hi, float& lo) {
+  hi = __uint_as_float(__float_as_uint(x) & 0xFFFFE000u);
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x - hi));
+  lo = __uint_as_float(r);
 }
 
 // --- wgmma ---------------------------------------------------------------
@@ -250,6 +292,57 @@ __device__ __forceinline__ void wgmma_bf16_rs_n64(float (&d)[32], const uint32_t
         "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
+}
+
+// D[64 x 128] (+)= A[64 x 16] . B[128 x 16]^T, bf16 in, f32 sums; A and B
+// K-major in shared memory (128-byte swizzle descriptors).
+__device__ __forceinline__ void wgmma_bf16_ss_n128(float (&d)[64], uint64_t desc_a,
+                                                    uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+// D[64 x 128] (+)= A[64 x 8] . B[128 x 8]^T, tf32 in, f32 sums; A and B
+// K-major in shared memory (128-byte swizzle descriptors: 32 values of
+// 32 bits a row, so one k8 step is 32 bytes, as a bf16 k16 step). The
+// instruction does not read the low 13 mantissa bits of a value: give it
+// values that are tf32 already (`tf32_split`).
+__device__ __forceinline__ void wgmma_tf32_ss_n128(float (&d)[64], uint64_t desc_a,
+                                                    uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
 }
 
 // D[64 x 64] (+)= A[64 x 32] . B[64 x 32]^T, s8 in, exact s32 sums; A

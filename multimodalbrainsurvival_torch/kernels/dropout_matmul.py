@@ -6,8 +6,10 @@ dropout_matmul.py`` (deleted in commit ``4fbc57a``): ``_forward`` /
 ``_dropout_matmul_kernel`` (``pallas_call`` at ``:160``) and
 ``apply_seeded_dropout`` / ``_apply_dropout_kernel`` (``:135``), with the
 ``custom_vjp`` ``_bwd`` (``:207-218``) as ``DropoutMatmul``. The kernel
-source is ``csrc/dropout_matmul.cu``; its header says what bounds it on the
-card and what its design does about that.
+source is ``csrc/dropout_matmul.cu`` (K2a's product is ``csrc/splitk_tn.cuh``:
+3xTF32 on the tensor cores, K split over a cluster, loads by TMA or by
+``cp.async`` as the rows' alignment allows); its header says what bounds it
+on the card and what its design does about that.
 
 The keep-mask is a counter hash of ``(seed, row, col)``, a copy of the TPU
 kernel's ``_mask_block`` (``:52-71``) in ``uint32``: ``gidx = row·65536 +
@@ -91,24 +93,28 @@ def dropout_matmul_plain(x: torch.Tensor, weight: torch.Tensor, seed: int,
     return seeded_dropout_plain(x, seed, p) @ weight.t()
 
 
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C entry points' signatures on a built library."""
+    lib.dropout_matmul_f32.argtypes = (
+        [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
+        + [ctypes.c_uint32, ctypes.c_uint32, ctypes.c_float, ctypes.c_int,
+           ctypes.c_void_p]
+    )
+    lib.dropout_matmul_f32.restype = ctypes.c_int
+    lib.seeded_dropout_f32.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+        ctypes.c_uint32, ctypes.c_uint32, ctypes.c_float, ctypes.c_void_p,
+    ]
+    lib.seeded_dropout_f32.restype = ctypes.c_int
+    return lib
+
+
 def _library() -> ctypes.CDLL:
     global _lib
     if _lib is None:
         from multimodalbrainsurvival_torch.kernels import build
 
-        lib = build.load("dropout_matmul")
-        lib.dropout_matmul_f32.argtypes = (
-            [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
-            + [ctypes.c_uint32, ctypes.c_uint32, ctypes.c_float, ctypes.c_int,
-               ctypes.c_void_p]
-        )
-        lib.dropout_matmul_f32.restype = ctypes.c_int
-        lib.seeded_dropout_f32.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
-            ctypes.c_uint32, ctypes.c_uint32, ctypes.c_float, ctypes.c_void_p,
-        ]
-        lib.seeded_dropout_f32.restype = ctypes.c_int
-        _lib = lib
+        _lib = bind(build.load("dropout_matmul"))
     return _lib
 
 

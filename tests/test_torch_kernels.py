@@ -46,6 +46,7 @@ SHAPES = {
     "bag_1": (3, 1, 16, [1, 1, 0]),
     "d72_rows_not_tile_multiple": (3, 7, 72, [7, 4, 1]),
     "long_bag_dynamic_smem": (1, 13000, 64, None),
+    "resnet18_34_d512": (8, 16, 512, [16, 9, 16, 1, 16, 16, 0, 12]),
 }
 
 
@@ -89,6 +90,33 @@ def test_attention_pool_kernel_matches_plain(cuda, name, dtype):
     torch.testing.assert_close(pooled, want_pooled, rtol=0, atol=2e-4)
     torch.testing.assert_close(w, want_w, rtol=0, atol=2e-4)
     assert torch.all(pooled[~mask.any(dim=1)] == 0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_pool_kernel_is_deterministic(cuda, dtype):
+    """The cluster adds its blocks' sums in rank order and the gate sums in
+    a fixed order, with no atomics: the same inputs give the same bits."""
+    x, weight, v, mask = _inputs("serving_16x16x2048", cuda)
+    x, weight = x.to(dtype), weight.to(dtype)
+    first = attention_pool(x, weight, v, mask)
+    for _ in range(3):
+        again = attention_pool(x, weight, v, mask)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+@pytest.mark.gpu
+def test_attention_pool_kernel_rejects_unaligned_rows(cuda):
+    """TMA needs rows of a multiple of 16 bytes: D = 12 in bfloat16 (24
+    bytes) is refused, never served by another route."""
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn(2, 3, 12, generator=g).to(cuda, torch.bfloat16)
+    weight = torch.randn(12, 12, generator=g).to(cuda, torch.bfloat16)
+    v, mask = torch.zeros(12, device=cuda), torch.ones(2, 3, dtype=torch.bool, device=cuda)
+    with pytest.raises(ValueError, match="16 bytes"):
+        attention_pool(x, weight, v, mask)
+    assert attention_pool(x.float(), weight.float(), v, mask)[0].shape == (2, 12)
 
 
 @pytest.mark.gpu
@@ -272,6 +300,13 @@ DM_SHAPES = {
     "ragged_37x300x65": (37, 300, 65),
     "one_row": (1, 33, 7),
     "k_not_tile_multiple": (130, 2100, 129),
+    # a ragged batch at dense_0's width (8-byte cp.async route)
+    "ragged_batch_100x12778x4096": (100, 12778, 4096),
+    # the three load routes: rows of 1,200 bytes (K % 4 == 0: TMA), of
+    # 1,204 bytes (K odd: 4-byte pieces), of 1,208 bytes (K even: 8-byte)
+    "k300_1200_byte_rows": (128, 300, 256),
+    "k301_odd_4_byte_route": (77, 301, 200),
+    "k302_even_8_byte_route": (64, 302, 130),
 }
 
 
@@ -313,10 +348,28 @@ def test_seeded_dropout_kernel_equals_plain(cuda, shape, p):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("p", [0.0, 0.5])
-def test_dropout_matmul_backward_matches_plain_autograd(cuda, p):
+def test_dropout_matmul_kernel_takes_a_misaligned_input(cuda, p):
+    """x starting 4 bytes into its storage cannot be loaded by TMA or in
+    8-byte pieces, though its rows (K = 300) would allow it: the kernel
+    copies 4 bytes at a time and computes the same function."""
+    x, w, _ = _dm_inputs(40, 300, 72, cuda, seed=2)
+    base = torch.empty(x.numel() + 1, device=cuda)
+    shifted = base[1:].view(x.shape)
+    shifted.copy_(x)
+    assert shifted.data_ptr() % 8 != 0 and shifted.is_contiguous()
+    out = dropout_matmul(shifted, w, 5, p)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, dropout_matmul_plain(x, w, 5, p), rtol=0, atol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(64, 1000, 96), DM_SHAPES["rna_dense_0"]],
+                         ids=["64x1000x96", "rna_dense_0"])
+@pytest.mark.parametrize("p", [0.0, 0.5])
+def test_dropout_matmul_backward_matches_plain_autograd(cuda, p, shape):
     """dx and dW of ``DropoutMatmul`` (K2a forward, K2b twice in the
     backward) against autograd through the plain version."""
-    x, w, grad = _dm_inputs(64, 1000, 96, cuda, seed=3)
+    x, w, grad = _dm_inputs(*shape, cuda, seed=3)
     launched = (dropout_matmul.launches, seeded_dropout.launches)
     tx, tw = x.clone().requires_grad_(), w.clone().requires_grad_()
     DropoutMatmul.apply(tx, tw, 77, p).backward(grad)
