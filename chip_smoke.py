@@ -18,7 +18,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    skips), and the int8 stem pass at 224 px and 225 px, identical int8,
    timed beside the sequences they replace; K2a, the
    seeded dropout-matmul, at both RNA layer shapes within ``K2A_TOL``, and
-   K2b, the seeded dropout alone, identical), then timed with CUDA events,
+   K2b, the seeded dropout alone, identical, at both shapes and in its
+   paired form, two tensors under one mask, at dense_1's), then timed with
+   CUDA events,
    L2 scrubbed before each launch and every launch queued behind a sleep
    kernel (so the host's time to prepare it is not timed), in turns with
    the plain version and a one-call PyTorch yardstick; K4, the fused
@@ -104,6 +106,8 @@ from multimodalbrainsurvival_torch.kernels.dropout_matmul import (
     keep_mask,
     keep_scale,
     seeded_dropout,
+    seeded_dropout_pair,
+    seeded_dropout_pair_plain,
     seeded_dropout_plain,
 )
 from multimodalbrainsurvival_torch.kernels.fused_stage import (
@@ -186,9 +190,10 @@ RNA_SPLITS = {"train": 1024, "val": 256, "test": 256}
 K2A_TOL = 1e-4
 # (where, M, K, N) of K2a on the RNA path: both Dropout -> Linear pairs
 K2_SHAPES = (("dense_0", RNA_BATCH, RNA_GENES, 4096), ("dense_1", RNA_BATCH, 4096, 2048))
-# per train step: K2a once per layer; K2b on each layer's x for dW, and on
-# dense_1's dx (dense_0's input is data, with no dx)
-K2A_PER_STEP, K2B_PER_STEP = 2, 3
+# per train step: K2a once per layer; K2b's single form on dense_0's x for
+# dW (its input is data, with no dx), its paired form on dense_1's g·W (dx)
+# and x (dW) in one launch
+K2A_PER_STEP, K2B_PER_STEP, K2B_PAIR_PER_STEP = 2, 1, 1
 # K4 at the main path's stage shapes, 256 patches at 224 px: (where, batch,
 # Cin, H, W, Cm, blocks); Cout = 4 Cm, block 0 projects when Cin != Cout
 K4_STAGES = (("layer1", 256, 64, 56, 56, 64, 3),
@@ -206,6 +211,7 @@ COUNTERS = {"attention_pool": attention_pool, "qmm_requant": qmm_requant,
             "qconv_residual_requant": qconv_residual_requant,
             "stem_requant_pool": stem_requant_pool,
             "dropout_matmul": dropout_matmul, "seeded_dropout": seeded_dropout,
+            "seeded_dropout_pair": seeded_dropout_pair,
             "fused_bottleneck_stage": fused_bottleneck_stage}
 
 
@@ -990,7 +996,10 @@ def check_dropout_matmul(device: torch.device) -> dict:
     plain version on each layer's input (identical), then both timed after
     an L2 scrub, in turns with the plain version and a one-call PyTorch
     yardstick: ``torch.matmul`` of the pre-masked x (cuBLAS SGEMM, TF32 off)
-    for K2a, ``torch.mul`` by the pre-scaled mask for K2b."""
+    for K2a, ``torch.mul`` by the pre-scaled mask for K2b. Then K2b's
+    paired form at dense_1's shape on two distinct inputs against two plain
+    calls (identical), timed in turns with them and with two ``torch.mul``
+    calls."""
     g = torch.Generator(device="cpu").manual_seed(SEED)
     scrub = torch.empty(64 << 20, dtype=torch.uint8, device=device)
     p, seed = RNA_DROPOUT, 20240607
@@ -1062,7 +1071,46 @@ def check_dropout_matmul(device: torch.device) -> dict:
 
     return {"dropout_matmul": total(k2a, ("bound_tf32x3_ms",)),
             "seeded_dropout": {"mismatches": sum(r["mismatches"] for r in k2b),
-                               **total(k2b)}}
+                               **total(k2b)},
+            "seeded_dropout_pair": check_dropout_pair(device, g, scrub, seed, p)}
+
+
+def check_dropout_pair(device: torch.device, g: torch.Generator, scrub: torch.Tensor,
+                       seed: int, p: float) -> dict:
+    """K2b's paired form at dense_1's shape (the backward's g·W and x) on two
+    distinct inputs: identical to two plain calls, then timed after an L2
+    scrub in turns with them and with two ``torch.mul`` calls by the
+    pre-scaled mask."""
+    (where, M, K, _), = [s for s in K2_SHAPES if s[0] == "dense_1"]
+    a, b = (torch.randn(M, K, generator=g).to(device) for _ in range(2))
+    out = seeded_dropout_pair(a, b, seed, p)
+    torch.cuda.synchronize()
+    want = seeded_dropout_pair_plain(a, b, seed, p)
+    mismatches = sum(int((o != w).sum()) for o, w in zip(out, want))
+    err = max((o - w).abs().max().item() for o, w in zip(out, want))
+    mask = keep_mask(M, K, seed, p, device).float() * float(keep_scale(p))
+    fns = {
+        "pair": lambda: seeded_dropout_pair(a, b, seed, p),
+        "plain": lambda: seeded_dropout_pair_plain(a, b, seed, p),
+        # the yardstick only: the port never calls it
+        "library": lambda: (torch.mul(a, mask), torch.mul(b, mask)),
+    }
+    times = {name: [] for name in fns}
+    for name in ("plain", "pair", "library", "library", "pair", "plain"):
+        times[name].append(_time_ms(fns[name], 25, scrub))
+    ms = {name: sum(t) / len(t) for name, t in times.items()}
+    # a and b read, both outputs written; one multiply per element of each
+    t_bytes = 16 * M * K / HBM_BYTES_PER_S * 1e3
+    t_ops = 2 * M * K / PEAK_FLOPS[torch.float32] * 1e3
+    rec = {"where": where, "M": M, "K": K, "mismatches": mismatches, "max_abs_err": err,
+           "ms": ms["pair"], "plain_ms": ms["plain"], "library_ms": ms["library"],
+           "bound_ms": max(t_bytes, t_ops),
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+    print(f"seeded_dropout_pair {json.dumps(rec)}")
+    if mismatches:
+        raise AssertionError(f"seeded_dropout_pair at {where}: {mismatches} values "
+                             "differ from two plain calls")
+    return rec
 
 
 def make_rna_cohort(root: str, sizes: dict, seed: int) -> dict:
@@ -1149,7 +1197,8 @@ def drive_rna_path(root: str, device: torch.device, smi: str,
     by_cli = {}
     for cli, main, expected in (
         ("rna_train", rna_train.main,
-         {"dropout_matmul": K2A_PER_STEP * steps, "seeded_dropout": K2B_PER_STEP * steps}),
+         {"dropout_matmul": K2A_PER_STEP * steps, "seeded_dropout": K2B_PER_STEP * steps,
+          "seeded_dropout_pair": K2B_PAIR_PER_STEP * steps}),
         ("rna_savescore", rna_savescore.main, {}),
         ("rna_extractfeatures", rna_extractfeatures.main, {}),
     ):
@@ -1213,6 +1262,8 @@ def check_rna_train_step(config: Config, device: torch.device, smi: str,
     print(f"RNA train step (batch {RNA_BATCH}, 12,778 -> 4,096 -> 2,048 -> 1, float32, "
           f"dropout {RNA_DROPOUT}): {step_ms:.3f} ms on the card; host read and copy of "
           f"a batch {host_ms:.2f} ms [{smi}]")
+    # "seeded_dropout_kernel" names both of K2b's forms (<V, false> and
+    # <V, true>, the pair)
     profile = device_breakdown(step, step_ms, "RNA train step",
                                {"k2a": "::Dropout>", "k2b": "seeded_dropout_kernel"})
     busy = profile["device_busy_ms"] - profile["k2a_ms"] + k2a_ms_per_step
@@ -1283,7 +1334,15 @@ def main() -> int:
         check_rna_against_cpu(root)
     e2e.update(rna_e2e)
     k2_launches = {name: {cli: rec["launches"][name] for cli, rec in rna_launches.items()}
-                   for name in ("dropout_matmul", "seeded_dropout")}
+                   for name in ("dropout_matmul", "seeded_dropout", "seeded_dropout_pair")}
+    k2_source = "multimodalbrainsurvival_torch/kernels/csrc/dropout_matmul.cu"
+    # deleted from the JAX package; read it with git show 4fbc57a^:<file>
+    k2_replaces = "multimodalbrainsurvival_tpu/ops/pallas/dropout_matmul.py:"
+    k2b_pair = {"name": "seeded_dropout_pair", "route": "cuda", "source": k2_source,
+                "replaces": k2_replaces + "135",
+                "launches": sum(k2_launches["seeded_dropout_pair"].values()),
+                "launches_by_path": k2_launches["seeded_dropout_pair"],
+                **k2["seeded_dropout_pair"], "tolerance": 0}
 
     bf16 = timings["bfloat16"]
     by_path = {path: counts["attention_pool"] for path, counts in launches.items()}
@@ -1346,21 +1405,32 @@ def main() -> int:
         # times and bound: 256 patches at 224 px (the odd size below)
         **k3_more["stem"],
         "library_ms": None,
-    }] + [{
-        "name": name,
+    }, {
+        "name": "dropout_matmul",
         "route": "cuda",
-        "source": "multimodalbrainsurvival_torch/kernels/csrc/dropout_matmul.cu",
-        # deleted from the JAX package; read it with git show 4fbc57a^:<file>
-        "replaces": "multimodalbrainsurvival_tpu/ops/pallas/dropout_matmul.py:" + line,
-        "launches": sum(k2_launches[name].values()),
-        "launches_by_path": k2_launches[name],
+        "source": k2_source,
+        "replaces": k2_replaces + "160",
+        "launches": sum(k2_launches["dropout_matmul"].values()),
+        "launches_by_path": k2_launches["dropout_matmul"],
         # times and bounds: sums over the shapes listed (drop probability 0.5)
-        **k2[name],
-        "tolerance": tol,
-    } for name, line, tol in (
-        ("dropout_matmul", "160", K2A_TOL),
-        ("seeded_dropout", "135", 0),
-    )] + [{
+        **k2["dropout_matmul"],
+        "tolerance": K2A_TOL,
+    }, {
+        "name": "seeded_dropout",
+        "route": "cuda",
+        "source": k2_source,
+        "replaces": k2_replaces + "135",
+        # K2b in both forms: the single form's launches and the pair's
+        "launches": k2b_pair["launches"] + sum(k2_launches["seeded_dropout"].values()),
+        "launches_by_path": {cli: n + k2b_pair["launches_by_path"][cli]
+                             for cli, n in k2_launches["seeded_dropout"].items()},
+        # the single form's times and bounds: sums over the shapes listed
+        # (drop probability 0.5)
+        **k2["seeded_dropout"],
+        "tolerance": 0,
+        # the paired form at dense_1's shape: two tensors, one launch
+        "pair": k2b_pair,
+    }] + [{
         "name": "fused_bottleneck_stage",
         "route": "cuda",
         "source": "multimodalbrainsurvival_torch/kernels/csrc/fused_stage.cu",

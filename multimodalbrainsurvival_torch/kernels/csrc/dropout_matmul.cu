@@ -11,6 +11,8 @@
 //       directly: no transposed copy of the 209 MB RNA weight per step),
 //       out (M, N) float32.
 // K2b:  out[m, k] = M[m, k] ? x[m, k] * s : 0          (M, K) → (M, K)
+//       and its paired form, two (M, K) tensors under one mask in one
+//       launch (the backward of an inner layer masks both g·W and x).
 //
 // The keep-mask M is a pure function of (seed, row, col): a murmur3-style
 // finalizer of gidx = row * 65536 + col (mod 2^32) xor seed * 0x9E3779B1,
@@ -47,12 +49,33 @@
 //   - loads by TMA where rows are 16-byte aligned (K % 4 == 0: dense_1),
 //     else by cp.async in 8-byte (K even: dense_0's 51,112-byte rows) or
 //     4-byte pieces; the route follows from K and the base addresses alone.
-// K2b is one pass over memory, bound by bytes.
+// K2b is one pass over memory, bound by bytes: 8 bytes an element (16 for
+// the pair), 26.2 / 8.4 MB at the RNA layers (dense_0 / dense_1), 7.8 /
+// 2.5 us at 3.35 TB/s.
+// Its first version was a grid-stride loop of scalar loads that took
+// (row, col) from a 64-bit i / K and i % K per element, on a grid capped
+// at a constant. Now:
+//   - a row-indexed grid: blocks stride over rows, threads span columns,
+//     so the hash takes (row, col) from the loop counters and nothing
+//     divides;
+//   - 16-byte loads and stores where every tensor's rows start at the same
+//     offset from a 16-byte boundary (dense_1; dense_0, whose 51,112-byte
+//     rows alternate between 16- and 8-byte alignment, through a scalar
+//     head of 0 or 2 values), else 8- or 4-byte pieces; the route follows
+//     from the base addresses alone (piece_width);
+//   - each thread loads up to 4 pieces of each tensor before it hashes, and
+//     the grid is one wave sized from the SM count and the occupancy query;
+//   - the inputs are read once, with streaming loads;
+//   - the pair hashes each mask value once for both tensors.
+// With the L2 scrubbed before each launch, a launch that does nothing takes
+// ~5.4 us on an H100 (PERF.md), so at dense_1 most of K2b's time is not
+// its bytes.
 //
-// Both functions launch on the caller's stream, allocate nothing, and
-// return the CUDA error code of the launch.
+// Every entry launches on the caller's stream, allocates nothing, and
+// returns the CUDA error code of the launch.
 
 #include <cstdint>
+#include <initializer_list>
 
 #include <cuda_runtime.h>
 
@@ -119,16 +142,167 @@ struct Dropout {
   }
 };
 
-__global__ void seeded_dropout_kernel(const float* __restrict__ x,
-                                      float* __restrict__ out, long long total,
-                                      int K, Mask mask) {
-  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-       i < total; i += stride) {
-    const uint32_t row = static_cast<uint32_t>(i / K);
-    const uint32_t col = static_cast<uint32_t>(i % K);
-    out[i] = dropped(x[i], row, col, mask);
+// K2b's launch: THREADS a block, each thread with up to ILP pieces of V
+// floats (of each tensor) loaded before it hashes, so that a block has
+// ILP x THREADS x 4V bytes in flight.
+constexpr int K2B_THREADS = 256;
+constexpr int K2B_ILP = 4;
+
+// V consecutive floats, loaded and stored as one 4V-byte access
+// (ld.global.v4.f32 / .v2.f32 / .f32) where the address is 4V-byte aligned.
+template <int V>
+struct alignas(4 * V) Piece {
+  float f[V];
+};
+
+// K2b reads each input once, so its loads are streaming (ld.global.cs:
+// evicted from L2 first), which keeps its outputs, read next by the
+// product of dW, in L2 in their place.
+template <int V>
+__device__ __forceinline__ Piece<V> take(const float* p) {
+  Piece<V> r;
+  if constexpr (V == 4) {
+    const float4 t = __ldcs(reinterpret_cast<const float4*>(p));
+    r.f[0] = t.x, r.f[1] = t.y, r.f[2] = t.z, r.f[3] = t.w;
+  } else if constexpr (V == 2) {
+    const float2 t = __ldcs(reinterpret_cast<const float2*>(p));
+    r.f[0] = t.x, r.f[1] = t.y;
+  } else {
+    r.f[0] = __ldcs(p);
   }
+  return r;
+}
+
+template <int V>
+__device__ __forceinline__ void put(float* p, const Piece<V>& v) {
+  *reinterpret_cast<Piece<V>*>(p) = v;
+}
+
+// out_a = M ⊙ a · s and, for PAIR, out_b = M ⊙ b · s with the same mask
+// hashed once, all (M, K) row-major. Block (bx, by) takes rows by, by +
+// gridDim.y, ...; in a row its threads span the columns, so (row, col) come
+// from the loop counters and no element divides. A row is a scalar head up
+// to the first V-float boundary, pieces of V floats, and a scalar tail; the
+// launch makes every tensor's base the same offset from a 4V-byte boundary,
+// so the head is the same in all of them.
+template <int V, bool PAIR>
+__global__ void __launch_bounds__(K2B_THREADS)
+    seeded_dropout_kernel(const float* __restrict__ a, const float* __restrict__ b,
+                          float* __restrict__ out_a, float* __restrict__ out_b,
+                          int M, int K, Mask mask) {
+  const int step = K2B_THREADS * gridDim.x;
+  for (int row = blockIdx.y; row < M; row += gridDim.y) {
+    const size_t base = static_cast<size_t>(row) * K;
+    const int misaligned = static_cast<int>(
+        (reinterpret_cast<uintptr_t>(a + base) >> 2) & (V - 1));
+    const int head = min((V - misaligned) & (V - 1), K);
+    const int pieces = static_cast<unsigned>(K - head) / V;
+    const float* const ra = a + base + head;
+    const float* const rb = PAIR ? b + base + head : nullptr;
+    float* const wa = out_a + base + head;
+    float* const wb = PAIR ? out_b + base + head : nullptr;
+    for (int p0 = blockIdx.x * K2B_THREADS + threadIdx.x; p0 < pieces;
+         p0 += K2B_ILP * step) {
+      Piece<V> va[K2B_ILP], vb[K2B_ILP];
+#pragma unroll
+      for (int j = 0; j < K2B_ILP; ++j) {
+        const int p = p0 + j * step;
+        if (p < pieces) {
+          va[j] = take<V>(ra + p * V);
+          if (PAIR) vb[j] = take<V>(rb + p * V);
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < K2B_ILP; ++j) {
+        const int p = p0 + j * step;
+        if (p < pieces) {
+          const uint32_t col = head + p * V;
+#pragma unroll
+          for (int e = 0; e < V; ++e) {
+            const bool kept = keep(row, col + e, mask);
+            va[j].f[e] = kept ? __fmul_rn(va[j].f[e], mask.scale) : 0.f;
+            if (PAIR) vb[j].f[e] = kept ? __fmul_rn(vb[j].f[e], mask.scale) : 0.f;
+          }
+          put(wa + p * V, va[j]);
+          if (PAIR) put(wb + p * V, vb[j]);
+        }
+      }
+    }
+    // the head (threads 0 .. V-2) and the tail (threads 32 .. 32+V-2) of the
+    // row, in two warps of the row's first block
+    if (blockIdx.x == 0) {
+      const int tail = K - head - pieces * V;
+      const int t = threadIdx.x;
+      const int col = t < head ? t
+                      : (t >= 32 && t - 32 < tail) ? head + pieces * V + t - 32 : -1;
+      if (col >= 0) {
+        const bool kept = keep(row, col, mask);
+        out_a[base + col] = kept ? __fmul_rn(a[base + col], mask.scale) : 0.f;
+        if (PAIR) out_b[base + col] = kept ? __fmul_rn(b[base + col], mask.scale) : 0.f;
+      }
+    }
+  }
+}
+
+// The widest piece (4, 2 or 1 floats) at which every base is the same offset
+// from a piece boundary (the bases congruent modulo the piece's bytes): then
+// every row of every tensor starts at the same offset too, whatever K.
+int piece_width(std::initializer_list<const void*> bases) {
+  for (int v = 4; v > 1; v /= 2) {
+    const uintptr_t m = 4 * v - 1;
+    const uintptr_t r = reinterpret_cast<uintptr_t>(*bases.begin()) & m;
+    bool same = true;
+    for (const void* p : bases) same = same && (reinterpret_cast<uintptr_t>(p) & m) == r;
+    if (same) return v;
+  }
+  return 1;
+}
+
+// Blocks of seeded_dropout_kernel<V, PAIR> that fit on the card at once
+// (SM count x occupancy), asked once; 0 if the runtime cannot say.
+template <int V, bool PAIR>
+int resident_blocks() {
+  static int n = -1;
+  if (n < 0) {
+    int dev = 0, sms = 0, per_sm = 0;
+    n = (cudaGetDevice(&dev) == cudaSuccess &&
+         cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) ==
+             cudaSuccess &&
+         cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+             &per_sm, seeded_dropout_kernel<V, PAIR>, K2B_THREADS, 0) == cudaSuccess)
+            ? sms * per_sm
+            : 0;
+  }
+  return n;
+}
+
+// One wave: gridDim.x blocks span a row's pieces at up to ILP a thread,
+// gridDim.y as many rows as the card holds blocks of the rest.
+template <int V, bool PAIR>
+cudaError_t launch_dropout(const float* a, const float* b, float* out_a, float* out_b,
+                           int M, int K, const Mask& mask, cudaStream_t stream) {
+  const int resident = resident_blocks<V, PAIR>();
+  if (resident < 1) return cudaErrorInvalidConfiguration;
+  const int per_block = K2B_THREADS * K2B_ILP;
+  const int gx = K / V > per_block ? (K / V + per_block - 1) / per_block : 1;
+  int gy = resident / gx;
+  gy = gy < 1 ? 1 : gy > M ? M : gy > 65535 ? 65535 : gy;
+  seeded_dropout_kernel<V, PAIR>
+      <<<dim3(gx, gy), K2B_THREADS, 0, stream>>>(a, b, out_a, out_b, M, K, mask);
+  return cudaGetLastError();
+}
+
+template <bool PAIR>
+int seeded_dropout_launch(const float* a, const float* b, float* out_a, float* out_b,
+                          int M, int K, const Mask& mask, void* stream) {
+  if (M <= 0 || K <= 0) return static_cast<int>(cudaSuccess);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  int v = PAIR ? piece_width({a, b, out_a, out_b}) : piece_width({a, out_a});
+  const cudaError_t err =
+      v == 4   ? launch_dropout<4, PAIR>(a, b, out_a, out_b, M, K, mask, s)
+      : v == 2 ? launch_dropout<2, PAIR>(a, b, out_a, out_b, M, K, mask, s)
+               : launch_dropout<1, PAIR>(a, b, out_a, out_b, M, K, mask, s);
+  return static_cast<int>(err);
 }
 
 Mask make_mask(uint32_t seed, uint32_t threshold, float scale, int on) {
@@ -149,15 +323,19 @@ extern "C" int dropout_matmul_f32(const float* x, const float* w, float* out,
       p, ep, static_cast<cudaStream_t>(stream)));
 }
 
-extern "C" int seeded_dropout_f32(const float* x, float* out, long long total,
-                                  int K, uint32_t seed, uint32_t threshold,
-                                  float scale, void* stream) {
-  const int threads = 256;
-  long long blocks = (total + threads - 1) / threads;
-  if (blocks > 132LL * 32) blocks = 132LL * 32;  // grid-stride beyond this
-  if (blocks < 1) blocks = 1;
-  seeded_dropout_kernel<<<static_cast<unsigned>(blocks), threads, 0,
-                          static_cast<cudaStream_t>(stream)>>>(
-      x, out, total, K, make_mask(seed, threshold, scale, 1));
-  return static_cast<int>(cudaGetLastError());
+// out (M, K) = dropout(x (M, K)), float32 row-major on the device.
+extern "C" int seeded_dropout_f32(const float* x, float* out, int M, int K,
+                                  uint32_t seed, uint32_t threshold, float scale,
+                                  void* stream) {
+  return seeded_dropout_launch<false>(x, nullptr, out, nullptr, M, K,
+                                      make_mask(seed, threshold, scale, 1), stream);
+}
+
+// out_a = dropout(a), out_b = dropout(b) with one mask, all (M, K) float32
+// row-major on the device; each mask value hashed once.
+extern "C" int seeded_dropout_pair_f32(const float* a, const float* b, float* out_a,
+                                       float* out_b, int M, int K, uint32_t seed,
+                                       uint32_t threshold, float scale, void* stream) {
+  return seeded_dropout_launch<true>(a, b, out_a, out_b, M, K,
+                                     make_mask(seed, threshold, scale, 1), stream);
 }

@@ -21,14 +21,17 @@ So the backward regenerates the mask instead of storing it::
     dx = M⊙(g W)·s          (K2b on the product)
     dW = gᵀ (M⊙x)·s         (K2b on x, then the product)
 
-``W`` is in the ``nn.Linear`` layout (N, K). The two products of the
-backward stay ``torch.matmul``: the JAX package computed them outside
-Pallas too.
+Where both dx and dW are needed (an inner layer) the two masked tensors
+come from one launch of K2b's paired form, ``seeded_dropout_pair``, which
+hashes each mask value once; where only dW is (the first layer, whose
+input is data), from the single form. ``W`` is in the ``nn.Linear`` layout
+(N, K). The two products of the backward stay ``torch.matmul``: the JAX
+package computed them outside Pallas too.
 
-``dropout_matmul`` and ``seeded_dropout`` dispatch on the device of their
-input: a CPU tensor goes to the plain version; a CUDA tensor launches the
-kernel or raises. ``dropout_matmul.launches`` and
-``seeded_dropout.launches`` count kernel launches.
+``dropout_matmul``, ``seeded_dropout`` and ``seeded_dropout_pair`` dispatch
+on the device of their input: a CPU tensor goes to the plain version; a
+CUDA tensor launches the kernel or raises. Each wrapper's ``launches``
+counts its kernel's launches.
 """
 
 from __future__ import annotations
@@ -86,6 +89,12 @@ def seeded_dropout_plain(x: torch.Tensor, seed: int, p: float) -> torch.Tensor:
     return torch.where(keep, x * scale, torch.zeros((), device=x.device))
 
 
+def seeded_dropout_pair_plain(a: torch.Tensor, b: torch.Tensor, seed: int,
+                              p: float) -> tuple[torch.Tensor, torch.Tensor]:
+    """``seeded_dropout_plain`` of two (M, K) tensors with one seed."""
+    return seeded_dropout_plain(a, seed, p), seeded_dropout_plain(b, seed, p)
+
+
 def dropout_matmul_plain(x: torch.Tensor, weight: torch.Tensor, seed: int,
                          p: float) -> torch.Tensor:
     """(M, K) ``x`` masked and scaled, times the (N, K) ``weight``
@@ -101,11 +110,11 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
            ctypes.c_void_p]
     )
     lib.dropout_matmul_f32.restype = ctypes.c_int
-    lib.seeded_dropout_f32.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
-        ctypes.c_uint32, ctypes.c_uint32, ctypes.c_float, ctypes.c_void_p,
-    ]
+    mask = [ctypes.c_uint32, ctypes.c_uint32, ctypes.c_float, ctypes.c_void_p]
+    lib.seeded_dropout_f32.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2 + mask
     lib.seeded_dropout_f32.restype = ctypes.c_int
+    lib.seeded_dropout_pair_f32.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + mask
+    lib.seeded_dropout_pair_f32.restype = ctypes.c_int
     return lib
 
 
@@ -136,6 +145,8 @@ def _check(x: torch.Tensor, p: float, *others: torch.Tensor) -> None:
     if x.device.type == "cuda":
         if not all(t.is_contiguous() for t in (x, *others)):
             raise ValueError("the kernels take contiguous inputs")
+        if any(t.data_ptr() % 4 for t in (x, *others)):
+            raise ValueError("the kernels take float32 inputs on 4-byte boundaries")
         if x.numel() >= 2**31 or any(t.numel() >= 2**31 for t in others):
             raise ValueError(f"shape {tuple(x.shape)} is beyond the kernel's range")
 
@@ -173,27 +184,53 @@ def seeded_dropout(x: torch.Tensor, seed: int, p: float) -> torch.Tensor:
     if x.device.type == "cpu" or p == 0:
         return seeded_dropout_plain(x, seed, p)
     out = torch.empty_like(x)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = _library().seeded_dropout_f32(
-            x.data_ptr(), out.data_ptr(), x.numel(), x.shape[1],
-            int(seed) & _M32, keep_threshold(p), float(keep_scale(p)), stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"seeded_dropout kernel launch failed: CUDA error {err}")
+    _launch("seeded_dropout", x.device, x.data_ptr(), out.data_ptr(), *x.shape,
+            seed=seed, p=p)
     seeded_dropout.launches += 1
     return out
 
 
+def seeded_dropout_pair(a: torch.Tensor, b: torch.Tensor, seed: int,
+                        p: float) -> tuple[torch.Tensor, torch.Tensor]:
+    """K2b's paired form: two (M, K) float32 tensors with the one mask of
+    ``seed`` applied, in one launch that hashes each mask value once; bit
+    for bit ``seeded_dropout`` of each. ``(a, b)`` themselves at ``p == 0``
+    (no launch)."""
+    _check(a, p, b)
+    if b.shape != a.shape:
+        raise ValueError(f"both tensors must have one shape, got {tuple(a.shape)} "
+                         f"and {tuple(b.shape)}")
+    if a.device.type == "cpu" or p == 0:
+        return seeded_dropout_pair_plain(a, b, seed, p)
+    out_a, out_b = torch.empty_like(a), torch.empty_like(b)
+    _launch("seeded_dropout_pair", a.device, a.data_ptr(), b.data_ptr(),
+            out_a.data_ptr(), out_b.data_ptr(), *a.shape, seed=seed, p=p)
+    seeded_dropout_pair.launches += 1
+    return out_a, out_b
+
+
+def _launch(entry: str, device: torch.device, *args, seed: int, p: float) -> None:
+    """Call the C entry ``<entry>_f32`` with ``args``, then the mask of
+    ``seed`` at ``p`` and the current stream; raise if the launch failed."""
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = getattr(_library(), f"{entry}_f32")(
+            *args, int(seed) & _M32, keep_threshold(p), float(keep_scale(p)), stream)
+    if err != 0:
+        raise RuntimeError(f"{entry} kernel launch failed: CUDA error {err}")
+
+
 dropout_matmul.launches = 0
 seeded_dropout.launches = 0
+seeded_dropout_pair.launches = 0
 
 
 class DropoutMatmul(torch.autograd.Function):
     """``dropout(x; seed, p) @ weightᵀ`` with the mask regenerated in the
     backward (``_bwd``, ``dropout_matmul.py:207-218``): K2a forward, K2b on
-    ``g W`` for dx and on ``x`` for dW. dx is skipped when ``x`` needs no
-    gradient (the data entering the first layer)."""
+    ``g W`` for dx and on ``x`` for dW, both in one launch of the paired
+    form. dx is skipped when ``x`` needs no gradient (the data entering the
+    first layer), and then K2b's single form masks ``x`` alone."""
 
     @staticmethod
     def forward(ctx, x, weight, seed: int, p: float):
@@ -205,9 +242,13 @@ class DropoutMatmul(torch.autograd.Function):
     def backward(ctx, g):
         x, weight = ctx.saved_tensors
         g = g.contiguous()
+        need_dx, need_dw = ctx.needs_input_grad[:2]
         dx = dw = None
-        if ctx.needs_input_grad[0]:
+        if need_dx and need_dw:
+            dx, xm = seeded_dropout_pair(g @ weight, x, ctx.seed, ctx.p)
+            dw = g.t() @ xm
+        elif need_dx:
             dx = seeded_dropout(g @ weight, ctx.seed, ctx.p)
-        if ctx.needs_input_grad[1]:
+        elif need_dw:
             dw = g.t() @ seeded_dropout(x, ctx.seed, ctx.p)
         return dx, dw, None, None

@@ -24,8 +24,11 @@ from multimodalbrainsurvival_torch.kernels.dropout_matmul import (
     keep_mask,
     keep_scale,
     seeded_dropout,
+    seeded_dropout_pair,
+    seeded_dropout_pair_plain,
     seeded_dropout_plain,
 )
+from multimodalbrainsurvival_torch.kernels import dropout_matmul as dm
 
 BM, BK = 128, 2048  # the TPU kernel's blocks
 
@@ -184,3 +187,77 @@ def test_wrappers_take_the_plain_version_on_the_cpu_and_check_inputs():
         dropout_matmul(x, w.t().contiguous(), 7, 0.5)
     with pytest.raises(ValueError, match="cpu or cuda"):
         seeded_dropout(x.to("meta"), 7, 0.5)
+
+
+@pytest.mark.parametrize("p", [0.1, 0.5, 0.9])
+@pytest.mark.parametrize("shape", [(131, 2055), (129, 4097), (1, 1), (37, 300)])
+def test_pair_plain_is_two_plain_calls_with_the_tpu_kernels_mask(shape, p):
+    """The paired form's plain version is ``seeded_dropout_plain`` of each
+    tensor, bit for bit, under ``_mask_block``'s mask: ragged shapes across
+    the TPU kernel's 128 × 2048 blocks."""
+    rng = np.random.default_rng(5)
+    a, b = (torch.from_numpy(rng.normal(size=shape).astype(np.float32)) for _ in range(2))
+    seed = 31337
+    out_a, out_b = seeded_dropout_pair_plain(a, b, seed, p)
+    assert torch.equal(out_a, seeded_dropout_plain(a, seed, p))
+    assert torch.equal(out_b, seeded_dropout_plain(b, seed, p))
+    keep = torch.from_numpy(_mask_block_numpy(*shape, seed, p))
+    scale = torch.tensor(keep_scale(p))
+    for x, out in ((a, out_a), (b, out_b)):
+        assert torch.equal(out, torch.where(keep, x * scale, torch.zeros(())))
+
+
+def test_pair_takes_the_plain_version_on_the_cpu_and_checks_inputs():
+    """On the CPU the pair is its plain version with no launch counted; at
+    p = 0 it returns its inputs; it refuses what the kernel does not take."""
+    x, w, _, g = _inputs(8, 20, 5)
+    a, b = torch.from_numpy(x), torch.from_numpy(x[::-1].copy())
+    before = (seeded_dropout.launches, seeded_dropout_pair.launches)
+    got = seeded_dropout_pair(a, b, 7, 0.5)
+    want = seeded_dropout_pair_plain(a, b, 7, 0.5)
+    assert all(torch.equal(u, v) for u, v in zip(got, want))
+    pa, pb = seeded_dropout_pair(a, b, 7, 0.0)
+    assert pa is a and pb is b
+    assert (seeded_dropout.launches, seeded_dropout_pair.launches) == before
+    with pytest.raises(ValueError, match="one shape"):
+        seeded_dropout_pair(a, b[:, :-1].contiguous(), 7, 0.5)
+    with pytest.raises(ValueError, match="one shape"):
+        seeded_dropout_pair(a, b.reshape(-1), 7, 0.5)
+    with pytest.raises(ValueError, match="float32"):
+        seeded_dropout_pair(a, b.double(), 7, 0.5)
+    with pytest.raises(ValueError, match="float32"):
+        seeded_dropout_pair(a.half(), b.half(), 7, 0.5)
+    with pytest.raises(ValueError, match="all inputs must be on cpu"):
+        seeded_dropout_pair(a, b.to("meta"), 7, 0.5)
+    with pytest.raises(ValueError, match="alias"):
+        seeded_dropout_pair(torch.zeros(1, 65537), torch.zeros(1, 65537), 7, 0.5)
+    with pytest.raises(ValueError, match=r"\[0, 1\)"):
+        seeded_dropout_pair(a, b, 7, 1.0)
+
+
+@pytest.mark.parametrize("x_needs_grad", [True, False], ids=["dx_and_dw", "dw_only"])
+def test_backward_masks_both_tensors_in_one_pair_call(monkeypatch, x_needs_grad):
+    """An inner layer's backward masks g·W and x through one call of the
+    paired form; the first layer's (x is data) masks x through the single
+    form; the gradients are the plain mask's products bit for bit."""
+    x, w, _, g = _inputs(16, 300, 9, seed=4)
+    x, w, g = map(torch.from_numpy, (x, w, g))
+    calls = []
+
+    def spy(name):
+        fn = getattr(dm, name)
+
+        def wrapped(*args):
+            calls.append(name)
+            return fn(*args)
+        return wrapped
+
+    for name in ("seeded_dropout", "seeded_dropout_pair"):
+        monkeypatch.setattr(dm, name, spy(name))
+    tx = x.clone().requires_grad_(x_needs_grad)
+    tw = w.clone().requires_grad_()
+    DropoutMatmul.apply(tx, tw, 21, 0.5).backward(g)
+    assert calls == (["seeded_dropout_pair"] if x_needs_grad else ["seeded_dropout"])
+    assert torch.equal(tw.grad, g.t() @ seeded_dropout_plain(x, 21, 0.5))
+    if x_needs_grad:
+        assert torch.equal(tx.grad, seeded_dropout_plain(g @ w, 21, 0.5))

@@ -25,6 +25,13 @@ def test_splitk_variant_applies_to_the_committed_sources(name):
     assert bool(changed) == (name != "committed"), changed
 
 
+@pytest.mark.parametrize("name", sorted(kernel_variants.K2B_VARIANTS))
+def test_k2b_variant_applies_to_the_committed_source(name):
+    src = (kernel_variants.build.CSRC / "dropout_matmul.cu").read_text()
+    out = kernel_variants.patched(src, kernel_variants.K2B_VARIANTS[name], name)
+    assert (out != src) == (name != "committed")
+
+
 @pytest.mark.parametrize("name", sorted(kernel_variants.VARIANTS))
 def test_k4_variant_applies_to_the_committed_source(name):
     src = (kernel_variants.build.CSRC / "fused_stage.cu").read_text()

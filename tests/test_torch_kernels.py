@@ -21,6 +21,7 @@ from multimodalbrainsurvival_torch.kernels.dropout_matmul import (
     dropout_matmul,
     dropout_matmul_plain,
     seeded_dropout,
+    seeded_dropout_pair,
     seeded_dropout_plain,
 )
 from multimodalbrainsurvival_torch.kernels.fused_stage import (
@@ -334,9 +335,24 @@ def test_dropout_matmul_kernel_matches_plain(cuda, name, p):
     torch.testing.assert_close(out, want, rtol=0, atol=1e-4)
 
 
+# K2b's shapes: 16-byte pieces (K = 4,096; and K = 300), a scalar head of 0
+# or 2 values before them on alternate rows (K = 12,778), 4-byte pieces
+# behind a head of up to 3 (K = 301), and rows shorter than a piece
+K2B_SHAPES = [(256, 12778), (256, 4096), (37, 300), (1, 1), (64, 301), (3, 2)]
+
+
+def _shifted(x, floats):
+    """A contiguous copy of ``x`` starting ``floats`` floats past a fresh
+    (512-byte aligned) allocation."""
+    base = torch.empty(x.numel() + floats, device=x.device)
+    out = base[floats:].view(x.shape)
+    out.copy_(x)
+    return out
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("p", [0.1, 0.5, 0.9])
-@pytest.mark.parametrize("shape", [(256, 12778), (256, 4096), (37, 300), (1, 1)])
+@pytest.mark.parametrize("shape", K2B_SHAPES)
 def test_seeded_dropout_kernel_equals_plain(cuda, shape, p):
     x = torch.randn(shape, generator=torch.Generator().manual_seed(1)).to(cuda)
     before = seeded_dropout.launches
@@ -344,6 +360,51 @@ def test_seeded_dropout_kernel_equals_plain(cuda, shape, p):
     torch.cuda.synchronize()
     assert seeded_dropout.launches == before + 1
     assert torch.equal(out, seeded_dropout_plain(x, -12345, p))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shift", [1, 2, 3])
+@pytest.mark.parametrize("shape", [(256, 4096), (256, 12778), (37, 300)])
+def test_seeded_dropout_kernel_takes_a_misaligned_input(cuda, shape, shift):
+    """x starting 4, 8 or 12 bytes into its storage, the output fresh: the
+    kernel falls to 8- or 4-byte pieces and computes the same values."""
+    x = torch.randn(shape, generator=torch.Generator().manual_seed(2)).to(cuda)
+    shifted = _shifted(x, shift)
+    assert shifted.data_ptr() % 16 == 4 * shift and shifted.is_contiguous()
+    out = seeded_dropout(shifted, 99, 0.5)
+    torch.cuda.synchronize()
+    assert torch.equal(out, seeded_dropout_plain(x, 99, 0.5))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("p", [0.1, 0.5, 0.9])
+@pytest.mark.parametrize("shape", K2B_SHAPES)
+def test_seeded_dropout_pair_kernel_equals_two_plain_calls(cuda, shape, p):
+    g = torch.Generator().manual_seed(3)
+    a, b = (torch.randn(shape, generator=g).to(cuda) for _ in range(2))
+    before = (seeded_dropout.launches, seeded_dropout_pair.launches)
+    out_a, out_b = seeded_dropout_pair(a, b, -12345, p)
+    torch.cuda.synchronize()
+    assert (seeded_dropout.launches, seeded_dropout_pair.launches) == (
+        before[0], before[1] + 1)
+    assert torch.equal(out_a, seeded_dropout_plain(a, -12345, p))
+    assert torch.equal(out_b, seeded_dropout_plain(b, -12345, p))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shifts", [(0, 1), (0, 2), (2, 0), (1, 3), (3, 3)])
+@pytest.mark.parametrize("shape", [(256, 4096), (256, 12778), (37, 300)])
+def test_seeded_dropout_pair_kernel_takes_bases_on_different_alignments(
+        cuda, shape, shifts):
+    """The two inputs start 0-12 bytes past a 16-byte boundary, each its
+    own: the pair takes the narrower piece of the two and computes what
+    two plain calls do."""
+    g = torch.Generator().manual_seed(4)
+    a, b = (_shifted(torch.randn(shape, generator=g).to(cuda), s) for s in shifts)
+    out_a, out_b = seeded_dropout_pair(a, b, 5, 0.5)
+    torch.cuda.synchronize()
+    assert torch.equal(out_a, seeded_dropout_plain(a, 5, 0.5))
+    assert torch.equal(out_b, seeded_dropout_plain(b, 5, 0.5))
 
 
 @pytest.mark.gpu
@@ -367,18 +428,39 @@ def test_dropout_matmul_kernel_takes_a_misaligned_input(cuda, p):
                          ids=["64x1000x96", "rna_dense_0"])
 @pytest.mark.parametrize("p", [0.0, 0.5])
 def test_dropout_matmul_backward_matches_plain_autograd(cuda, p, shape):
-    """dx and dW of ``DropoutMatmul`` (K2a forward, K2b twice in the
-    backward) against autograd through the plain version."""
+    """dx and dW of ``DropoutMatmul`` (K2a forward, one launch of K2b's
+    paired form in the backward) against autograd through the plain
+    version."""
     x, w, grad = _dm_inputs(*shape, cuda, seed=3)
-    launched = (dropout_matmul.launches, seeded_dropout.launches)
+    launched = (dropout_matmul.launches, seeded_dropout.launches,
+                seeded_dropout_pair.launches)
     tx, tw = x.clone().requires_grad_(), w.clone().requires_grad_()
     DropoutMatmul.apply(tx, tw, 77, p).backward(grad)
     torch.cuda.synchronize()
-    assert (dropout_matmul.launches - launched[0],
-            seeded_dropout.launches - launched[1]) == (1, 2 if p else 0)
+    assert (dropout_matmul.launches - launched[0], seeded_dropout.launches - launched[1],
+            seeded_dropout_pair.launches - launched[2]) == (1, 0, 1 if p else 0)
     px, pw = x.clone().requires_grad_(), w.clone().requires_grad_()
     dropout_matmul_plain(px, pw, 77, p).backward(grad)
     torch.testing.assert_close(tx.grad, px.grad, rtol=0, atol=1e-4)
+    torch.testing.assert_close(tw.grad, pw.grad, rtol=0, atol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("p", [0.0, 0.5])
+def test_dropout_matmul_backward_of_a_data_input(cuda, p):
+    """x needs no gradient (the first layer's input is data): the backward
+    masks x alone, in one launch of K2b's single form, and dW matches
+    autograd through the plain version."""
+    x, w, grad = _dm_inputs(*DM_SHAPES["rna_dense_0"], cuda, seed=6)
+    launched = (dropout_matmul.launches, seeded_dropout.launches,
+                seeded_dropout_pair.launches)
+    tw = w.clone().requires_grad_()
+    DropoutMatmul.apply(x, tw, 78, p).backward(grad)
+    torch.cuda.synchronize()
+    assert (dropout_matmul.launches - launched[0], seeded_dropout.launches - launched[1],
+            seeded_dropout_pair.launches - launched[2]) == (1, 1 if p else 0, 0)
+    pw = w.clone().requires_grad_()
+    dropout_matmul_plain(x, pw, 78, p).backward(grad)
     torch.testing.assert_close(tw.grad, pw.grad, rtol=0, atol=1e-4)
 
 
@@ -391,6 +473,12 @@ def test_dropout_matmul_kernel_rejects_bad_inputs(cuda):
         dropout_matmul(x.t().contiguous().t(), w, 1, 0.5)
     with pytest.raises(ValueError, match="alias"):
         seeded_dropout(torch.zeros(2, 65537, device=cuda), 1, 0.5)
+    with pytest.raises(ValueError, match="one shape"):
+        seeded_dropout_pair(x, x[:, :8].contiguous(), 1, 0.5)
+    with pytest.raises(ValueError, match="all inputs must be on"):
+        seeded_dropout_pair(x, x.cpu(), 1, 0.5)
+    with pytest.raises(ValueError, match="contiguous"):
+        seeded_dropout_pair(x, x.t().contiguous().t(), 1, 0.5)
 
 
 # K4: (batch, H, W, Cin, Cm, Cout = 4 Cm, blocks); block 0 has a projection

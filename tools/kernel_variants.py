@@ -1,5 +1,5 @@
-"""Time variants of the port's kernels (K1, K2a, K3, K4) against each other
-on the card.
+"""Time variants of the port's kernels (K1, K2a, K2b, K3, K4) against each
+other on the card.
 
 K1 (the attention pool) and K2a (the seeded dropout-matmul) share their
 product, ``multimodalbrainsurvival_torch/kernels/csrc/splitk_tn.cuh``. Its
@@ -31,6 +31,16 @@ enforced: ``no_flush`` is there to measure it), then all are timed with the
 L2 scrubbed, in turns (the variants in order, then reversed). All nvcc
 builds of this part start together.
 
+K2b's variants (``K2B_VARIANTS``: the 64-bit division per element, 8-byte
+pieces in place of a scalar head at dense_0, pieces in flight, threads a
+block, grid size, cache hints, programmatic launch, no mask, an empty
+launch) are substitutions in the committed ``dropout_matmul.cu``; with ``--parent DIR`` DIR's ``dropout_matmul.cu`` is
+built as ``parent``. The single form runs at both RNA layers, the paired
+form at dense_1's shape against two launches of the committed single form,
+two of the parent's and two ``torch.mul`` calls by the pre-scaled mask;
+each is checked against the plain version and timed in turns, with its
+speed-up over the parent.
+
 K4's variants are ``multimodalbrainsurvival_torch/kernels/csrc/fused_stage.cu``
 with a few text substitutions (the knobs of the bfloat16 wgmma path: ring
 depth, output channels per pass, two fixed tiles; ``wait_0``, no wgmma group
@@ -54,7 +64,7 @@ picks the parts to run (default all). Run from the root of the repository,
 on a machine with a card:
 
     python tools/kernel_variants.py [--parent DIR] [--k4 NAME=FILE ...]
-        [--only k1_k2a,k4,k3]
+        [--only k1_k2a,k2b,k4,k3]
 """
 
 from __future__ import annotations
@@ -115,6 +125,74 @@ SPLITK_DTYPE = {"no_flush": torch.float32, "l2_prefetch_128": torch.float32,
                 "lag_0": torch.bfloat16, "ring_3": torch.bfloat16, "no_pdl": torch.bfloat16,
                 "no_pool_launch": torch.bfloat16, "no_cluster_sum": torch.bfloat16,
                 "no_loads": torch.bfloat16}
+
+# K2b's variants: substitutions in dropout_matmul.cu. ``div64`` takes each
+# element's (row, col) from a 64-bit i / K and i % K, as the first K2b did,
+# with everything else as committed; ``pieces_8`` takes 8-byte pieces where
+# rows alternate between 16- and 8-byte alignment (dense_0) in place of a
+# scalar head before 16-byte pieces; ``ilp_<n>`` loads n pieces a thread
+# before hashing (committed: 4); ``threads_<n>``, n threads a block
+# (committed: 256); ``load_default`` loads without the streaming hint;
+# ``store_cs`` also stores with it (evict-first); ``pdl`` launches with
+# programmatic stream serialization; ``grid_half`` and ``grid_eighth`` launch
+# that share of one wave's blocks; ``l2_256`` asks L2 to fetch 256 bytes
+# for each 16-byte load; ``no_hash`` (no mask) and ``empty`` (a launch that
+# does nothing) compute something else, to size the rest.
+STORE_CS = ("  *reinterpret_cast<Piece<V>*>(p) = v;\n",
+            "  if constexpr (V == 4)\n"
+            "    __stcs(reinterpret_cast<float4*>(p), make_float4(v.f[0], v.f[1], v.f[2], v.f[3]));\n"
+            "  else if constexpr (V == 2)\n"
+            "    __stcs(reinterpret_cast<float2*>(p), make_float2(v.f[0], v.f[1]));\n"
+            "  else\n"
+            "    __stcs(p, v.f[0]);\n")
+K2B_LAUNCH = ("  seeded_dropout_kernel<V, PAIR>\n"
+              "      <<<dim3(gx, gy), K2B_THREADS, 0, stream>>>(a, b, out_a, out_b, M, K, mask);\n")
+K2B_VARIANTS = {
+    "committed": [],
+    "div64": [("            const bool kept = keep(row, col + e, mask);\n",
+               "            const long long i = static_cast<long long>(row) * K + col + e;\n"
+               "            const bool kept = keep(static_cast<uint32_t>(i / K),\n"
+               "                                   static_cast<uint32_t>(i % K), mask);\n")],
+    "pieces_8": [("  int v = PAIR ? piece_width({a, b, out_a, out_b}) : piece_width({a, out_a});\n",
+                  "  int v = PAIR ? piece_width({a, b, out_a, out_b}) : piece_width({a, out_a});\n"
+                  "  if (v == 4 && K % 4) v = 2;\n")],
+    **{f"ilp_{n}": [("constexpr int K2B_ILP = 4;", f"constexpr int K2B_ILP = {n};")]
+       for n in (1, 2)},
+    **{f"threads_{n}": [("constexpr int K2B_THREADS = 256;", f"constexpr int K2B_THREADS = {n};")]
+       for n in (128, 512)},
+    "load_default": [("  Piece<V> r;\n  if constexpr (V == 4) {\n    const float4 t = __ldcs(",
+                      "  return *reinterpret_cast<const Piece<V>*>(p);\n  Piece<V> r;\n"
+                      "  if constexpr (V == 4) {\n    const float4 t = __ldcs(")],
+    "store_cs": [STORE_CS],
+    "pdl": [("  const int step = K2B_THREADS * gridDim.x;\n",
+             "  hopper::pdl_wait();\n  const int step = K2B_THREADS * gridDim.x;\n"),
+            (K2B_LAUNCH,
+             "  cudaLaunchConfig_t cfg = {};\n"
+             "  cfg.gridDim = dim3(gx, gy);\n"
+             "  cfg.blockDim = dim3(K2B_THREADS);\n"
+             "  cfg.stream = stream;\n"
+             "  cudaLaunchAttribute attr;\n"
+             "  attr.id = cudaLaunchAttributeProgrammaticStreamSerialization;\n"
+             "  attr.val.programmaticStreamSerializationAllowed = 1;\n"
+             "  cfg.attrs = &attr;\n"
+             "  cfg.numAttrs = 1;\n"
+             "  cudaLaunchKernelEx(&cfg, seeded_dropout_kernel<V, PAIR>, a, b, out_a, out_b, M, K,\n"
+             "                     mask);\n")],
+    "grid_half": [("  int gy = resident / gx;\n", "  int gy = resident / gx / 2;\n")],
+    "grid_eighth": [("  int gy = resident / gx;\n", "  int gy = resident / gx / 8;\n")],
+    "l2_256": [("    const float4 t = __ldcs(reinterpret_cast<const float4*>(p));\n",
+                "    float4 t;\n"
+                "    asm volatile(\"ld.global.cs.L2::256B.v4.f32 {%0, %1, %2, %3}, [%4];\"\n"
+                "                 : \"=f\"(t.x), \"=f\"(t.y), \"=f\"(t.z), \"=f\"(t.w) : \"l\"(p));\n")],
+    "no_hash": [("            const bool kept = keep(row, col + e, mask);\n",
+                 "            const bool kept = true;\n")],
+    "empty": [("  const int step = K2B_THREADS * gridDim.x;\n",
+               "  const int step = K2B_THREADS * gridDim.x;\n  if (M > 0) return;\n")],
+}
+# the parent's K2b entry, before the paired form: (x, out, numel, K, seed,
+# threshold, scale, stream)
+PARENT_K2B_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+                       ctypes.c_uint32, ctypes.c_uint32, ctypes.c_float, ctypes.c_void_p]
 
 # K4's variants: substitutions in fused_stage.cu
 VARIANTS = {
@@ -216,9 +294,38 @@ def splitk_libraries(parent: Path | None) -> dict:
                                      (parent / f"{src}.cu").read_text(), parent)
     libs = {}
     for (name, src), lib in build_sources(jobs).items():
-        bind = attention_pool.bind if src == "attention_pool" else dropout_matmul.bind
+        if src == "attention_pool":
+            bind = attention_pool.bind
+        else:
+            bind = bind_parent_dropout if name == "parent" else dropout_matmul.bind
         libs.setdefault(name, {})[src] = bind(lib)
     return libs
+
+
+def bind_parent_dropout(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """A parent's dropout_matmul library: K2a's entry as the committed one
+    takes it, K2b's single entry as it was before the paired form."""
+    lib.dropout_matmul_f32.argtypes = (
+        [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
+        + [ctypes.c_uint32, ctypes.c_uint32, ctypes.c_float, ctypes.c_int,
+           ctypes.c_void_p])
+    lib.dropout_matmul_f32.restype = ctypes.c_int
+    lib.seeded_dropout_f32.argtypes = PARENT_K2B_ARGTYPES
+    lib.seeded_dropout_f32.restype = ctypes.c_int
+    return lib
+
+
+def parent_seeded_dropout(lib: ctypes.CDLL, x: torch.Tensor, seed: int,
+                          p: float) -> torch.Tensor:
+    """The parent's K2b on ``x``, called as its wrapper called it."""
+    out = torch.empty_like(x)
+    err = lib.seeded_dropout_f32(
+        x.data_ptr(), out.data_ptr(), x.numel(), x.shape[1], seed & 0xFFFFFFFF,
+        dropout_matmul.keep_threshold(p), float(dropout_matmul.keep_scale(p)),
+        torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"parent seeded_dropout launch failed: CUDA error {err}")
+    return out
 
 
 def _in_turns(names: list, run, timed) -> dict:
@@ -291,6 +398,81 @@ def k1_k2a_variants(parent: Path | None) -> dict:
         del x, w, want
     dropout_matmul._lib = None
     return results
+
+
+def k2b_variants(parent: Path | None) -> dict:
+    """K2b's single form at both RNA layers and its paired form at dense_1's
+    (drop probability 0.5), every variant of ``K2B_VARIANTS``, the parent's
+    kernel (twice, against the pair) and ``torch.mul`` by the pre-scaled mask
+    (twice, against the pair), each checked against the plain version and
+    timed in turns."""
+    committed = (build.CSRC / "dropout_matmul.cu").read_text()
+    jobs = {name: (build.BUILD_DIR / "variants" / f"k2b_{name}" / "dropout_matmul.cu",
+                   patched(committed, patches, name), build.CSRC)
+            for name, patches in K2B_VARIANTS.items()}
+    if parent is not None:
+        jobs["parent"] = (build.BUILD_DIR / "variants" / "k2b_parent" / "dropout_matmul.cu",
+                          (parent / "dropout_matmul.cu").read_text(), parent)
+    libs = {name: (bind_parent_dropout if name == "parent" else dropout_matmul.bind)(lib)
+            for name, lib in build_sources(jobs).items()}
+    device = torch.device("cuda")
+    scrub = torch.empty(64 << 20, dtype=torch.uint8, device=device)
+    g = torch.Generator().manual_seed(chip_smoke.SEED)
+    seed, p = 20240607, chip_smoke.RNA_DROPOUT
+    results = {}
+
+    def ours(name, fn, *args):
+        dropout_matmul._lib = libs[name]
+        return fn(*args, seed, p)
+
+    for where, M, K, _ in chip_smoke.K2_SHAPES:
+        x = torch.randn(M, K, generator=g).to(device)
+        want = dropout_matmul.seeded_dropout_plain(x, seed, p)
+        mask = dropout_matmul.keep_mask(M, K, seed, p, device).float() * float(
+            dropout_matmul.keep_scale(p))
+        calls = {name: (lambda name=name: ours(name, dropout_matmul.seeded_dropout, x))
+                 for name in K2B_VARIANTS}
+        if parent is not None:
+            calls["parent"] = lambda: parent_seeded_dropout(libs["parent"], x, seed, p)
+        calls["torch.mul"] = lambda: torch.mul(x, mask)
+        # not a yardstick of the function: a copy of the same bytes
+        calls["clone"] = lambda: x.clone()
+        label = f"K2b {where} {M}x{K} p={p}"
+        results[label] = _k2b_in_turns(label, calls, [want], scrub)
+        if where == "dense_1":
+            b = torch.randn(M, K, generator=g).to(device)
+            want2 = [want, dropout_matmul.seeded_dropout_plain(b, seed, p)]
+            pairs = {f"{name} pair": (lambda name=name: ours(
+                name, dropout_matmul.seeded_dropout_pair, x, b)) for name in K2B_VARIANTS}
+            pairs["committed x2"] = lambda: (ours("committed", dropout_matmul.seeded_dropout, x),
+                                             ours("committed", dropout_matmul.seeded_dropout, b))
+            if parent is not None:
+                pairs["parent x2"] = lambda: tuple(
+                    parent_seeded_dropout(libs["parent"], t, seed, p) for t in (x, b))
+            pairs["torch.mul x2"] = lambda: (torch.mul(x, mask), torch.mul(b, mask))
+            label = f"K2b pair {where} {M}x{K} p={p}"
+            results[label] = _k2b_in_turns(label, pairs, want2, scrub)
+        del x, want, mask
+    dropout_matmul._lib = None
+    return results
+
+
+def _k2b_in_turns(label: str, calls: dict, want: list, scrub: torch.Tensor) -> dict:
+    """Each call's outputs against ``want`` and its time, in turns; with the
+    parent among the calls, each one's speed-up over it."""
+    def run(name):
+        got = calls[name]()
+        torch.cuda.synchronize()
+        got = got if isinstance(got, tuple) else (got,)
+        return max((a - b).abs().max().item() for a, b in zip(got, want))
+
+    out = _in_turns(list(calls), run, lambda name: chip_smoke._time_ms(calls[name], 25, scrub))
+    ref = next((r["ms"] for n, r in out.items() if n.startswith("parent")), None)
+    if ref is not None:
+        for rec in out.values():
+            rec["parent_over_this"] = ref / rec["ms"]
+    print(label, json.dumps(out), flush=True)
+    return out
 
 
 def k4_library(name: str, src: str, home: Path = build.CSRC) -> ctypes.CDLL:
@@ -396,9 +578,9 @@ def main() -> int:
                              "timed too")
     parser.add_argument("--k4", action="append", default=[], metavar="NAME=FILE",
                         help="another fused_stage.cu to time as variant NAME")
-    parser.add_argument("--only", default="k1_k2a,k4,k3",
-                        help="comma-separated parts to run: k1_k2a, k4, k3 (k3 needs "
-                             "--parent)")
+    parser.add_argument("--only", default="k1_k2a,k2b,k4,k3",
+                        help="comma-separated parts to run: k1_k2a, k2b, k4, k3 (k3 "
+                             "needs --parent)")
     args = parser.parse_args()
     extra = {name: Path(path) for name, path in (v.split("=", 1) for v in args.k4)}
     parts = set(args.only.split(","))
@@ -410,6 +592,8 @@ def main() -> int:
     results = {}
     if "k1_k2a" in parts:
         results["k1_k2a"] = k1_k2a_variants(args.parent)
+    if "k2b" in parts:
+        results["k2b"] = k2b_variants(args.parent)
     if "k4" in parts:
         results["k4"] = k4_variants(args.parent, extra)
     if "k3" in parts and args.parent is not None:
