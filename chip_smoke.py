@@ -27,7 +27,12 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    folded-BN bottleneck stage, at layer1's and layer2's stride-1 tail's
    shapes at 256 patches in
    bfloat16 and float32 within ``K4_TOL``, timed against the same stage
-   through cuDNN;
+   through cuDNN; the pool's gradient (its ``autograd.Function``: K1
+   forward, the analytic backward in plain PyTorch) against autograd of
+   the plain version at 16 x 16 x 2048 and 128 x 2 x 2048 (padded) and
+   128 x 1 x 2048 (there dW = dv = 0: checked to be 0) in both dtypes
+   within ``K1_GRAD_TOL``, forward + backward and the backward alone
+   timed beside the plain version's autograd;
 4. main path: a synthetic cohort (8 slides x 64 patches at 224 px, packed
    shards, made from a seed) through the port's ``histo_savescore`` and
    ``histo_extractfeatures`` at ResNet-50 / attention 2048 / bfloat16 on
@@ -55,7 +60,19 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    own timing in phase 3 (the profiler drops some K2a records);
 7. RNA reference: two dropout-free train steps of a small 12,778-gene
    cohort on the card and on the CPU from one seeded init; the val scores
-   must agree.
+   must agree;
+8. histo train path: ``histo_train`` on the main path's cohort at
+   ResNet-50 / attention 2048 / bfloat16 / 224 px (batch 16, bags of 16,
+   ``n_layers_to_train`` 2, flips and jitter on, 2 epochs, Adam at 5e-4),
+   ``histo_savescore`` on its ``model_last.pt``, then ``histo_train`` with
+   ``quantize_trunk: "int8"`` for an epoch; the counters are set to 0 just
+   before and read just after each CLI (K1 once a train step and an eval
+   batch, its backward once a train step, K3 on the frozen trunk) and
+   every frame is checked. Then one train step's device time, idle share
+   and K1's share at ``n_layers_to_train`` 2 and 6;
+9. histo train reference: two float32 train steps of a small cohort
+   (augmentation off, the whole network) on the card and on the CPU from
+   one seeded init; the val scores must agree.
 
 The last lines are the ``kernels`` JSON line, the nvidia-smi line and
 ``{"ok": true, "device": {...}}``. Without a card, or without the rest of
@@ -81,16 +98,18 @@ import torch
 from multimodalbrainsurvival_torch.cli import (
     histo_extractfeatures,
     histo_savescore,
+    histo_train,
     rna_extractfeatures,
     rna_savescore,
     rna_train,
 )
 from multimodalbrainsurvival_torch.cli._common import (
+    build_datasets,
+    build_mil_model,
     load_mil_model,
     serving_adapter,
     tune_optimizer,
 )
-from multimodalbrainsurvival_torch.cli.histo_train import build_datasets, build_mil_model
 from multimodalbrainsurvival_torch.cli.rna_train import build_rna_model, build_rna_optimizer
 from multimodalbrainsurvival_torch.config import Config
 from multimodalbrainsurvival_torch.data import RNATableDataset
@@ -98,7 +117,9 @@ from multimodalbrainsurvival_torch.device import configure_precision
 from multimodalbrainsurvival_torch.kernels import build
 from multimodalbrainsurvival_torch.kernels.attention_pool import (
     attention_pool,
+    attention_pool_backward,
     attention_pool_plain,
+    pool,
 )
 from multimodalbrainsurvival_torch.kernels.dropout_matmul import (
     dropout_matmul,
@@ -133,6 +154,11 @@ from multimodalbrainsurvival_torch.models.rna import RNA_GENES
 from multimodalbrainsurvival_torch.train import TrainSettings
 from multimodalbrainsurvival_torch.train.adapters import MILAdapter, TableAdapter
 from multimodalbrainsurvival_torch.train.loop import make_loss_fn, train_step
+from multimodalbrainsurvival_torch.train.optim import (
+    build_grouped_optimizer,
+    mil_freeze_ladder,
+    wrap_optimizer,
+)
 
 SEED = 0
 # the main path's shape at the aggregator: 16 bags x 16 patches x 2048
@@ -207,6 +233,22 @@ K4_TOL = {torch.float32: 1e-4, torch.bfloat16: 2**-6}
 K4_LAUNCHES_PER_BATCH = 6
 # folded vs unfolded bf16 bag embeddings (both bf16, rounded at other places)
 FOLDED_COSINE = 0.999
+# K1's gradient through the Function (kernel forward, analytic backward)
+# against autograd of the plain version, err / max|plain gradient|: float32
+# sums in another order (3xTF32 forward in float32); in bfloat16 both read
+# the same bf16 x and W, so only the kernel's float32 logits differ
+K1_GRAD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2**-7}
+# K1's gradient shapes: the main path's 16 bags x 16 patches (one short bag,
+# one padded sample) and the reference's batch 128 x bag 1
+K1_GRAD_SHAPES = (("16x16x2048, padded", 16, 16), ("128x2x2048, padded", 128, 2),
+                  ("128x1x2048", 128, 1))
+# the histo train path (phase 8): the reference's Adam LR, the freeze ladder
+# at 2 (layer4 and the head train) and the whole network
+HISTO_LR, HISTO_EPOCHS = 5e-4, 2
+# ResNet-50's stem and first three stages under quantize_trunk at
+# n_layers_to_train 2: 13 blocks x 3 convs + 3 downsamples through K3, the
+# last conv of each block in its residual form, one stem pass
+K3_TRUNK_PER_BATCH, K3_TRUNK_RESIDUAL_PER_BATCH = 42, 13
 COUNTERS = {"attention_pool": attention_pool, "qmm_requant": qmm_requant,
             "qconv_residual_requant": qconv_residual_requant,
             "stem_requant_pool": stem_requant_pool,
@@ -215,13 +257,20 @@ COUNTERS = {"attention_pool": attention_pool, "qmm_requant": qmm_requant,
             "fused_bottleneck_stage": fused_bottleneck_stage}
 
 
+# what the launch counters read, and K1's backward calls (plain PyTorch, no
+# kernel of the port)
+COUNT_NAMES = (*COUNTERS, "attention_pool_backward")
+
+
 def reset_counts() -> None:
     for fn in COUNTERS.values():
         fn.launches = 0
+    attention_pool_backward.calls = 0
 
 
 def read_counts() -> dict:
-    return {name: fn.launches for name, fn in COUNTERS.items()}
+    return {**{name: fn.launches for name, fn in COUNTERS.items()},
+            "attention_pool_backward": attention_pool_backward.calls}
 
 
 def _nvidia_smi() -> str:
@@ -345,6 +394,77 @@ def check_attention_pool(device: torch.device) -> dict:
             result["float32"]["bound_tf32x3_ms"] = _bound(
                 xd, wd, v, mask, PEAK_TF32_FLOPS, 3)[0]
         print(f"attention_pool {str(dtype)[6:]}: {json.dumps(result[str(dtype)[6:]])}")
+    return result
+
+
+def check_attention_pool_grad(device: torch.device) -> dict:
+    """K1's gradient: the ``AttentionPool`` Function (K1 forward, the
+    analytic backward in plain PyTorch) against autograd of the plain
+    version on the card, dx, dW and dv within ``K1_GRAD_TOL`` of each
+    gradient's scale, at the main path's 16 x 16 x 2048 (padded), at
+    128 x 2 x 2048 (padded) and at 128 x 1 x 2048, in float32 and bfloat16;
+    then forward + backward and the backward alone timed after an L2
+    scrub, in turns with the plain version's autograd. A bag of one patch
+    has softmax weight 1 whatever its logit, so at 128 x 1 dW and dv are
+    exactly 0 on both sides: there they are checked to be 0, and only dx
+    is held to the tolerance."""
+    scrub = torch.empty(64 << 20, dtype=torch.uint8, device=device)
+    result = {}
+    for where, n_b, bag in K1_GRAD_SHAPES:
+        g = torch.Generator(device="cpu").manual_seed(SEED + n_b)
+        x = torch.randn(n_b, bag, D, generator=g).relu()
+        weight = torch.randn(D, D, generator=g) / math.sqrt(D)
+        v = torch.randn(D, generator=g) * 0.05
+        mask = torch.ones(n_b, bag, dtype=torch.bool)
+        if bag > 1:
+            mask[1, max(1, bag - 6):] = False  # a short bag
+            mask[2] = False                    # a padded sample
+        g_out = torch.randn(n_b, D, generator=g)
+        x, weight, v, mask, g_out = (t.to(device) for t in (x, weight, v, mask, g_out))
+        for dtype in (torch.float32, torch.bfloat16):
+            xd, wd = x.to(dtype), weight.to(dtype)
+            grads = {}
+            for name, fn in (("function", pool), ("plain", attention_pool_plain)):
+                leaves = [t.clone().requires_grad_() for t in (xd, wd, v)]
+                out, _ = fn(*leaves, mask)
+                out.backward(g_out)
+                grads[name] = [t.grad for t in leaves]
+            torch.cuda.synchronize()
+            errs = {}
+            for key, got, want in zip(("dx", "dW", "dv"), grads["function"], grads["plain"]):
+                if bag == 1 and key != "dx":
+                    if got.any() or want.any():
+                        raise AssertionError(f"K1's {key} at {where} {dtype} is not 0 "
+                                             "for bags of one patch")
+                    continue
+                errs[key] = ((got.float() - want.float()).abs().max()
+                             / want.float().abs().max().clamp(min=1e-30)).item()
+            tol = K1_GRAD_TOL[dtype]
+            print(f"attention_pool gradient {where} {str(dtype)[6:]}: error / scale "
+                  f"{json.dumps(errs)} (tolerance {tol})")
+            if not max(errs.values()) <= tol:
+                raise AssertionError(f"K1's gradient at {where} {dtype} disagrees with "
+                                     f"autograd of the plain version: {errs} > {tol}")
+            leaves = [t.clone().requires_grad_() for t in (xd, wd, v)]
+            _, attn = attention_pool(xd, wd, v, mask)
+
+            def step(fn):
+                out, _ = fn(*leaves, mask)
+                out.backward(g_out)
+
+            fns = {"forward_backward": lambda: step(pool),
+                   "plain": lambda: step(attention_pool_plain),
+                   "backward": lambda: attention_pool_backward(
+                       xd, wd, v, mask, attn, g_out, torch.zeros_like(attn))}
+            times = {k: [] for k in fns}
+            for name in ("plain", "forward_backward", "backward", "backward",
+                         "forward_backward", "plain"):
+                times[name].append(_time_ms(fns[name], 10, scrub))
+            rec = {"max_err_over_scale": max(errs.values()), "tolerance": tol,
+                   "held_to_tolerance": sorted(errs),
+                   **{f"{k}_ms": sum(t) / 2 for k, t in times.items()}}
+            print(f"attention_pool gradient {where} {str(dtype)[6:]}: {json.dumps(rec)}")
+            result[f"{where} {str(dtype)[6:]}"] = rec
     return result
 
 
@@ -715,7 +835,7 @@ def drive_main_path(root: str, device: torch.device, smi: str) -> tuple[dict, di
     launches, e2e = {}, {}
     for path, (c, c_path) in (("bf16", (cfg, cfg_path)), ("int8", (cfg8, cfg8_path)),
                               ("bf16_folded", (cfgf, cfgf_path))):
-        expected = {name: 0 for name in COUNTERS}
+        expected = {name: 0 for name in COUNT_NAMES}
         expected["attention_pool"] = batches
         if path == "int8":
             expected["qmm_requant"] = K3_LAUNCHES_PER_BATCH * batches
@@ -1202,7 +1322,7 @@ def drive_rna_path(root: str, device: torch.device, smi: str,
         ("rna_savescore", rna_savescore.main, {}),
         ("rna_extractfeatures", rna_extractfeatures.main, {}),
     ):
-        expected = {name: expected.get(name, 0) for name in COUNTERS}
+        expected = {name: expected.get(name, 0) for name in COUNT_NAMES}
         reset_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1298,6 +1418,185 @@ def check_rna_against_cpu(root: str) -> None:
         raise AssertionError(f"cuda scores {scores['cuda']} != cpu {scores['cpu']}")
 
 
+def _check_train_outputs(cfg: dict) -> None:
+    """Every checkpoint and frame of a ``histo_train`` run present, the
+    frames finite with one row per slide."""
+    flag = cfg["flag"]
+    save = os.path.join(cfg["checkpoint_path"], "models", flag)
+    for name in ("model_last.pt", "model_dict_best.pt", "train_state.pt"):
+        if name != "model_dict_best.pt" or cfg["num_epochs"] > 1:
+            if not os.path.isfile(os.path.join(save, name)):
+                raise AssertionError(f"{save}/{name} missing")
+    for split in ("train", "val", "test"):
+        for tag in ("last", "best"):
+            path = os.path.join(cfg["checkpoint_path"], "outputs", flag,
+                                f"{split}_output_{tag}.csv")
+            with open(path) as f:
+                header = f.readline().strip()
+            scores = np.array(_read_csv_column(path, "score"), float)
+            if header != "id,score,survival_months,vital_status" \
+                    or scores.shape != (N_WSI,) or not np.isfinite(scores).all():
+                raise AssertionError(f"{path}: bad frame {header} {scores.shape}")
+
+
+def drive_histo_train_path(root: str, device: torch.device, smi: str,
+                           k1_ms: dict) -> tuple[dict, dict]:
+    """``histo_train`` on the main path's cohort at ResNet-50 / attention
+    2048 / bfloat16 / 224 px (batch 16, bags of 16, ``n_layers_to_train``
+    2, augmentation on, 2 epochs, Adam at 5e-4), then ``histo_savescore``
+    on its ``model_last.pt``, then ``histo_train`` with ``quantize_trunk:
+    "int8"`` for 1 epoch (stem + 3 stages through K3). The counters are set
+    to 0 just before each CLI and read just after it: K1 once a train step
+    and an eval batch, its backward once a train step. Then one train
+    step's device time, idle share and K1's share at ``n_layers_to_train``
+    2 and 6 (``k1_ms``: K1's forward and backward times from phase 3)."""
+    csv_path = os.path.join(root, "cohort.csv")
+    n_bags = N_WSI * N_PATCH // BAG
+    steps = math.ceil(n_bags / B)       # train steps an epoch
+    split_batches = math.ceil(n_bags / B)
+    # per epoch: the train steps, then the train and val evals; at the end
+    # the last and the best model on the three splits
+    def k1_forwards(epochs):
+        return epochs * (steps + 2 * split_batches) + 6 * split_batches
+
+    train = dict(checkpoint_path=os.path.join(root, "histo_train_ckpt"),
+                 flag="histo_smoke", lr=HISTO_LR, weight_decay=1e-4,
+                 n_layers_to_train=2, augment=True, log_interval=1)
+    cfg, cfg_path = _config(root, csv_path, "histo_train", num_epochs=HISTO_EPOCHS,
+                            **train)
+    model_last = os.path.join(cfg["checkpoint_path"], "models", "histo_smoke",
+                              "model_last.pt")
+    serve, serve_path = _config(root, csv_path, "histo_train_serve", model_path=model_last,
+                                output_path=os.path.join(root, "histo_train_serve"))
+    cfg8, cfg8_path = _config(root, csv_path, "histo_train_int8", num_epochs=1,
+                              quantize_trunk="int8",
+                              **dict(train, checkpoint_path=os.path.join(
+                                  root, "histo_train_int8_ckpt")))
+    trunk_batches = k1_forwards(1)
+    by_cli = {}
+    for cli, main, c_path, expected in (
+        ("histo_train", histo_train.main, cfg_path,
+         {"attention_pool": k1_forwards(HISTO_EPOCHS),
+          "attention_pool_backward": HISTO_EPOCHS * steps}),
+        ("histo_savescore_trained", histo_savescore.main, serve_path,
+         {"attention_pool": 3 * split_batches}),
+        ("histo_train_int8_trunk", histo_train.main, cfg8_path,
+         {"attention_pool": trunk_batches, "attention_pool_backward": steps,
+          "qmm_requant": K3_TRUNK_PER_BATCH * trunk_batches,
+          "qconv_residual_requant": K3_TRUNK_RESIDUAL_PER_BATCH * trunk_batches,
+          "stem_requant_pool": trunk_batches}),
+    ):
+        expected = {name: expected.get(name, 0) for name in COUNT_NAMES}
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        main(["--config", c_path])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        print(f"histo train path {cli}: launches {counts} (expected {expected}); "
+              f"{wall:.2f} s wall clock [{smi}]")
+        if counts != expected:
+            raise AssertionError(f"{cli} launched {counts}, expected {expected}")
+        by_cli[cli] = {"launches": counts, "wall_s": wall}
+    _check_train_outputs(cfg)
+    _check_train_outputs(cfg8)
+    for split in ("train", "val", "test"):
+        path = os.path.join(serve["output_path"], f"model_last.pt_pathology_{split}_df.csv")
+        scores = np.array(_read_csv_column(path, "score"), float)
+        if not (scores.size and np.isfinite(scores).all()):
+            raise AssertionError(f"{path}: bad scores {scores}")
+    steps_e2e = {}
+    for n in (2, 6):
+        steps_e2e[f"n_layers_to_train_{n}"] = check_histo_train_step(
+            Config(cfg), device, smi, n, k1_ms)
+    return by_cli, {"histo_train_step": steps_e2e}
+
+
+def check_histo_train_step(config: Config, device: torch.device, smi: str, n: int,
+                           k1_ms: dict) -> dict:
+    """Device time of one histo train step at ``n_layers_to_train`` ``n`` on
+    a batch already on the card (CUDA events, mean of 5 after 3 warm-up
+    steps), its profile and the card's idle share; K1's share of the step
+    from K1's own forward and backward times (``k1_ms``)."""
+    torch.manual_seed(SEED)
+    model = build_mil_model(config).to(device, memory_format=torch.channels_last)
+    adapter = MILAdapter(model=model, device=device, augment=True)
+    optimizer = wrap_optimizer(build_grouped_optimizer(
+        model, [("train", mil_freeze_ladder(n), HISTO_LR)], 1e-4))
+    settings = TrainSettings(batch_size=B)
+    loss_fn, keys = make_loss_fn(TrainSettings(task="survival_prediction"))
+    keys = adapter.array_keys + keys
+    train = build_datasets(config, False)["train"]
+    batches = train.batches(B, shuffle=True, seed=SEED, num_threads=8)
+    try:
+        arrays = adapter.to_device(next(batches), keys)
+    finally:
+        batches.close()
+    generator = torch.Generator(device=device).manual_seed(SEED)
+
+    def step():
+        return train_step(adapter, optimizer, loss_fn, arrays, settings, generator)
+
+    for _ in range(3):
+        step()
+    torch.cuda.reset_peak_memory_stats(device)
+    events = []
+    for _ in range(5):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        loss = step()
+        end.record()
+        events.append((start, end))
+    torch.cuda.synchronize()
+    step_ms = sum(s.elapsed_time(e) for s, e in events) / len(events)
+    peak_gb = torch.cuda.max_memory_allocated(device) / 1e9
+    if not torch.isfinite(loss):
+        raise AssertionError(f"histo train step loss {loss.item()}")
+    launched = attention_pool.launches, attention_pool_backward.calls
+    profile = device_breakdown(step, step_ms, f"histo train step, n_layers_to_train {n}",
+                               {"k1_softmax_pool": "softmax_pool_kernel"})
+    if (attention_pool.launches - launched[0], attention_pool_backward.calls - launched[1]) \
+            != (4, 4):
+        raise AssertionError("the profiled train steps did not run K1 and its "
+                             "backward once a step")
+    k1 = k1_ms["forward"] + k1_ms["backward"]
+    idle = 1 - profile["device_busy_ms"] / step_ms
+    print(f"histo train step (ResNet-50, attention 2048, bf16, {B} bags x {BAG} "
+          f"patches at {IMG} px, augmentation on, n_layers_to_train {n}): {step_ms:.3f} "
+          f"ms on the card, peak memory {peak_gb:.2f} GB, the card idle {100 * idle:.1f}% "
+          f"of the step; K1 forward {k1_ms['forward']:.4f} + backward "
+          f"{k1_ms['backward']:.4f} ms (their own timing), {100 * k1 / step_ms:.2f}% "
+          f"of the step [{smi}]")
+    return {"step_ms": step_ms, "idle_share": idle, "peak_memory_gb": peak_gb,
+            "k1_forward_ms": k1_ms["forward"], "k1_backward_ms": k1_ms["backward"],
+            "k1_share_of_step": k1 / step_ms, "profile": profile}
+
+
+def check_histo_train_against_cpu(root: str) -> None:
+    """Two train steps of a small float32 cohort (augmentation off, the
+    whole network trained) on the card and on the CPU (plain versions)
+    from one seeded init: the val scores must agree."""
+    csv_path = os.path.join(root, "cohort.csv")
+    scores = {}
+    for dev in ("cuda", "cpu"):
+        name = f"histo_train_ref_{dev}"
+        cfg, cfg_path = _config(
+            root, csv_path, name, compute_dtype="float32", batch_size=4,
+            train_bag_size=2, val_bag_size=2, max_patch_per_wsi_train=2,
+            max_patch_per_wsi_val=2, num_epochs=1, lr=1e-5, augment=False,
+            n_layers_to_train=6, flag="ref", restore_path=os.path.join(root, "model.pt"),
+            checkpoint_path=os.path.join(root, name))
+        histo_train.main(["--config", cfg_path, "--device", dev])
+        frame = os.path.join(cfg["checkpoint_path"], "outputs", "ref", "val_output_last.csv")
+        scores[dev] = np.array(_read_csv_column(frame, "score"), float)
+    diff = np.abs(scores["cuda"] - scores["cpu"]).max()
+    print(f"histo train reference: 2 float32 train steps, val scores cuda vs cpu "
+          f"max_abs_diff {diff:.3e} (scale {np.abs(scores['cpu']).max():.3e})")
+    if not np.allclose(scores["cuda"], scores["cpu"], rtol=1e-3, atol=1e-4):
+        raise AssertionError(f"cuda scores {scores['cuda']} != cpu {scores['cpu']}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -1321,6 +1620,9 @@ def main() -> int:
             print(f"  {line}")
 
     timings = check_attention_pool(device)
+    k1_grad = check_attention_pool_grad(device)
+    k1_ms = {"forward": timings["bfloat16"]["ms"],
+             "backward": k1_grad[f"{K1_GRAD_SHAPES[0][0]} bfloat16"]["backward_ms"]}
     k3 = check_qmm_requant(device)
     k3_more = check_residual_and_stem(device)
     k2 = check_dropout_matmul(device)
@@ -1332,7 +1634,12 @@ def main() -> int:
         rna_launches, rna_e2e = drive_rna_path(root, device, smi,
                                                k2["dropout_matmul"]["ms"])
         check_rna_against_cpu(root)
+        train_launches, train_e2e = drive_histo_train_path(root, device, smi, k1_ms)
+        check_histo_train_against_cpu(root)
     e2e.update(rna_e2e)
+    e2e.update(train_e2e)
+    for cli, rec in train_launches.items():
+        launches[cli] = rec["launches"]
     k2_launches = {name: {cli: rec["launches"][name] for cli, rec in rna_launches.items()}
                    for name in ("dropout_matmul", "seeded_dropout", "seeded_dropout_pair")}
     k2_source = "multimodalbrainsurvival_torch/kernels/csrc/dropout_matmul.cu"
@@ -1346,6 +1653,9 @@ def main() -> int:
 
     bf16 = timings["bfloat16"]
     by_path = {path: counts["attention_pool"] for path, counts in launches.items()}
+    k3_by_path = {name: {path: counts[name] for path, counts in launches.items()
+                         if counts[name]}
+                  for name in ("qmm_requant", "qconv_residual_requant", "stem_requant_pool")}
     k4_launches = {path: counts["fused_bottleneck_stage"] for path, counts in launches.items()}
     print(json.dumps({"kernels": [{
         "name": "attention_pool",
@@ -1365,12 +1675,23 @@ def main() -> int:
         "shape": [B, BAG, D],
         "dtype": "bfloat16",
         "float32": timings["float32"],
+        # its gradient: the analytic backward in plain PyTorch (the JAX
+        # package's _pool_bwd was stock jnp), no kernel of the port
+        "backward": {
+            "route": "plain PyTorch",
+            "calls": sum(c["attention_pool_backward"] for c in launches.values()),
+            "calls_by_path": {path: c["attention_pool_backward"]
+                              for path, c in launches.items()
+                              if c["attention_pool_backward"]},
+            "checks": k1_grad,
+        },
     }, {
         "name": "qmm_requant",
         "route": "cuda",
         "source": "multimodalbrainsurvival_torch/kernels/csrc/qmm_requant.cu",
         "replaces": "benchmarks/int8_pallas_probe.py:80",
-        "launches": launches["int8"]["qmm_requant"],
+        "launches": sum(k3_by_path["qmm_requant"].values()),
+        "launches_by_path": k3_by_path["qmm_requant"],
         "max_abs_err": k3["max_abs_err"],
         "tolerance": 0,
         # times and bounds: sums over the shapes listed below (relu on)
@@ -1387,7 +1708,8 @@ def main() -> int:
         # K3's kernel with the residual epilogue of the JAX package's
         # _residual_relu_q (multimodalbrainsurvival_tpu/models/quantize.py:214)
         "replaces": "benchmarks/int8_pallas_probe.py:80",
-        "launches": launches["int8"]["qconv_residual_requant"],
+        "launches": sum(k3_by_path["qconv_residual_requant"].values()),
+        "launches_by_path": k3_by_path["qconv_residual_requant"],
         "tolerance": 0,
         # times and bounds: sums over the shapes listed below
         **k3_more["residual"],
@@ -1400,7 +1722,8 @@ def main() -> int:
         # package's _quantized_stages, multimodalbrainsurvival_tpu/models/
         # quantize.py:245-250), part of K3's int8 path
         "replaces": "benchmarks/int8_pallas_probe.py:80",
-        "launches": launches["int8"]["stem_requant_pool"],
+        "launches": sum(k3_by_path["stem_requant_pool"].values()),
+        "launches_by_path": k3_by_path["stem_requant_pool"],
         "tolerance": 0,
         # times and bound: 256 patches at 224 px (the odd size below)
         **k3_more["stem"],
@@ -1446,6 +1769,7 @@ def main() -> int:
         "stages": k4["bfloat16"]["stages"],
         "float32": k4["float32"],
     }], "rna_cli_wall_s": {cli: rec["wall_s"] for cli, rec in rna_launches.items()},
+        "histo_train_cli_wall_s": {cli: rec["wall_s"] for cli, rec in train_launches.items()},
         **e2e}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

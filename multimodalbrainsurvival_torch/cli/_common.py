@@ -6,10 +6,11 @@ cfg.json [--seed N] [--quick 0/1] [--device cuda|cpu]``; the device is
 ``cuda`` unless ``--device cpu`` is given, and a run without a card raises.
 The config's ``use_cuda`` key is not read: the device comes from
 ``--device`` alone. ``--seed`` seeds training: the initial weights and the
-dropout seeds (serving draws no random numbers). ``--log 1`` makes
-``rna_train`` write its scalars to ``<summary_path>/<date>_<flag>/
-metrics.jsonl`` (``summary_path`` defaults to ``<checkpoint_path>/summary``);
-the serving CLIs accept ``--log`` and write nothing, as the JAX ones do.
+dropout seeds and augmentation draws (serving draws no random numbers).
+``--log 1`` makes the train CLIs write their scalars to
+``<summary_path>/<date>_<flag>/metrics.jsonl`` (``summary_path`` defaults to
+``<checkpoint_path>/summary``); the serving CLIs accept ``--log`` and write
+nothing, as the JAX ones do.
 
 Training runs keep the reference layout: checkpoints under
 ``<checkpoint_path>/models/<flag>/``, score frames under
@@ -20,18 +21,31 @@ from __future__ import annotations
 
 import argparse
 import datetime
+import itertools
 import os
 
 import numpy as np
 import torch
 
-from multimodalbrainsurvival_torch.cli.histo_train import build_mil_model
 from multimodalbrainsurvival_torch.config import Config
-from multimodalbrainsurvival_torch.models import AggregationModel
+from multimodalbrainsurvival_torch.data import PatchBagDataset
+from multimodalbrainsurvival_torch.device import compute_dtype
+from multimodalbrainsurvival_torch.models import (
+    RESNET_CONSTRUCTORS,
+    AggregationModel,
+    make_aggregator,
+)
 from multimodalbrainsurvival_torch.models.convert import load_reference_state_dict
 from multimodalbrainsurvival_torch.models.folding import fold_resnet_state_dict
-from multimodalbrainsurvival_torch.models.quantize import quantize_mil_resnet
-from multimodalbrainsurvival_torch.train.adapters import MILAdapter, QuantizedMILAdapter
+from multimodalbrainsurvival_torch.models.quantize import (
+    quantize_mil_resnet,
+    quantize_trunk_for_training,
+)
+from multimodalbrainsurvival_torch.train.adapters import (
+    MILAdapter,
+    QuantizedMILAdapter,
+    QuantTrunkMILAdapter,
+)
 from multimodalbrainsurvival_torch.train.optim import (
     TrainOptimizer,
     relative_lr_schedule,
@@ -174,6 +188,54 @@ def quantize_mode(config: Config) -> str:
     return quant
 
 
+def build_mil_model(config, fold_bn: bool = False) -> AggregationModel:
+    """The config's MIL model: ResNet encoder (without its classifier) →
+    aggregator → ``num_classes`` head, in the config's ``compute_dtype``,
+    with its ``remat`` and ``freeze_bn`` training keys."""
+    dtype = compute_dtype(config.compute_dtype)
+    resnet = RESNET_CONSTRUCTORS[config.model_name](
+        num_classes=None, dtype=dtype, fold_bn=fold_bn,
+        freeze_bn=bool(config.get("freeze_bn", False)),
+        remat=config.get("remat", False) or False,
+    )
+    aggregator = make_aggregator(config.aggregator, dim=resnet.feature_dim,
+                                 dtype=dtype)
+    return AggregationModel(resnet, aggregator, out_features=config.num_classes)
+
+
+def build_datasets(config, quick: bool) -> dict[str, PatchBagDataset]:
+    if config.get("cache_patches_on_device", False):
+        raise NotImplementedError(
+            "cache_patches_on_device is not ported yet (ROADMAP.md, queue 1, "
+            "item 11); the port reads every batch from the host")
+    max_train = config.get("max_patch_per_wsi_train", 1000)
+    max_val = config.get("max_patch_per_wsi_val", 1000)
+    if quick:
+        max_train = max_val = 20  # 2_HistoPath_train.py:495-497
+    common = dict(
+        patch_data_path=config["data_path"],
+        img_size=config.img_size,
+        keep_remainder=bool(config.get("keep_bag_remainder", False)),
+    )
+    return {
+        "train": PatchBagDataset(
+            csv_path=config["train_csv_path"],
+            bag_size=config.get("train_bag_size", 1),
+            max_patches_total=max_train, **common,
+        ),
+        "val": PatchBagDataset(
+            csv_path=config["val_csv_path"],
+            bag_size=config.get("val_bag_size", 1),
+            max_patches_total=max_val, **common,
+        ),
+        "test": PatchBagDataset(
+            csv_path=config["test_csv_path"],
+            bag_size=config.get("val_bag_size", 1),
+            max_patches_total=max_val, **common,
+        ),
+    }
+
+
 def load_mil_model(config: Config, device: torch.device) -> AggregationModel:
     """Build the MIL model, load ``model_path`` (a reference-keyed ``.pt``),
     fold BatchNorm when ``fold_bn: true`` or ``quantize: "int8"``, and place
@@ -221,3 +283,44 @@ def serving_adapter(config: Config, device: torch.device, datasets: dict
     probe = next(batches)
     batches.close()
     return quantize_serving(config, adapter, probe)
+
+
+def quantize_trunk_training(config: Config, adapter: MILAdapter, datasets: dict,
+                            batch_size: int, seed: int) -> MILAdapter:
+    """With ``quantize_trunk: "int8"``, swap a float MIL training adapter
+    for the int8 frozen-trunk one (JAX ``cli/_common.py:416-496``, its MIL
+    branch; the joint branch comes with fusion, ROADMAP.md item 5).
+
+    The freeze ladder trains the first ``n_layers_to_train`` of ``fc,
+    layer4, …``, so the stem and ``min(4, 5 - max(n, 1))`` residual stages
+    below them run forward-only every step; that prefix is folded,
+    calibrated and quantized once, here, on the JAX CLI's calibration set:
+    its probe batch (the first train batch) and the first two train
+    batches. Without the key the adapter is returned as it is."""
+    mode = str(config.get("quantize_trunk", "") or "")
+    if not mode:
+        return adapter
+    if mode != "int8":
+        raise ValueError(f"quantize_trunk: unknown mode {mode!r} (supported: 'int8')")
+    n = config.n_layers_to_train
+    trunk_stages = min(4, 5 - max(n, 1))
+    if trunk_stages < 1:
+        raise ValueError(
+            "quantize_trunk requires n_layers_to_train <= 4: the frozen prefix "
+            f"must cover at least conv1 and layer1 (got n_layers_to_train={n})")
+    batches = datasets["train"].batches(batch_size, **adapter.loader_kwargs)
+    try:
+        first_two = [b["patch_bag"] for b in itertools.islice(batches, 2)]
+    finally:
+        batches.close()
+    cal_bags = first_two[:1] + first_two
+    qtree = quantize_trunk_for_training(adapter.model.resnet, cal_bags,
+                                        arch=config.model_name,
+                                        augment=adapter.augment, seed=seed)
+    print(f"quantize_trunk: int8 frozen prefix = stem + {trunk_stages} stage(s); "
+          "the trainable tail stays float")
+    return QuantTrunkMILAdapter(
+        model=adapter.model, device=adapter.device,
+        loader_kwargs=adapter.loader_kwargs, augment=adapter.augment,
+        qtree=qtree, trunk_stages=trunk_stages, arch=config.model_name,
+    )

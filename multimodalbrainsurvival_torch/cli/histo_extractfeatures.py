@@ -15,12 +15,12 @@ import numpy as np
 import torch
 
 from multimodalbrainsurvival_torch.cli._common import (
+    build_datasets,
     extract_features_frames,
     load_config,
     make_parser,
     serving_adapter,
 )
-from multimodalbrainsurvival_torch.cli.histo_train import build_datasets
 from multimodalbrainsurvival_torch.device import resolve_device
 from multimodalbrainsurvival_torch.frames import write_frame
 from multimodalbrainsurvival_torch.train.adapters import MILAdapter

@@ -11,12 +11,12 @@ from __future__ import annotations
 import os
 
 from multimodalbrainsurvival_torch.cli._common import (
+    build_datasets,
     load_config,
     make_parser,
     savescore_name,
     serving_adapter,
 )
-from multimodalbrainsurvival_torch.cli.histo_train import build_datasets
 from multimodalbrainsurvival_torch.device import resolve_device
 from multimodalbrainsurvival_torch.frames import write_frame
 from multimodalbrainsurvival_torch.train import TrainSettings, evaluate

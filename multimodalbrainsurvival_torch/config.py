@@ -132,5 +132,9 @@ class Config:
         return self.raw.get("aggregator", "identity")
 
     @property
+    def n_layers_to_train(self) -> int:
+        return int(self.raw.get("n_layers_to_train", 100))
+
+    @property
     def compute_dtype(self) -> str:
         return self.raw.get("compute_dtype", "float32")

@@ -1,4 +1,4 @@
-"""Patch-bag dataset for the serving CLIs (eval batches).
+"""Patch-bag dataset of the histopathology CLIs (train and eval batches).
 
 The port's own copy of ``multimodalbrainsurvival_tpu/data/patches.py:36-370``
 (reference ``1_HistoPathology/models.py:234-295`` ``PatchBagDataset``):
@@ -14,17 +14,26 @@ The port's own copy of ``multimodalbrainsurvival_tpu/data/patches.py:36-370``
 - patches are chunked into bags of ``bag_size``; the remainder is dropped
   unless ``keep_remainder``;
 - batches are statically shaped: the last one is padded and masked
-  (``sample_mask``), short bags are masked (``bag_mask``).
+  (``sample_mask``), short bags are masked (``bag_mask``);
+- training re-permutes each slide's patch list once per epoch
+  (``shuffle``, reference ``models.py:269-272``) from a numpy generator
+  seeded with ``seed``, and reads the bags in the order
+  ``np.random.default_rng(seed).shuffle`` gives (``batches(shuffle=True,
+  seed=...)``), the JAX package's order.
 
-Only numpy and the standard library are needed unless a bag must decode
-PNGs or resize shard rows. The C++ loader and the device cache of the JAX
-package come with later slices.
+Batches are read by a pool of threads in a producer thread that keeps at
+most ``prefetch`` batches ahead (``data/patches.py:284-350`` of the JAX
+package). Only numpy and the standard library are needed unless a bag must
+decode PNGs or resize shard rows. The C++ loader and the device cache of
+the JAX package come with a later slice (ROADMAP.md, queue 1, item 11).
 """
 
 from __future__ import annotations
 
 import csv
 import os
+import queue
+import threading
 from concurrent.futures import ThreadPoolExecutor
 from typing import Iterator
 
@@ -78,9 +87,11 @@ class PatchBagDataset:
         max_patches_total: int = 1000,
         *,
         keep_remainder: bool = False,
+        seed: int = 0,
     ):
         self.img_size = img_size
         self.bag_size = bag_size
+        self._rng = np.random.default_rng(seed)
         self.data: dict[str, dict] = {}
         self.index: list[tuple[str, int]] = []
 
@@ -109,6 +120,12 @@ class PatchBagDataset:
                 self.index.append((wsi, bag_size * k))
             if keep_remainder and len(images) % bag_size:
                 self.index.append((wsi, bag_size * n_bags))
+
+    def shuffle(self) -> None:
+        """Per-epoch re-permutation of each slide's patch list (reference
+        ``models.py:269-272``)."""
+        for entry in self.data.values():
+            self._rng.shuffle(entry["images"])
 
     def __len__(self) -> int:
         return len(self.index)
@@ -165,11 +182,69 @@ class PatchBagDataset:
                 batch[k][i] = it[k]
         return batch
 
-    def batches(self, batch_size: int, *, num_threads: int = 8) -> Iterator[dict]:
-        """Statically shaped uint8 bag batches in index order; each batch's
-        bags are read by a pool of ``num_threads`` threads."""
-        with ThreadPoolExecutor(max_workers=max(1, num_threads)) as pool:
-            for start in range(0, len(self.index), batch_size):
-                idx = range(start, min(start + batch_size, len(self.index)))
-                yield self._assemble(list(pool.map(self._load_bag, idx)),
-                                     batch_size)
+    def batches(
+        self,
+        batch_size: int,
+        *,
+        shuffle: bool = False,
+        seed: int | None = None,
+        num_threads: int = 8,
+        prefetch: int = 2,
+        skip_batches: int = 0,
+    ) -> Iterator[dict]:
+        """Statically shaped uint8 bag batches, in index order or, with
+        ``shuffle``, in the order ``np.random.default_rng(seed)`` gives;
+        the first ``skip_batches`` batches of that order are dropped
+        unread. A producer thread reads each batch's bags with a pool of
+        ``num_threads`` threads and keeps at most ``prefetch`` batches
+        ahead; it stops when the consumer closes the generator, and an
+        exception it raises is raised to the consumer."""
+        order = np.arange(len(self.index))
+        if shuffle:
+            np.random.default_rng(seed).shuffle(order)
+        starts = range(skip_batches * batch_size, len(order), batch_size)
+        q: queue.Queue = queue.Queue(maxsize=max(1, prefetch))
+        done = object()
+        stop = threading.Event()
+
+        def put(item) -> bool:
+            # a bounded put that gives up once the consumer is gone, so an
+            # abandoned generator does not keep the thread and its batches
+            while not stop.is_set():
+                try:
+                    q.put(item, timeout=0.2)
+                    return True
+                except queue.Full:
+                    continue
+            return False
+
+        def produce() -> None:
+            try:
+                with ThreadPoolExecutor(max_workers=max(1, num_threads)) as pool:
+                    for start in starts:
+                        items = list(pool.map(self._load_bag,
+                                              order[start:start + batch_size]))
+                        if not put(self._assemble(items, batch_size)):
+                            return
+                put(done)
+            except BaseException as e:  # noqa: BLE001 - raised to the consumer
+                put(e)
+
+        thread = threading.Thread(target=produce, daemon=True)
+        thread.start()
+        try:
+            while True:
+                item = q.get()
+                if item is done:
+                    return
+                if isinstance(item, BaseException):
+                    raise item
+                yield item
+        finally:
+            stop.set()
+            while not q.empty():  # free a producer blocked on a full queue
+                try:
+                    q.get_nowait()
+                except queue.Empty:
+                    break
+            thread.join(timeout=5)

@@ -14,6 +14,15 @@ with D split over a cluster, so W is read once by a full wave of blocks.
 ``attention_pool`` dispatches on the device of its input: a CPU tensor goes
 to ``attention_pool_plain``; a CUDA tensor launches the kernel or raises.
 ``attention_pool.launches`` counts kernel launches (one per call).
+
+The kernel's outputs carry no gradient. ``AttentionPool`` (an
+``autograd.Function``, called as ``pool``) runs ``attention_pool`` forward
+and the analytic backward ``attention_pool_backward``, the port of the JAX
+package's ``_pool_bwd`` (``tanh_attention.py:150-186`` at ``183b10c^``):
+stock jnp there and plain PyTorch here, every product in float32 with TF32
+off; it recomputes ``h = x Wᵀ`` instead of keeping kernel state.
+``attention_pool_backward.calls`` counts its calls; it launches no kernel of
+the port.
 """
 
 from __future__ import annotations
@@ -136,3 +145,64 @@ def attention_pool(x, weight, v, mask):
 
 
 attention_pool.launches = 0
+
+
+def attention_pool_backward(x, weight, v, mask, attn, g_out, g_attn):
+    """Gradients of ``attention_pool`` → ``(dx, dweight, dv)``.
+
+    ``attn`` is the forward's (B, bag) attention; ``g_out`` (B, D) and
+    ``g_attn`` (B, bag) the cotangents of its two outputs. With ``h = x
+    Wᵀ``, ``th = tanh(h)`` and ``vs = v ⊙ (1 - th²)``: ``g_w = g_out·x_t +
+    g_attn``, the masked-softmax backward ``dl = w ⊙ (g_w - Σ w g_w)``
+    (zero on pads), then ``dx = w g_out + dl (vs W)``, ``dW = (dl vs)ᵀ x``
+    (``nn.Linear`` layout, the transpose of the JAX package's ``dW``) and
+    ``dv = Σ dl th``. Float32 throughout, TF32 off; ``dx`` in ``x.dtype``,
+    ``dweight`` in ``weight.dtype``, ``dv`` in ``v.dtype``.
+    """
+    attention_pool_backward.calls += 1
+    allow_tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        x32, w32, v32 = x.float(), weight.float(), v.float()
+        B, bag, D = x.shape
+        th = torch.tanh(x32 @ w32.t())
+        vs = (1.0 - th * th) * v32
+        attn, g_out = attn.float(), g_out.float()
+        g_w = torch.einsum("bd,btd->bt", g_out, x32) + g_attn.float()
+        dl = attn * (g_w - (attn * g_w).sum(dim=1, keepdim=True))
+        dl = torch.where(mask, dl, torch.zeros_like(dl))
+        dlvs = dl[..., None] * vs
+        dx = dlvs @ w32 + attn[..., None] * g_out[:, None, :]
+        dweight = dlvs.reshape(B * bag, D).t() @ x32.reshape(B * bag, D)
+        dv = (dl[..., None] * th).sum(dim=(0, 1))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = allow_tf32
+    return dx.to(x.dtype), dweight.to(weight.dtype), dv.to(v.dtype)
+
+
+attention_pool_backward.calls = 0
+
+
+class AttentionPool(torch.autograd.Function):
+    """``attention_pool`` with a gradient: the kernel (or, on the CPU, its
+    plain version) forward, ``attention_pool_backward`` backward. Saves x,
+    weight, v, mask and the attention, not ``h``. The mask gets no
+    gradient. Autograd hands the backward a zero cotangent for an output
+    that took no part in the loss."""
+
+    @staticmethod
+    def forward(ctx, x, weight, v, mask):
+        out, attn = attention_pool(x, weight, v, mask)
+        ctx.save_for_backward(x, weight, v, mask, attn)
+        return out, attn
+
+    @staticmethod
+    def backward(ctx, g_out, g_attn):
+        x, weight, v, mask, attn = ctx.saved_tensors
+        dx, dweight, dv = attention_pool_backward(x, weight, v, mask, attn,
+                                                  g_out, g_attn)
+        return dx, dweight, dv, None
+
+
+#: ``attention_pool`` differentiable in x, weight and v, on both devices
+pool = AttentionPool.apply

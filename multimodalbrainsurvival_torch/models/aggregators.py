@@ -18,7 +18,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from multimodalbrainsurvival_torch.kernels.attention_pool import attention_pool
+from multimodalbrainsurvival_torch.kernels.attention_pool import pool
 from multimodalbrainsurvival_torch.models.mil import masked_bag_mean
 
 
@@ -43,6 +43,8 @@ class TanhAttention(nn.Module):
     Parameters ``linear.weight`` (D, D) and ``vector`` (D,) carry the
     reference's names. ``dtype`` is the dtype the projection reads its
     inputs in (bfloat16 in a bfloat16 model); products and sums are float32.
+    The casts to ``dtype`` are differentiable: the gradient reaches the
+    float32 features, ``linear.weight`` and ``vector``.
     """
 
     def __init__(self, dim: int = 2048, dtype: torch.dtype = torch.float32):
@@ -55,7 +57,7 @@ class TanhAttention(nn.Module):
         B, bag, _ = x.shape
         if mask is None:
             mask = torch.ones((B, bag), dtype=torch.bool, device=x.device)
-        return attention_pool(
+        return pool(
             x.to(self.dtype).contiguous(),
             self.linear.weight.to(self.dtype).contiguous(),
             self.vector,

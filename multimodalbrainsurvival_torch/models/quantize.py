@@ -1,8 +1,9 @@
 """int8 (W8A8) post-training quantization of the ResNet serving path.
 
-Counterpart of ``multimodalbrainsurvival_tpu/models/quantize.py:46-294,
-452-478`` (the serving part; the frozen-trunk training mode and the RNA MLP
-come with their slices, ROADMAP.md). The scheme is the JAX package's:
+Counterpart of ``multimodalbrainsurvival_tpu/models/quantize.py:46-365,
+452-478``: int8 serving and the int8 frozen trunk of training
+(``quantized_trunk``, ``quantize_trunk_for_training``; the RNA MLP comes
+with its slice, ROADMAP.md). The scheme is the JAX package's:
 
 - **weights**: symmetric int8 with a per-output-channel scale, from the
   BN-folded kernels (``models/folding.py``);
@@ -47,6 +48,7 @@ from multimodalbrainsurvival_torch.kernels.qmm_requant import (
     qconv_residual_requant,
     stem_requant_pool,
 )
+from multimodalbrainsurvival_torch.models.folding import fold_resnet_state_dict
 from multimodalbrainsurvival_torch.ops.image import preprocess_patches
 
 STAGE_SIZES = {
@@ -232,6 +234,48 @@ def quantized_extract(qtree: dict, x: torch.Tensor, *,
     y_q, s_in = quantized_stages(qtree, x, stages=len(STAGE_SIZES[arch]),
                                  arch=arch)
     return y_q.float().mean(dim=(1, 2)) * s_in
+
+
+def quantized_trunk(qtree: dict, x: torch.Tensor, *, stages: int,
+                    arch: str = "resnet50",
+                    dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """The int8 frozen prefix of ``quantize_trunk: "int8"`` training: the
+    stem and the first ``stages`` residual stages of (N, C, H, W) float
+    ``x`` through K3, dequantized to an (N, c, h, w) ``dtype`` feature map
+    in ``channels_last`` memory, from which ``ResNet.extract_tail`` goes
+    on. No gradient flows into it; the frozen stages' BatchNorm running
+    statistics no longer update (the JAX package's documented deviation:
+    the reference keeps updating them under the freeze)."""
+    with torch.no_grad():
+        y_q, s = quantized_stages(qtree, x, stages=stages, arch=arch)
+        y = (y_q.float() * s).to(dtype)
+    return y.permute(0, 3, 1, 2)
+
+
+@torch.inference_mode()
+def quantize_trunk_for_training(resnet: torch.nn.Module, patch_bags_u8, *,
+                                arch: str = "resnet50", augment: bool = True,
+                                seed: int = 0) -> dict:
+    """Fold, calibrate and quantize the ResNet of a model at training start
+    (JAX ``quantize_trunk_for_training``): its BatchNorms are folded with
+    their current running statistics, and the activation ranges are
+    calibrated on train-preprocessed pixels (float32; with ``augment``, the
+    flips and jitter drawn from a generator on the weights' device seeded
+    with ``seed``), so they cover what the trunk sees each step. Valid
+    because the frozen prefix never changes. Returns the qtree for
+    ``quantized_trunk``."""
+    state = fold_resnet_state_dict(
+        {k: v.float() for k, v in resnet.state_dict().items()})
+    device = state["conv1.weight"].device
+    generator = torch.Generator(device=device).manual_seed(seed) if augment else None
+    dicts = []
+    for bag in patch_bags_u8:
+        u8 = torch.from_numpy(np.asarray(bag)).to(device)
+        x = preprocess_patches(u8.reshape((-1,) + tuple(u8.shape[-3:])),
+                               dtype=torch.float32, train=augment,
+                               generator=generator)
+        dicts.append(float_extract_amax(state, x, arch=arch)[1])
+    return quantize_resnet(state, merge_amax(dicts), arch=arch)
 
 
 @torch.inference_mode()

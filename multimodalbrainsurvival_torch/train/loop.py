@@ -8,16 +8,21 @@ one loop for every model through its adapter (``train/adapters.py``):
 - ``train_step``: forward + backward + one optimizer step, with
   ``accumulate_steps`` interleaved microbatches ``i, i+k, …`` summed and
   divided by k (``loop.py:480-536``);
-- ``train_model``: per epoch the rows shuffled with ``seed + epoch`` (the
-  JAX package's batch order), train steps, train/val evals, the best model
-  by val loss from ``best_from_epoch`` on, early stopping, a full train
-  state for ``resume: true`` at each epoch boundary; then ``model_last``
-  and the last/best evals on every split with their
-  ``<split>_output_{last,best}.csv`` frames.
+- ``train_model``: per epoch the train dataset's ``shuffle()`` where it has
+  one (the patch lists inside each slide, reference ``models.py:269-272``),
+  the rows shuffled with ``seed + epoch`` (the JAX package's batch order),
+  train steps, train/val evals, the best model by val loss from
+  ``best_from_epoch`` on, early stopping, a full train state for ``resume:
+  true`` at each epoch boundary; then ``model_last`` and the last/best
+  evals on every split with their ``<split>_output_{last,best}.csv``
+  frames.
 
-Dropout seeds come from one ``torch.Generator`` seeded with
-``settings.seed``; its state is part of the saved train state, so a resumed
-run draws the seeds an uninterrupted run would.
+The random draws of training (the RNA MLP's dropout seeds, the patch
+models' flips and colour jitter) come from one ``torch.Generator`` on the
+adapter's ``generator_device``, seeded with ``settings.seed``; its state is
+part of the saved train state, and a resume replays the dataset's
+per-epoch shuffles, so a resumed run draws what an uninterrupted run
+would.
 
 The ``survival_prediction`` task is ported; ``survival_bin`` and
 ``classification`` raise ``NotImplementedError`` until their losses and
@@ -228,7 +233,7 @@ def train_model(adapter, datasets: dict, optimizer: TrainOptimizer,
     loss_fn, loss_keys = make_loss_fn(settings)
     keys = tuple(dict.fromkeys(adapter.array_keys + loss_keys))
     model = adapter.model
-    generator = torch.Generator().manual_seed(settings.seed)
+    generator = torch.Generator(device=adapter.generator_device).manual_seed(settings.seed)
     save_dir = settings.save_dir
     if save_dir:
         os.makedirs(save_dir, exist_ok=True)
@@ -245,11 +250,18 @@ def train_model(adapter, datasets: dict, optimizer: TrainOptimizer,
         start_epoch = meta["epoch"] + 1
         print(f"Resumed full train state from {state_path}: epoch {start_epoch}, "
               f"step {step}, best_val_loss {best_val_loss:.4f}")
+        # the dataset's in-slide permutations advance once per epoch: bring a
+        # freshly built dataset to where the uninterrupted run's would be
+        if hasattr(datasets["train"], "shuffle"):
+            for _ in range(start_epoch):
+                datasets["train"].shuffle()
 
     es_best, es_stale = float("inf"), 0
     for epoch in range(start_epoch, settings.num_epochs):
         print(f"Epoch {epoch}/{settings.num_epochs - 1}")
         print("-" * 10)
+        if hasattr(datasets["train"], "shuffle"):
+            datasets["train"].shuffle()
         running_loss = seen = last_running_loss = last_seen = 0.0
         pending: list = []
         t_last, steps_since_log = time.time(), 0

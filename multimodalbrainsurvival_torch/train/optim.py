@@ -7,6 +7,14 @@ coupled L2, not AdamW); the port uses it as it is, one parameter group per
 ``(name, prefix, lr)``. Parameters no group matches are frozen
 (``requires_grad=False``), as ``optax.set_to_zero`` freezes them there.
 
+``mil_freeze_ladder`` is the reference's layer-freezing ladder
+(``2_HistoPath_train.py:544-551``, JAX ``train/optim.py:182-190``): the
+first ``n_layers_to_train`` of ``fc, resnet.layer4, …, resnet.layer1,
+resnet.conv1``, plus the aggregator, train; everything else (``resnet.bn1``
+always) is frozen, and so gets no weight decay and no Adam state. Frozen
+stages still update their BatchNorm running statistics in train mode: the
+reference's quirk, which the JAX package keeps.
+
 ``wrap_optimizer`` adds the whole-model knobs around the groups, in the
 JAX package's order: ``grad_clip_norm`` clips the gradient of every
 parameter by one global norm before the groups' update
@@ -26,15 +34,25 @@ from torch import nn
 from torch.optim.lr_scheduler import LambdaLR
 
 
+MIL_LADDER = ("fc.", "resnet.layer4.", "resnet.layer3.", "resnet.layer2.",
+              "resnet.layer1.", "resnet.conv1.")
+
+
+def mil_freeze_ladder(n_layers_to_train: int) -> tuple[str, ...]:
+    """The trainable name prefixes of the MIL freeze ladder: the first ``n``
+    ladder entries and the aggregator."""
+    return MIL_LADDER[: max(0, int(n_layers_to_train))] + ("aggregator.",)
+
+
 def build_grouped_optimizer(
     model: nn.Module,
-    groups: Sequence[tuple[str, str, float]],
+    groups: Sequence[tuple[str, str | tuple[str, ...], float]],
     weight_decay: float = 0.0,
 ) -> torch.optim.Adam:
     """Adam over the parameters of ``model`` whose names start with a
-    group's prefix (the first matching group wins), each group at its own
-    LR, all with torch's coupled ``weight_decay``. Unmatched parameters are
-    frozen."""
+    group's prefix (or one of its prefixes; the first matching group wins),
+    each group at its own LR, all with torch's coupled ``weight_decay``.
+    Unmatched parameters are frozen."""
     params: dict[str, list] = {name: [] for name, _, _ in groups}
     for pname, p in model.named_parameters():
         group = next((name for name, prefix, _ in groups

@@ -15,6 +15,7 @@ import multimodalbrainsurvival_torch
 from multimodalbrainsurvival_torch.cli import (
     histo_extractfeatures,
     histo_savescore,
+    histo_train,
     rna_extractfeatures,
     rna_savescore,
     rna_train,
@@ -62,7 +63,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
 
 @pytest.mark.parametrize("main", [
     histo_savescore.main, histo_extractfeatures.main, rna_train.main,
-    rna_savescore.main, rna_extractfeatures.main,
+    rna_savescore.main, rna_extractfeatures.main, histo_train.main,
 ])
 def test_cli_without_card_raises_unless_cpu_asked(main, tmp_path, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

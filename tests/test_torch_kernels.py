@@ -14,7 +14,9 @@ from multimodalbrainsurvival_torch.models.resnet import Bottleneck
 
 from multimodalbrainsurvival_torch.kernels.attention_pool import (
     attention_pool,
+    attention_pool_backward,
     attention_pool_plain,
+    pool,
 )
 from multimodalbrainsurvival_torch.kernels.dropout_matmul import (
     DropoutMatmul,
@@ -127,6 +129,126 @@ def test_attention_pool_kernel_rejects_mixed_dtypes(cuda):
         attention_pool(x.to(torch.bfloat16), weight, v, mask)
     with pytest.raises(ValueError, match="contiguous"):
         attention_pool(x, weight.t(), v, mask)
+
+
+# K1's gradient: (B, bag, D, real patches per bag; None = all real)
+GRAD_SHAPES = {
+    "train_16x16x2048_padded": (16, 16, 2048, [16] + [10] + [0] + [16] * 13),
+    "padded_128x2x2048": (128, 2, 2048, [2, 1, 0] + [2] * 125),
+    # a bag of one patch: softmax weight 1, so dW = dv = 0 on both sides
+    "reference_128x1x2048": (128, 1, 2048, None),
+}
+# err / max|gradient| through K1 against autograd of the plain version
+GRAD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2**-7}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", sorted(GRAD_SHAPES))
+def test_attention_pool_function_gradients_match_plain_autograd(cuda, name, dtype):
+    """``AttentionPool`` (K1 forward, the analytic backward) against autograd
+    of the plain version on the card, with cotangents on both outputs: dx,
+    dW and dv within 1e-4 (float32) or 2**-7 (bfloat16) of each gradient's
+    scale; one K1 launch and one backward call; pads get no gradient."""
+    B, bag, D, lengths = GRAD_SHAPES[name]
+    g = torch.Generator(device="cpu").manual_seed(5)
+    x = torch.randn(B, bag, D, generator=g).relu()
+    weight = torch.randn(D, D, generator=g) / D**0.5
+    v = torch.randn(D, generator=g) * 0.05
+    mask = (torch.ones(B, bag, dtype=torch.bool) if lengths is None else
+            torch.arange(bag)[None, :] < torch.tensor(lengths)[:, None])
+    g_out, g_attn = torch.randn(B, D, generator=g), torch.randn(B, bag, generator=g)
+    x, weight, v, mask, g_out, g_attn = (t.to(cuda) for t in (x, weight, v, mask,
+                                                              g_out, g_attn))
+    x, weight = x.to(dtype), weight.to(dtype)
+    grads = {}
+    before = attention_pool.launches, attention_pool_backward.calls
+    for fn in (pool, attention_pool_plain):
+        leaves = [t.clone().requires_grad_() for t in (x, weight, v)]
+        torch.autograd.backward(fn(*leaves, mask), (g_out, g_attn))
+        grads[fn] = [t.grad for t in leaves]
+    torch.cuda.synchronize()
+    assert (attention_pool.launches, attention_pool_backward.calls) == \
+        (before[0] + 1, before[1] + 1)
+    for got, want in zip(grads[pool], grads[attention_pool_plain]):
+        assert got.dtype == want.dtype and got.shape == want.shape
+        scale = want.float().abs().max().item()
+        assert (got.float() - want.float()).abs().max().item() <= GRAD_TOL[dtype] * scale
+    assert not grads[pool][0][~mask].any()
+
+
+def _mil_train_step(device, seed=0):
+    """One train step (ResNet-18 + attention, float32, 32 px, freeze ladder
+    at 2, augmentation off) from seeded weights and bags; returns the
+    model with its gradients, and the loss."""
+    import numpy as np
+
+    from multimodalbrainsurvival_torch.cli._common import build_mil_model
+    from multimodalbrainsurvival_torch.config import Config
+    from multimodalbrainsurvival_torch.train import TrainSettings
+    from multimodalbrainsurvival_torch.train.adapters import MILAdapter
+    from multimodalbrainsurvival_torch.train.loop import make_loss_fn, train_step
+    from multimodalbrainsurvival_torch.train.optim import (
+        build_grouped_optimizer,
+        mil_freeze_ladder,
+        wrap_optimizer,
+    )
+
+    torch.manual_seed(seed)
+    cfg = Config({"model_name": "resnet18", "aggregator": "attention", "num_classes": 1})
+    model = build_mil_model(cfg)
+    with torch.no_grad():
+        model.aggregator.vector.normal_(0.0, 0.2)
+    model = model.to(device, memory_format=torch.channels_last)
+    adapter = MILAdapter(model=model, device=device, augment=False)
+    opt = wrap_optimizer(build_grouped_optimizer(
+        model, [("train", mil_freeze_ladder(2), 1e-4)]))
+    rng = np.random.default_rng(seed)
+    batch = {"patch_bag": rng.integers(0, 256, (4, 3, 32, 32, 3), np.uint8),
+             "bag_mask": np.array([[1, 1, 1], [1, 1, 0], [1, 1, 1], [0, 0, 0]], bool),
+             "sample_mask": np.array([1, 1, 1, 0], bool),
+             "survival_months": np.array([10.0, 20.0, 5.0, 0.0], np.float32),
+             "vital_status": np.array([1.0, 0.0, 1.0, 0.0], np.float32)}
+    settings = TrainSettings(task="survival_prediction", batch_size=4)
+    loss_fn, keys = make_loss_fn(settings)
+    arrays = adapter.to_device(batch, adapter.array_keys + keys)
+    loss = train_step(adapter, opt, loss_fn, arrays, settings,
+                      torch.Generator(device=device).manual_seed(seed))
+    return model, loss
+
+
+@pytest.mark.gpu
+def test_mil_train_step_on_the_card_sends_gradients_through_k1(cuda):
+    """A train step on ``cuda`` runs K1 forward and its backward, and the
+    gradient reaches the aggregator and the trainable ResNet stage (the
+    kernel's outputs alone carry none): every trainable gradient is there
+    and equals the same step's on the CPU within 1e-3 of its scale (cuDNN
+    and oneDNN sum in other orders), the frozen stages have none."""
+    before = attention_pool.launches, attention_pool_backward.calls
+    model, loss = _mil_train_step(cuda)
+    torch.cuda.synchronize()
+    assert attention_pool.launches == before[0] + 1
+    assert attention_pool_backward.calls == before[1] + 1
+    ref, ref_loss = _mil_train_step(torch.device("cpu"))
+    assert abs(loss.item() - ref_loss.item()) <= 1e-4 * max(1.0, abs(ref_loss.item()))
+    ref_params = dict(ref.named_parameters())
+    trainable = ("fc.", "aggregator.", "resnet.layer4.")
+    for name, p in model.named_parameters():
+        if not name.startswith(trainable):
+            assert p.grad is None and not p.requires_grad, name
+            continue
+        assert p.grad is not None, name
+        want = ref_params[name].grad
+        if name == "fc.bias":
+            # the Cox loss is blind to a shift of the scores: float32 noise
+            assert p.grad.abs().max().item() <= 1e-5, name
+            continue
+        scale = want.abs().max().item()
+        assert scale > 0, name
+        assert (p.grad.cpu() - want).abs().max().item() <= 1e-3 * scale, name
+    for name in ("aggregator.linear.weight", "aggregator.vector",
+                 "resnet.layer4.1.conv2.weight"):
+        assert model.get_parameter(name).grad.abs().sum() > 0, name
 
 
 # K3: products (M, K, N) and convs (batch, H, W, C, N, kernel, stride, pad)
