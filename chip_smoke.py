@@ -72,7 +72,24 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    and K1's share at ``n_layers_to_train`` 2 and 6;
 9. histo train reference: two float32 train steps of a small cohort
    (augmentation off, the whole network) on the card and on the CPU from
-   one seeded init; the val scores must agree.
+   one seeded init; the val scores must agree;
+10. histo tasks: the phase 8 configuration with ``task:
+   "classification"`` (2 classes, ``target_label: "label"``) and with
+   ``task: "survival_bin"`` (4 bins), each ``histo_train`` for 2 epochs
+   then ``histo_savescore`` on its model (class probabilities in [0, 1]
+   summing to 1; risks at most 0 and a finite C-index), and with
+   ``aggregator: "transformer"`` (2 layers, 8 heads, 2048 wide) then
+   ``histo_extractfeatures``; the counters set to 0 just before and read
+   just after each CLI (K1 runs on both tasks' paths, never on the
+   transformer's); then each one's train step at ``n_layers_to_train`` 2;
+11. tasks reference: two float32 train steps of each new task on the card
+   and on the CPU (as phase 9), and the transformer's float32 serving
+   scores on the card and on the CPU from one seeded model;
+12. preemption: ``histo_train`` of phase 8 in a process of its own, sent
+   SIGTERM after its first ``bags/s`` line, must exit 143 and leave
+   ``train_state.pt.preempt`` (the save's seconds and size are printed);
+   rerun with ``resume: true`` it must take that state up, finish, delete
+   it, and end with the weights of phase 8's uninterrupted run.
 
 The last lines are the ``kernels`` JSON line, the nvidia-smi line and
 ``{"ok": true, "device": {...}}``. Without a card, or without the rest of
@@ -87,9 +104,12 @@ import csv
 import json
 import math
 import os
+import re
+import signal
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -104,6 +124,7 @@ from multimodalbrainsurvival_torch.cli import (
     rna_train,
 )
 from multimodalbrainsurvival_torch.cli._common import (
+    PREEMPTED_EXIT_CODE,
     build_datasets,
     build_mil_model,
     load_mil_model,
@@ -151,6 +172,7 @@ from multimodalbrainsurvival_torch.kernels.qmm_requant import (
 from multimodalbrainsurvival_torch.models import quantize, serving
 from multimodalbrainsurvival_torch.models.resnet import Bottleneck
 from multimodalbrainsurvival_torch.models.rna import RNA_GENES
+from multimodalbrainsurvival_torch.ops.metrics import concordance_index
 from multimodalbrainsurvival_torch.train import TrainSettings
 from multimodalbrainsurvival_torch.train.adapters import MILAdapter, TableAdapter
 from multimodalbrainsurvival_torch.train.loop import make_loss_fn, train_step
@@ -249,6 +271,18 @@ HISTO_LR, HISTO_EPOCHS = 5e-4, 2
 # n_layers_to_train 2: 13 blocks x 3 convs + 3 downsamples through K3, the
 # last conv of each block in its residual form, one stem pass
 K3_TRUNK_PER_BATCH, K3_TRUNK_RESIDUAL_PER_BATCH = 42, 13
+# the histo tasks (phase 10): classification's classes, survival_bin's bins,
+# and the transformer aggregator at the JAX package's width
+TASK_CLASSES, TASK_BINS = 2, 4
+TASKS = {
+    "classification": {"task": "classification", "num_classes": TASK_CLASSES,
+                       "target_label": "label"},
+    "survival_bin": {"task": "survival_bin", "num_classes": TASK_BINS},
+    "transformer": {"aggregator": "transformer", "transformer_layers": 2,
+                    "task": "survival_prediction"},
+}
+# a preempted histo_train process (phase 12): its limits
+PREEMPT_TIMEOUT_S = 300
 COUNTERS = {"attention_pool": attention_pool, "qmm_requant": qmm_requant,
             "qconv_residual_requant": qconv_residual_requant,
             "stem_requant_pool": stem_requant_pool,
@@ -749,7 +783,9 @@ def make_cohort(root: str) -> tuple[str, int]:
     and the number of cases."""
     rng = np.random.default_rng(SEED)
     cases = ["c0", "c1", "c2", "c3", "c4", "c4", "c5", "c5"]
-    rows = ["case,survival_months,vital_status,wsi_file_name"]
+    # the classification label and the survival bin of a case follow its
+    # number, so every split holds both classes
+    rows = ["case,survival_months,vital_status,label,survival_bin,wsi_file_name"]
     for i in range(N_WSI):
         wsi = f"S{i}"
         d = os.path.join(root, "patches", wsi)
@@ -761,8 +797,9 @@ def make_cohort(root: str) -> tuple[str, int]:
         # written after loc.txt, so the shard is not stale
         np.save(os.path.join(d, "patches.npy"),
                 rng.integers(0, 256, (N_PATCH, IMG, IMG, 3), dtype=np.uint8))
+        case = int(cases[i][1:])
         rows.append(f"{cases[i]},{rng.uniform(1, 120):.4f},{int(rng.integers(0, 2))},"
-                    f"{wsi}.svs")
+                    f"{case % 2},{case % TASK_BINS},{wsi}.svs")
     csv_path = os.path.join(root, "cohort.csv")
     with open(csv_path, "w") as f:
         f.write("\n".join(rows) + "\n")
@@ -1418,6 +1455,44 @@ def check_rna_against_cpu(root: str) -> None:
         raise AssertionError(f"cuda scores {scores['cuda']} != cpu {scores['cpu']}")
 
 
+# the histo train path's batches: 8 slides x 64 patches in bags of 16, in
+# batches of 16 (train steps an epoch, and eval batches a split)
+HISTO_BATCHES = math.ceil(N_WSI * N_PATCH // BAG / B)
+
+
+def _k1_forwards(epochs: int) -> int:
+    """K1's forwards in a ``histo_train`` run with the attention pool: per
+    epoch the train steps, then the train and val evals; at the end the
+    last and the best model on the three splits."""
+    return epochs * 3 * HISTO_BATCHES + 6 * HISTO_BATCHES
+
+
+def _histo_train_keys(root: str, name: str) -> dict:
+    """The phase 8 training keys (reference Adam LR, ladder at 2, flips and
+    jitter on, a log line a step) with their own checkpoint directory."""
+    return dict(checkpoint_path=os.path.join(root, name), flag="histo_smoke",
+                lr=HISTO_LR, weight_decay=1e-4, n_layers_to_train=2, augment=True,
+                log_interval=1)
+
+
+def _run_counted(cli: str, main, cfg_path: str, expected: dict, smi: str) -> dict:
+    """Run a CLI with every launch counter set to 0 just before and read
+    just after; the counts must be ``expected`` (0 where not named)."""
+    expected = {name: expected.get(name, 0) for name in COUNT_NAMES}
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    main(["--config", cfg_path])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    print(f"histo train path {cli}: launches {counts} (expected {expected}); "
+          f"{wall:.2f} s wall clock [{smi}]")
+    if counts != expected:
+        raise AssertionError(f"{cli} launched {counts}, expected {expected}")
+    return {"launches": counts, "wall_s": wall}
+
+
 def _check_train_outputs(cfg: dict) -> None:
     """Every checkpoint and frame of a ``histo_train`` run present, the
     frames finite with one row per slide."""
@@ -1451,17 +1526,9 @@ def drive_histo_train_path(root: str, device: torch.device, smi: str,
     step's device time, idle share and K1's share at ``n_layers_to_train``
     2 and 6 (``k1_ms``: K1's forward and backward times from phase 3)."""
     csv_path = os.path.join(root, "cohort.csv")
-    n_bags = N_WSI * N_PATCH // BAG
-    steps = math.ceil(n_bags / B)       # train steps an epoch
-    split_batches = math.ceil(n_bags / B)
-    # per epoch: the train steps, then the train and val evals; at the end
-    # the last and the best model on the three splits
-    def k1_forwards(epochs):
-        return epochs * (steps + 2 * split_batches) + 6 * split_batches
-
-    train = dict(checkpoint_path=os.path.join(root, "histo_train_ckpt"),
-                 flag="histo_smoke", lr=HISTO_LR, weight_decay=1e-4,
-                 n_layers_to_train=2, augment=True, log_interval=1)
+    steps = split_batches = HISTO_BATCHES
+    k1_forwards = _k1_forwards
+    train = _histo_train_keys(root, "histo_train_ckpt")
     cfg, cfg_path = _config(root, csv_path, "histo_train", num_epochs=HISTO_EPOCHS,
                             **train)
     model_last = os.path.join(cfg["checkpoint_path"], "models", "histo_smoke",
@@ -1486,19 +1553,7 @@ def drive_histo_train_path(root: str, device: torch.device, smi: str,
           "qconv_residual_requant": K3_TRUNK_RESIDUAL_PER_BATCH * trunk_batches,
           "stem_requant_pool": trunk_batches}),
     ):
-        expected = {name: expected.get(name, 0) for name in COUNT_NAMES}
-        reset_counts()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        main(["--config", c_path])
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        counts = read_counts()
-        print(f"histo train path {cli}: launches {counts} (expected {expected}); "
-              f"{wall:.2f} s wall clock [{smi}]")
-        if counts != expected:
-            raise AssertionError(f"{cli} launched {counts}, expected {expected}")
-        by_cli[cli] = {"launches": counts, "wall_s": wall}
+        by_cli[cli] = _run_counted(cli, main, c_path, expected, smi)
     _check_train_outputs(cfg)
     _check_train_outputs(cfg8)
     for split in ("train", "val", "test"):
@@ -1525,7 +1580,9 @@ def check_histo_train_step(config: Config, device: torch.device, smi: str, n: in
     optimizer = wrap_optimizer(build_grouped_optimizer(
         model, [("train", mil_freeze_ladder(n), HISTO_LR)], 1e-4))
     settings = TrainSettings(batch_size=B)
-    loss_fn, keys = make_loss_fn(TrainSettings(task="survival_prediction"))
+    loss_fn, keys = make_loss_fn(TrainSettings(
+        task=config.task, num_classes=config.num_classes,
+        target_label=config.target_label))
     keys = adapter.array_keys + keys
     train = build_datasets(config, False)["train"]
     batches = train.batches(B, shuffle=True, seed=SEED, num_threads=8)
@@ -1554,47 +1611,258 @@ def check_histo_train_step(config: Config, device: torch.device, smi: str, n: in
     if not torch.isfinite(loss):
         raise AssertionError(f"histo train step loss {loss.item()}")
     launched = attention_pool.launches, attention_pool_backward.calls
-    profile = device_breakdown(step, step_ms, f"histo train step, n_layers_to_train {n}",
+    what = f"task {config.task}, aggregator {config.aggregator}"
+    profile = device_breakdown(step, step_ms,
+                               f"histo train step ({what}), n_layers_to_train {n}",
                                {"k1_softmax_pool": "softmax_pool_kernel"})
+    # the profile runs 4 steps: K1 and its backward once each with attention
+    per_step = 1 if config.aggregator == "attention" else 0
     if (attention_pool.launches - launched[0], attention_pool_backward.calls - launched[1]) \
-            != (4, 4):
-        raise AssertionError("the profiled train steps did not run K1 and its "
-                             "backward once a step")
-    k1 = k1_ms["forward"] + k1_ms["backward"]
+            != (4 * per_step, 4 * per_step):
+        raise AssertionError(f"the profiled train steps ran K1 and its backward other "
+                             f"than {per_step} time(s) a step")
+    k1 = per_step * (k1_ms["forward"] + k1_ms["backward"])
     idle = 1 - profile["device_busy_ms"] / step_ms
-    print(f"histo train step (ResNet-50, attention 2048, bf16, {B} bags x {BAG} "
+    print(f"histo train step (ResNet-50, {what} 2048, bf16, {B} bags x {BAG} "
           f"patches at {IMG} px, augmentation on, n_layers_to_train {n}): {step_ms:.3f} "
           f"ms on the card, peak memory {peak_gb:.2f} GB, the card idle {100 * idle:.1f}% "
           f"of the step; K1 forward {k1_ms['forward']:.4f} + backward "
           f"{k1_ms['backward']:.4f} ms (their own timing), {100 * k1 / step_ms:.2f}% "
           f"of the step [{smi}]")
     return {"step_ms": step_ms, "idle_share": idle, "peak_memory_gb": peak_gb,
-            "k1_forward_ms": k1_ms["forward"], "k1_backward_ms": k1_ms["backward"],
+            "k1_forward_ms": per_step * k1_ms["forward"],
+            "k1_backward_ms": per_step * k1_ms["backward"],
             "k1_share_of_step": k1 / step_ms, "profile": profile}
 
 
-def check_histo_train_against_cpu(root: str) -> None:
+def _task_init(root: str, name: str) -> str:
+    """Seeded weights (``random_state_dict``) of the model of ``TASKS[name]``
+    at the main path's widths, saved once; returns the ``.pt`` path."""
+    path = os.path.join(root, f"model_{name}.pt")
+    if not os.path.exists(path):
+        cfg, _ = _config(root, os.path.join(root, "cohort.csv"), f"init_{name}",
+                         **TASKS[name])
+        torch.save(random_state_dict(build_mil_model(Config(cfg)), SEED), path)
+    return path
+
+
+def _score_columns(path: str) -> np.ndarray:
+    """A frame's score columns (``score``, or ``score_0``, ``score_1``, …) as
+    a (rows, columns) array."""
+    with open(path) as f:
+        header = f.readline().strip().split(",")
+    cols = [c for c in header if c.startswith("score")]
+    return np.stack([np.array(_read_csv_column(path, c), float) for c in cols], axis=1)
+
+
+def check_histo_train_against_cpu(root: str, name: str = "survival_prediction",
+                                  **overrides) -> float:
     """Two train steps of a small float32 cohort (augmentation off, the
     whole network trained) on the card and on the CPU (plain versions)
-    from one seeded init: the val scores must agree."""
+    from one seeded init, with the task's ``overrides``: the val scores
+    must agree. Returns their largest difference."""
     csv_path = os.path.join(root, "cohort.csv")
+    init = _task_init(root, name) if overrides else os.path.join(root, "model.pt")
     scores = {}
     for dev in ("cuda", "cpu"):
-        name = f"histo_train_ref_{dev}"
+        run = f"histo_train_ref_{name}_{dev}"
         cfg, cfg_path = _config(
-            root, csv_path, name, compute_dtype="float32", batch_size=4,
+            root, csv_path, run, compute_dtype="float32", batch_size=4,
             train_bag_size=2, val_bag_size=2, max_patch_per_wsi_train=2,
             max_patch_per_wsi_val=2, num_epochs=1, lr=1e-5, augment=False,
-            n_layers_to_train=6, flag="ref", restore_path=os.path.join(root, "model.pt"),
-            checkpoint_path=os.path.join(root, name))
+            n_layers_to_train=6, flag="ref", model_path=init,
+            checkpoint_path=os.path.join(root, run), **overrides)
         histo_train.main(["--config", cfg_path, "--device", dev])
-        frame = os.path.join(cfg["checkpoint_path"], "outputs", "ref", "val_output_last.csv")
-        scores[dev] = np.array(_read_csv_column(frame, "score"), float)
+        scores[dev] = _score_columns(os.path.join(cfg["checkpoint_path"], "outputs", "ref",
+                                                  "val_output_last.csv"))
     diff = np.abs(scores["cuda"] - scores["cpu"]).max()
-    print(f"histo train reference: 2 float32 train steps, val scores cuda vs cpu "
-          f"max_abs_diff {diff:.3e} (scale {np.abs(scores['cpu']).max():.3e})")
+    print(f"histo train reference ({name}): 2 float32 train steps, val scores cuda vs "
+          f"cpu max_abs_diff {diff:.3e} (scale {np.abs(scores['cpu']).max():.3e})")
     if not np.allclose(scores["cuda"], scores["cpu"], rtol=1e-3, atol=1e-4):
         raise AssertionError(f"cuda scores {scores['cuda']} != cpu {scores['cpu']}")
+    return float(diff)
+
+
+def _check_task_frames(path: str, name: str, rows: int) -> dict:
+    """A frame of one of phase 10's runs: its header, ``rows`` rows, finite
+    scores; classification's probabilities in [0, 1] summing to 1,
+    survival_bin's risks at most 0 and their C-index finite."""
+    with open(path) as f:
+        header = f.readline().strip().split(",")
+    header = [h for h in header if h]  # the serving frames' unnamed index
+    want = (["id", "label"] + [f"score_{i}" for i in range(TASK_CLASSES)]
+            if name == "classification" else ["id", "score", "survival_months",
+                                              "vital_status"])
+    scores = _score_columns(path)
+    if header != want or scores.shape[0] != rows or not np.isfinite(scores).all():
+        raise AssertionError(f"{path}: bad frame {header} {scores.shape}")
+    if name == "classification":
+        if scores.min() < 0 or scores.max() > 1 or \
+                not np.allclose(scores.sum(axis=1), 1.0, rtol=0, atol=1e-6):
+            raise AssertionError(f"{path}: not probabilities {scores}")
+        return {}
+    if name == "survival_bin":
+        if scores.max() > 0:
+            raise AssertionError(f"{path}: a survival_bin risk above 0: {scores}")
+        months = np.array(_read_csv_column(path, "survival_months"), float)
+        status = np.array(_read_csv_column(path, "vital_status"), float)
+        ci = concordance_index(months, -scores[:, 0], status)
+        if not np.isfinite(ci):
+            raise AssertionError(f"{path}: C-index {ci}")
+        return {"ci": ci}
+    return {}
+
+
+def drive_histo_tasks(root: str, device: torch.device, smi: str,
+                      k1_ms: dict) -> tuple[dict, dict]:
+    """Phase 10: ``histo_train`` at phase 8's configuration with each of
+    ``TASKS`` for 2 epochs, then ``histo_savescore`` (the two tasks) or
+    ``histo_extractfeatures`` (the transformer) on its ``model_last.pt``,
+    the counters set to 0 just before and read just after each CLI; every
+    frame checked; then each one's train step at ``n_layers_to_train`` 2."""
+    csv_path = os.path.join(root, "cohort.csv")
+    n_cases = len(set(_read_csv_column(csv_path, "case")))
+    by_cli, steps_e2e = {}, {}
+    for name, keys in TASKS.items():
+        attention = keys.get("aggregator", "attention") == "attention"
+        cfg, cfg_path = _config(root, csv_path, f"task_{name}", num_epochs=HISTO_EPOCHS,
+                                model_path=_task_init(root, name),
+                                **_histo_train_keys(root, f"task_{name}_ckpt"), **keys)
+        model_last = os.path.join(cfg["checkpoint_path"], "models", "histo_smoke",
+                                  "model_last.pt")
+        out = os.path.join(root, f"task_{name}_serve")
+        _, serve_path = _config(root, csv_path, f"task_{name}_serve", model_path=model_last,
+                                output_path=out, **keys)
+        serve = histo_savescore if attention else histo_extractfeatures
+        train_expected = ({"attention_pool": _k1_forwards(HISTO_EPOCHS),
+                           "attention_pool_backward": HISTO_EPOCHS * HISTO_BATCHES}
+                          if attention else {})
+        serve_expected = {"attention_pool": 3 * HISTO_BATCHES} if attention else {}
+        by_cli[f"histo_train_{name}"] = _run_counted(
+            f"histo_train ({name})", histo_train.main, cfg_path, train_expected, smi)
+        serve_cli = f"{serve.__name__.rsplit('.', 1)[-1]}_{name}"
+        by_cli[serve_cli] = _run_counted(serve_cli, serve.main, serve_path,
+                                         serve_expected, smi)
+        # the train run's frames: per WSI, per case for survival_bin
+        rows = n_cases if name == "survival_bin" else N_WSI
+        metrics = {}
+        for split in ("train", "val", "test"):
+            for tag in ("last", "best"):
+                _check_task_frames(os.path.join(cfg["checkpoint_path"], "outputs",
+                                                "histo_smoke",
+                                                f"{split}_output_{tag}.csv"), name, rows)
+            if attention:
+                metrics[split] = _check_task_frames(
+                    os.path.join(out, f"model_last.pt_pathology_{split}_df.csv"), name,
+                    n_cases)
+            else:
+                feats = np.loadtxt(os.path.join(out, f"pathology_features_{split}.csv"),
+                                   delimiter=",")
+                if feats.shape != (n_cases, D) or not np.isfinite(feats).all():
+                    raise AssertionError(f"transformer features {feats.shape}")
+        print(f"histo task {name}: frames checked {metrics}")
+        steps_e2e[name] = {"n_layers_to_train_2": check_histo_train_step(
+            Config(cfg), device, smi, 2, k1_ms), "savescore": metrics}
+    return by_cli, {"histo_task_train_step": steps_e2e}
+
+
+def check_transformer_against_cpu(root: str) -> float:
+    """The transformer's float32 serving scores (eval mode: no dropout) on
+    the card and on the CPU from one seeded model; returns their largest
+    difference."""
+    csv_path = os.path.join(root, "cohort.csv")
+    keys = TASKS["transformer"]
+    model_path = _task_init(root, "transformer")
+    out = {}
+    for dev in ("cuda", "cpu"):
+        name = f"transformer_ref_{dev}"
+        cfg, cfg_path = _config(
+            root, csv_path, name, compute_dtype="float32", batch_size=4, val_bag_size=4,
+            train_bag_size=4, max_patch_per_wsi_train=4, max_patch_per_wsi_val=4,
+            model_path=model_path, output_path=os.path.join(root, name), **keys)
+        histo_savescore.main(["--config", cfg_path, "--device", dev])
+        out[dev] = _score_columns(os.path.join(cfg["output_path"],
+                                               "model_transformer.pt_pathology_val_df.csv"))
+    diff = np.abs(out["cuda"] - out["cpu"]).max()
+    print(f"transformer reference: float32 serving scores cuda vs cpu max_abs_diff "
+          f"{diff:.3e} (scale {np.abs(out['cpu']).max():.3e})")
+    if not np.allclose(out["cuda"], out["cpu"], rtol=1e-3, atol=1e-4):
+        raise AssertionError(f"cuda scores {out['cuda']} != cpu {out['cpu']}")
+    return float(diff)
+
+
+def _histo_train_process(cfg_path: str, sigterm_after_log: bool) -> tuple[int, str]:
+    """``histo_train`` on the card in a process of its own; with
+    ``sigterm_after_log`` it gets SIGTERM after its first ``bags/s`` line.
+    Returns its exit status and output; the process is ended in any case."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    proc = subprocess.Popen(
+        [sys.executable, "-u", "-m", "multimodalbrainsurvival_torch.cli.histo_train",
+         "--config", cfg_path], cwd=here, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)
+    watchdog = threading.Timer(PREEMPT_TIMEOUT_S, proc.kill)
+    watchdog.start()
+    lines = []
+    try:
+        for line in proc.stdout:
+            lines.append(line)
+            if sigterm_after_log and "bags/s" in line:
+                proc.send_signal(signal.SIGTERM)
+                sigterm_after_log = False
+        code = proc.wait()
+    finally:
+        watchdog.cancel()
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    return code, "".join(lines)
+
+
+def check_preemption(root: str, smi: str) -> dict:
+    """Phase 12: phase 8's ``histo_train`` in a process, sent SIGTERM after
+    its first log line, exits 143 and leaves ``train_state.pt.preempt``;
+    rerun with ``resume: true`` it takes that state up, finishes, deletes
+    it, and ends with phase 8's uninterrupted weights within the float32
+    card-vs-CPU tolerance (cuDNN's backward may sum in another order)."""
+    csv_path = os.path.join(root, "cohort.csv")
+    keys = _histo_train_keys(root, "preempt_ckpt")
+    cfg, cfg_path = _config(root, csv_path, "preempt", num_epochs=HISTO_EPOCHS, **keys)
+    save = os.path.join(cfg["checkpoint_path"], "models", "histo_smoke")
+    code, log = _histo_train_process(cfg_path, sigterm_after_log=True)
+    saved = re.search(r"PREEMPTED: saved full train state \(epoch (\d+), batch (\d+), "
+                      r"global step (\d+)\) to \S+ in (\S+) s \((\S+) MB\)", log)
+    if code != PREEMPTED_EXIT_CODE or not saved or \
+            not os.path.exists(os.path.join(save, "train_state.pt.preempt")):
+        raise AssertionError(f"preempted histo_train: exit {code}, log:\n{log[-3000:]}")
+    epoch, batch, step, save_s, state_mb = saved.groups()
+    _, resume_path = _config(root, csv_path, "preempt_resume", num_epochs=HISTO_EPOCHS,
+                             resume=True, **keys)
+    code, log2 = _histo_train_process(resume_path, sigterm_after_log=False)
+    if code != 0 or "train_state.pt.preempt: epoch" not in log2 or \
+            os.path.exists(os.path.join(save, "train_state.pt.preempt")):
+        raise AssertionError(f"resumed histo_train: exit {code}, log:\n{log2[-3000:]}")
+    want = torch.load(os.path.join(root, "histo_train_ckpt", "models", "histo_smoke",
+                                   "model_last.pt"), weights_only=True)
+    got = torch.load(os.path.join(save, "model_last.pt"), weights_only=True)
+    diff, differ = 0.0, 0
+    for k, v in want.items():
+        if not v.is_floating_point():
+            if not torch.equal(got[k], v):
+                raise AssertionError(f"{k}: {got[k]} != {v}")
+            continue
+        diff = max(diff, (got[k] - v).abs().max().item())
+        differ += int((got[k] != v).sum())
+        if not torch.allclose(got[k], v, rtol=1e-3, atol=1e-4):
+            raise AssertionError(f"resumed {k} differs from the uninterrupted run's by "
+                                 f"{(got[k] - v).abs().max().item():.3e}")
+    rec = {"epoch": int(epoch), "batch": int(batch), "step": int(step),
+           "save_s": float(save_s), "state_mb": float(state_mb),
+           "max_abs_diff": diff, "elements_differing": differ}
+    print(f"preemption: SIGTERM -> exit {PREEMPTED_EXIT_CODE}, state saved at epoch "
+          f"{epoch} batch {batch} (global step {step}) in {save_s} s, {state_mb} MB; "
+          f"resumed to the end, weights vs the uninterrupted run max_abs_diff {diff:.3e} "
+          f"({differ} elements differ) [{smi}]")
+    return rec
 
 
 def main() -> int:
@@ -1636,8 +1904,17 @@ def main() -> int:
         check_rna_against_cpu(root)
         train_launches, train_e2e = drive_histo_train_path(root, device, smi, k1_ms)
         check_histo_train_against_cpu(root)
+        task_launches, task_e2e = drive_histo_tasks(root, device, smi, k1_ms)
+        references = {name: check_histo_train_against_cpu(root, name, **TASKS[name])
+                      for name in ("classification", "survival_bin")}
+        references["transformer_serving"] = check_transformer_against_cpu(root)
+        preemption = check_preemption(root, smi)
     e2e.update(rna_e2e)
     e2e.update(train_e2e)
+    e2e.update(task_e2e)
+    e2e["task_references_max_abs_diff"] = references
+    e2e["preemption"] = preemption
+    train_launches.update(task_launches)
     for cli, rec in train_launches.items():
         launches[cli] = rec["launches"]
     k2_launches = {name: {cli: rec["launches"][name] for cli, rec in rna_launches.items()}

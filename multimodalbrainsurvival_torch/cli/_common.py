@@ -14,7 +14,11 @@ nothing, as the JAX ones do.
 
 Training runs keep the reference layout: checkpoints under
 ``<checkpoint_path>/models/<flag>/``, score frames under
-``<checkpoint_path>/outputs/<flag>/``.
+``<checkpoint_path>/outputs/<flag>/``. The train CLIs call ``train_model``
+through ``run_train``: a SIGTERM saves the full state to
+``train_state.pt.preempt`` and the CLI exits with status 143
+(``PREEMPTED_EXIT_CODE``); the same command with ``resume: true``
+continues exactly.
 """
 
 from __future__ import annotations
@@ -23,6 +27,7 @@ import argparse
 import datetime
 import itertools
 import os
+import sys
 
 import numpy as np
 import torch
@@ -41,6 +46,7 @@ from multimodalbrainsurvival_torch.models.quantize import (
     quantize_mil_resnet,
     quantize_trunk_for_training,
 )
+from multimodalbrainsurvival_torch.train import TrainingPreempted
 from multimodalbrainsurvival_torch.train.adapters import (
     MILAdapter,
     QuantizedMILAdapter,
@@ -125,6 +131,29 @@ def maybe_restore(model: torch.nn.Module, config: Config, keys: tuple[str, ...])
             print("Loaded model from checkpoint for finetuning")
 
 
+#: Exit status of a preempted train run (128 + SIGTERM, the shell's
+#: convention): a scheduler keyed on exit codes must not take an unfinished
+#: run for a finished one.
+PREEMPTED_EXIT_CODE = 143
+
+
+def run_train(train_model_fn, *args, **kwargs):
+    """``train_model_fn(*args, **kwargs)``, with a preemption turned into
+    an orderly exit with status ``PREEMPTED_EXIT_CODE`` (JAX
+    ``cli/_common.py:158-181``): the loop has already saved the full state,
+    and the writer, if any, is closed here, since the exit skips the
+    caller's own close."""
+    try:
+        return train_model_fn(*args, **kwargs)
+    except TrainingPreempted as e:
+        print(f"exiting after preemption (status {PREEMPTED_EXIT_CODE}): {e}",
+              flush=True)
+        writer = kwargs.get("writer")
+        if writer is not None:
+            writer.close()
+        sys.exit(PREEMPTED_EXIT_CODE)
+
+
 def tune_optimizer(optimizer: torch.optim.Optimizer, config: Config, n_train: int,
                    *, num_epochs: int, batch_size: int) -> TrainOptimizer:
     """The config's whole-model optimizer knobs around the groups
@@ -190,16 +219,18 @@ def quantize_mode(config: Config) -> str:
 
 def build_mil_model(config, fold_bn: bool = False) -> AggregationModel:
     """The config's MIL model: ResNet encoder (without its classifier) →
-    aggregator → ``num_classes`` head, in the config's ``compute_dtype``,
-    with its ``remat`` and ``freeze_bn`` training keys."""
+    aggregator (the transformer's MLP width ``aggregator_hdim`` and depth
+    ``transformer_layers``) → ``num_classes`` head, in the config's
+    ``compute_dtype``, with its ``remat`` and ``freeze_bn`` training keys."""
     dtype = compute_dtype(config.compute_dtype)
     resnet = RESNET_CONSTRUCTORS[config.model_name](
         num_classes=None, dtype=dtype, fold_bn=fold_bn,
         freeze_bn=bool(config.get("freeze_bn", False)),
         remat=config.get("remat", False) or False,
     )
-    aggregator = make_aggregator(config.aggregator, dim=resnet.feature_dim,
-                                 dtype=dtype)
+    aggregator = make_aggregator(
+        config.aggregator, dim=resnet.feature_dim, hdim=config.aggregator_hdim,
+        transformer_layers=int(config.get("transformer_layers", 2)), dtype=dtype)
     return AggregationModel(resnet, aggregator, out_features=config.num_classes)
 
 

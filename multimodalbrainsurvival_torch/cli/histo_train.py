@@ -1,9 +1,10 @@
 """Histopathology MIL training CLI, the flagship pipeline.
 
 Parity with ``1_HistoPathology/2_HistoPath_train.py`` and the JAX CLI
-``multimodalbrainsurvival_tpu/cli/histo_train.py``: Cox training of the MIL
-model (ResNet encoder → aggregator → head) under the reference's freeze
-ladder (``:544-551``: the first ``n_layers_to_train`` of ``fc, layer4, …,
+``multimodalbrainsurvival_tpu/cli/histo_train.py``: training of the MIL
+model (ResNet encoder → aggregator → head; ``task`` ``classification``,
+the default, ``survival_prediction`` or ``survival_bin``) under the
+reference's freeze ladder (``:544-551``: the first ``n_layers_to_train`` of ``fc, layer4, …,
 conv1`` plus the aggregator train, one Adam group at ``lr``), with the
 reference's train-time flips and colour jitter on the card (``augment``,
 default on), each slide's patches re-permuted every epoch, and the best
@@ -15,7 +16,10 @@ Writes ``<checkpoint_path>/models/<flag>/{model_last,model_dict_best,
 train_state}.pt`` and ``<checkpoint_path>/outputs/<flag>/<split>_output_
 {last,best}.csv``; with ``--log 1`` also ``<summary_path>/<date>_<flag>/
 metrics.jsonl``. ``histo_savescore`` and ``histo_extractfeatures`` serve
-the ``.pt`` files as they are.
+the ``.pt`` files as they are. A SIGTERM saves the full train state to
+``train_state.pt.preempt`` at the next step boundary and exits with status
+143 (``emergency_checkpoint: false`` turns this off); rerun with ``resume:
+true`` to continue exactly.
 
 Keys beside the reference's: ``pretrained_path`` (a local torch ``.pt`` of
 an ImageNet ResNet, read with ``pretrained: true``; nothing is downloaded),
@@ -44,6 +48,7 @@ from multimodalbrainsurvival_torch.cli._common import (
     make_writer,
     maybe_restore,
     quantize_trunk_training,
+    run_train,
     tune_optimizer,
 )
 from multimodalbrainsurvival_torch.device import resolve_device
@@ -99,6 +104,8 @@ def main(argv=None):
     settings = TrainSettings(
         num_epochs=config.num_epochs,
         task=config.task,
+        num_classes=config.num_classes,
+        target_label=config.target_label,
         batch_size=config.batch_size,
         save_dir=save_dir,
         output_dir=output_dir,
@@ -106,6 +113,7 @@ def main(argv=None):
         log_interval=config.log_interval,
         reference_parity=config.reference_parity,
         resume=bool(config.get("resume", False)),
+        emergency_checkpoint=bool(config.get("emergency_checkpoint", True)),
         accumulate_steps=int(config.get("accumulate_steps", 1)),
         # the histo script alone keeps no best model at epoch 0
         # (2_HistoPath_train.py:378 `and epoch > 0`)
@@ -124,7 +132,7 @@ def main(argv=None):
     )
     writer = make_writer(args.log, config, flag)
     try:
-        train_model(adapter, datasets, optimizer, settings, writer=writer)
+        run_train(train_model, adapter, datasets, optimizer, settings, writer=writer)
     finally:
         if writer is not None:
             writer.close()

@@ -12,7 +12,9 @@ mode both Dropout → Linear pairs run through the K2 kernels
 Writes ``<checkpoint_path>/models/<flag>/{model_last,model_dict_best,
 train_state}.pt`` and ``<checkpoint_path>/outputs/<flag>/<split>_output_
 {last,best}.csv``; with ``--log 1`` also ``<summary_path>/<date>_<flag>/
-metrics.jsonl``, the JAX CLI's tags and steps.
+metrics.jsonl``, the JAX CLI's tags and steps. A SIGTERM saves the full
+train state to ``train_state.pt.preempt`` and exits with status 143;
+``resume: true`` continues exactly.
 
 Usage: ``python -m multimodalbrainsurvival_torch.cli.rna_train --config
 cfg.json [--device cpu]``
@@ -30,6 +32,7 @@ from multimodalbrainsurvival_torch.cli._common import (
     make_writer,
     maybe_restore,
     quantize_mode,
+    run_train,
     tune_optimizer,
 )
 from multimodalbrainsurvival_torch.config import Config
@@ -103,6 +106,7 @@ def main(argv=None):
         log_interval=config.log_interval,
         reference_parity=config.reference_parity,
         resume=bool(config.get("resume", False)),
+        emergency_checkpoint=bool(config.get("emergency_checkpoint", True)),
         accumulate_steps=int(config.get("accumulate_steps", 1)),
         # parity: the reference weights the LOGGED running loss by the
         # batch's event count (1_GeneExpress_train.py:166-171)
@@ -115,7 +119,7 @@ def main(argv=None):
     )
     writer = make_writer(args.log, config, flag)
     try:
-        train_model(adapter, datasets, optimizer, settings, writer=writer)
+        run_train(train_model, adapter, datasets, optimizer, settings, writer=writer)
     finally:
         if writer is not None:
             writer.close()

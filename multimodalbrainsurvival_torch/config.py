@@ -5,12 +5,12 @@ only): the same known keys, and the typed accessors the ported paths read,
 with the same defaults.
 
 Keys of the JAX package that mean nothing here (XLA buffer donation,
-checkify, the JAX profiler, multi-host preemption consensus) are reported
-as ignored, as ``use_cuda`` is (the device comes from ``--device``), and so
-is ``emergency_checkpoint``: the port has no SIGTERM save yet (ROADMAP.md,
-item 10), so a run keeps only its epoch-boundary ``train_state.pt``. Keys
-that change results but whose path is not ported yet raise, with a pointer
-to ROADMAP.md, rather than being dropped silently.
+checkify, the JAX profiler, the compile cache) are reported as ignored, as
+``use_cuda`` is (the device comes from ``--device``), and so is
+``preempt_sync_every``, the multi-host preemption consensus (ROADMAP.md,
+queue 1, item 7). Keys that change results but whose path is not ported
+yet raise, with a pointer to ROADMAP.md, rather than being dropped
+silently.
 """
 
 from __future__ import annotations
@@ -53,11 +53,10 @@ KNOWN_KEYS = {
 }
 
 
-#: read by the JAX package only; no meaning (or, for emergency_checkpoint,
-#: no implementation yet) in the port
+#: read by the JAX package only; no meaning in the port (or, for
+#: preempt_sync_every, no multi-host run to give it one yet)
 IGNORED_KEYS = ("use_cuda", "donate_state", "debug_checkify", "profile_steps",
-                "profile_dir", "preempt_sync_every", "compile_cache_dir",
-                "emergency_checkpoint")
+                "profile_dir", "preempt_sync_every", "compile_cache_dir")
 
 
 @dataclass
@@ -128,8 +127,16 @@ class Config:
         return self.raw.get("task", "classification")
 
     @property
+    def target_label(self) -> str:
+        return self.raw.get("target_label", "vital_status")
+
+    @property
     def aggregator(self) -> str:
         return self.raw.get("aggregator", "identity")
+
+    @property
+    def aggregator_hdim(self) -> int:
+        return int(self.raw.get("aggregator_hdim", 2048))
 
     @property
     def n_layers_to_train(self) -> int:

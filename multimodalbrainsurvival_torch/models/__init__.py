@@ -1,9 +1,10 @@
-"""Models of the port: ResNet encoders, MIL aggregators and heads, the RNA
-MLP."""
+"""Models of the port: ResNet encoders (and the tanh projection on them),
+MIL aggregators and heads, the RNA MLP."""
 
 from multimodalbrainsurvival_torch.models.aggregators import (
     IdentityAggregator,
     TanhAttention,
+    TransformerAggregator,
     make_aggregator,
 )
 from multimodalbrainsurvival_torch.models.mil import (
@@ -11,7 +12,7 @@ from multimodalbrainsurvival_torch.models.mil import (
     AggregationProjectModel,
     masked_bag_mean,
 )
-from multimodalbrainsurvival_torch.models.resnet import RESNET_CONSTRUCTORS
+from multimodalbrainsurvival_torch.models.resnet import RESNET_CONSTRUCTORS, ResNetProject
 from multimodalbrainsurvival_torch.models.rna import RNAEncoder, RNAOnlyModel
 
 __all__ = [
@@ -21,7 +22,9 @@ __all__ = [
     "RESNET_CONSTRUCTORS",
     "RNAEncoder",
     "RNAOnlyModel",
+    "ResNetProject",
     "TanhAttention",
+    "TransformerAggregator",
     "make_aggregator",
     "masked_bag_mean",
 ]

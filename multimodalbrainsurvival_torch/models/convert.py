@@ -13,6 +13,20 @@ the JAX package's ``torch_mil_to_flax``
   ``layer{i}_{j}/downsample_{conv,bn}``      → ``layer{i}.{j}.downsample.{0,1}``
   Dense ``kernel`` (in, out)                 → ``weight`` (out, in)
   ``aggregator/linear/kernel``, ``vector``   → ``aggregator.linear.weight``, ``aggregator.vector``
+  ``project/{kernel,bias}`` (``ResNetProject``) → ``project.{weight,bias}``
+
+The transformer aggregator's tree (``TransformerAggregator``; the reference
+never defined one, so these names are the port's own):
+
+  ``aggregator/ln{1,2}_{i}/{scale,bias}``     → ``aggregator.layers.{i}.ln{1,2}.{weight,bias}``
+  ``aggregator/attn_{i}/{query,key,value}``   → ``aggregator.layers.{i}.attn.{q,k,v}``:
+      ``kernel`` (D, H, hd) → ``weight`` = ``reshape(D, H*hd).T``; ``bias`` (H, hd) flattened
+  ``aggregator/attn_{i}/out``                 → ``aggregator.layers.{i}.attn.o``:
+      ``kernel`` (H, hd, D) → ``weight`` = ``reshape(H*hd, D).T``
+  ``aggregator/mlp{1,2}_{i}/{kernel,bias}``   → ``aggregator.layers.{i}.mlp{1,2}.{weight,bias}``
+
+A LayerNorm ``scale`` becomes a ``weight`` with no ``num_batches_tracked``
+beside it (a BatchNorm's gets one), so the tree loads strictly.
 
 ``flax_folded_to_torch`` carries a folded tree across (the JAX package's
 ``models/folding.py::fold_resnet_variables`` output: each conv a ``kernel``
@@ -35,11 +49,16 @@ from __future__ import annotations
 
 from typing import Any, Mapping
 
+import re
+
 import numpy as np
 import torch
 
-_SCOPE_RENAMES = {"downsample_conv": "downsample.0", "downsample_bn": "downsample.1"}
+_SCOPE_RENAMES = {"downsample_conv": "downsample.0", "downsample_bn": "downsample.1",
+                  "query": "q", "key": "k", "value": "v", "out": "o"}
 _STAT_RENAMES = {"mean": "running_mean", "var": "running_var"}
+# the transformer aggregator's per-layer scopes: ln1_0 → layers.0.ln1
+_TRANSFORMER_SCOPE = re.compile(r"(ln1|ln2|attn|mlp1|mlp2)_(\d+)")
 
 
 def _torch_scope(path: tuple[str, ...]) -> str:
@@ -47,9 +66,23 @@ def _torch_scope(path: tuple[str, ...]) -> str:
     for p in path:
         if p.startswith("layer") and "_" in p:  # flax layer{i}_{j}
             parts.append(p.replace("_", "."))
+        elif m := _TRANSFORMER_SCOPE.fullmatch(p):
+            parts.append(f"layers.{m[2]}.{m[1]}")
         else:
             parts.append(_SCOPE_RENAMES.get(p, p))
     return ".".join(parts)
+
+
+def _torch_kernel(path: tuple[str, ...], value: np.ndarray) -> np.ndarray:
+    """A flax kernel → the torch weight: HWIO conv → OIHW; Dense (in, out)
+    → (out, in); an attention projection's 3-d kernel flattened over its
+    heads first (``out`` is (H, hd, D), the others (D, H, hd))."""
+    if value.ndim == 4:
+        return value.transpose(3, 2, 0, 1)
+    if value.ndim == 3:
+        shape = (-1, value.shape[-1]) if path[-2] == "out" else (value.shape[0], -1)
+        return value.reshape(shape).T
+    return value.T
 
 
 def _flatten(tree: Mapping[str, Any], path=()) -> list[tuple[tuple, Any]]:
@@ -65,18 +98,21 @@ def _flatten(tree: Mapping[str, Any], path=()) -> list[tuple[tuple, Any]]:
 def flax_mil_to_torch(params: Mapping, batch_stats: Mapping | None = None
                       ) -> dict[str, torch.Tensor]:
     """The JAX package's MIL variables (numpy leaves) → the port's
-    ``state_dict`` (``AggregationModel`` / ``AggregationProjectModel``)."""
+    ``state_dict`` (``AggregationModel`` / ``AggregationProjectModel``, with
+    any aggregator; or ``ResNetProject``)."""
     state: dict[str, torch.Tensor] = {}
     for path, value in _flatten(params):
         value = np.asarray(value)
         scope, leaf = _torch_scope(path[:-1]), path[-1]
         if leaf == "kernel":
-            # HWIO conv → OIHW; Dense (in, out) → (out, in)
-            value = value.transpose(3, 2, 0, 1) if value.ndim == 4 else value.T
+            value = _torch_kernel(path, value)
             leaf = "weight"
+        elif leaf == "bias" and value.ndim == 2:  # an attention projection's (H, hd)
+            value = value.reshape(-1)
         elif leaf == "scale":
             leaf = "weight"
-            state[f"{scope}.num_batches_tracked"] = torch.tensor(0)
+            if not _TRANSFORMER_SCOPE.fullmatch(path[-2]):  # a BatchNorm
+                state[f"{scope}.num_batches_tracked"] = torch.tensor(0)
         key = f"{scope}.{leaf}" if scope else leaf
         state[key] = torch.tensor(np.asarray(value, np.float32))
     for path, value in _flatten(batch_stats or {}):

@@ -54,12 +54,13 @@ class AggregationModel(nn.Module):
         """(B, bag, C, H, W) → ((B, D) bag embedding, (B, bag) attention)."""
         return self.extract_from_feats(self.patch_features(x), mask)
 
-    def extract_from_feats(self, feats, mask=None):
-        return self.aggregator(feats, mask)
+    def extract_from_feats(self, feats, mask=None, generator=None):
+        """``generator``: the aggregator's dropout draws in train mode."""
+        return self.aggregator(feats, mask, generator=generator)
 
-    def from_feats(self, feats, mask=None):
+    def from_feats(self, feats, mask=None, generator=None):
         """(B, bag, D) per-patch features → ((B, out) head, (B, bag))."""
-        pooled, attention = self.extract_from_feats(feats, mask)
+        pooled, attention = self.extract_from_feats(feats, mask, generator)
         return self.fc(pooled), attention
 
     def forward(self, x, mask=None):
@@ -76,6 +77,6 @@ class AggregationProjectModel(AggregationModel):
         self.project = nn.Linear(resnet.feature_dim, hdim)
         self.fc = nn.Linear(hdim, out_features)
 
-    def extract_from_feats(self, feats, mask=None):
-        pooled, attention = self.aggregator(feats, mask)
+    def extract_from_feats(self, feats, mask=None, generator=None):
+        pooled, attention = self.aggregator(feats, mask, generator=generator)
         return torch.tanh(self.project(pooled)), attention

@@ -33,6 +33,7 @@ MIL models serve a folded Bottleneck encoder through ``models/serving.py``
 (the fused-stage kernel for layer1 and layer2), not through ``extract``.
 ``extract_tail`` continues ``extract`` from the feature map after a number
 of stages: the seam of the int8 frozen trunk (``models/quantize.py``).
+``ResNetProject`` puts a tanh projection on the embedding.
 
 ``dtype=torch.bfloat16`` runs the encoder under autocast: convolutions in
 bfloat16, BatchNorm statistics and arithmetic in float32, as the JAX model's
@@ -244,6 +245,21 @@ class ResNet(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.fc(self.extract(x))
+
+
+class ResNetProject(nn.Module):
+    """ResNet embedding → ``project`` (Linear to ``hdim``) → tanh, the JAX
+    package's ``ResNetProject`` (``models/resnet.py:421-433``; reference
+    ``resnet.py:317-337``). Keys: ``resnet.*`` and ``project.{weight,
+    bias}``."""
+
+    def __init__(self, resnet: ResNet, hdim: int = 200):
+        super().__init__()
+        self.resnet = resnet
+        self.project = nn.Linear(resnet.feature_dim, hdim)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return torch.tanh(self.project(self.resnet.extract(x)))
 
 
 def resnet18(**kw) -> ResNet:

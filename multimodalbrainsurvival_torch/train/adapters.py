@@ -121,7 +121,7 @@ class MILAdapter:
               generator: torch.Generator | None = None) -> torch.Tensor:
         """(B, num_classes) float32 outputs. Train mode (BatchNorm on batch
         statistics) keeps the graph for the backward and draws the
-        augmentation from ``generator``."""
+        augmentation and the aggregator's dropout from ``generator``."""
         self.model.train(train)
         if train:
             return self._forward(arrays, True, generator)
@@ -131,7 +131,7 @@ class MILAdapter:
     def _forward(self, arrays, train, generator) -> torch.Tensor:
         out, _ = self.model.from_feats(
             self.patch_features(arrays, train=train, generator=generator),
-            arrays["bag_mask"])
+            arrays["bag_mask"], generator)
         return out.float()
 
     @torch.inference_mode()

@@ -1,10 +1,16 @@
 """Train and eval loop.
 
-Counterpart of ``multimodalbrainsurvival_tpu/train/loop.py:63-555,558-1179``,
+Counterpart of ``multimodalbrainsurvival_tpu/train/loop.py:45-555,558-1179``,
 one loop for every model through its adapter (``train/adapters.py``):
 
-- ``evaluate``: the mean batch loss, the C-index per WSI and per case, and
-  the reference's per-id score frame (``2_HistoPath_train.py:54-148``);
+- ``make_loss_fn``: the three tasks of ``2_HistoPath_train.py:561-566``:
+  ``survival_prediction`` (Cox partial likelihood), ``survival_bin`` (the
+  discrete-time NLL of ``ops/nll_surv.py`` on ``survival_bin`` with
+  censoring ``1 - vital_status``) and ``classification`` (the masked mean
+  of softmax cross-entropy over the integer labels in ``target_label``);
+- ``evaluate``: the mean batch loss, the task's metrics per WSI and per
+  case (the C-index; for ``classification`` accuracy, F1 and AUC) and the
+  reference's per-id score frames (``2_HistoPath_train.py:54-148``);
 - ``train_step``: forward + backward + one optimizer step, with
   ``accumulate_steps`` interleaved microbatches ``i, i+k, …`` summed and
   divided by k (``loop.py:480-536``);
@@ -15,21 +21,28 @@ one loop for every model through its adapter (``train/adapters.py``):
   ``best_from_epoch`` on, early stopping, a full train state for ``resume:
   true`` at each epoch boundary; then ``model_last`` and the last/best
   evals on every split with their ``<split>_output_{last,best}.csv``
-  frames.
+  frames, per WSI for ``survival_prediction`` and ``classification`` and
+  per case for ``survival_bin``, as the reference's train script keeps
+  them (``2_HistoPath_train.py:124-141``).
 
 The random draws of training (the RNA MLP's dropout seeds, the patch
-models' flips and colour jitter) come from one ``torch.Generator`` on the
-adapter's ``generator_device``, seeded with ``settings.seed``; its state is
-part of the saved train state, and a resume replays the dataset's
-per-epoch shuffles, so a resumed run draws what an uninterrupted run
-would.
+models' flips and colour jitter, the transformer aggregator's dropout) come
+from one ``torch.Generator`` on the adapter's ``generator_device``, seeded
+with ``settings.seed``; its state is part of the saved train state, and a
+resume replays the dataset's per-epoch shuffles, so a resumed run draws
+what an uninterrupted run would.
 
-The ``survival_prediction`` task is ported; ``survival_bin`` and
-``classification`` raise ``NotImplementedError`` until their losses and
-metrics are ported (ROADMAP.md, queue 1, item 1). The SIGTERM emergency save
-and mid-epoch resume are not ported (ROADMAP.md, item 10): ``train_model``
-says so on stderr when it starts, since a SIGTERM loses the work done since
-the last epoch boundary.
+Preemption (``loop.py:826-925`` of the JAX package, single process): with a
+``save_dir`` and ``emergency_checkpoint`` (default on), a SIGTERM handler,
+installed on the main thread for the run and then put back, sets a flag;
+at the next step boundary the loop drains the pending losses, saves the
+full state, the mid-epoch position ``meta.epoch_step`` and the epoch's
+running-loss accumulators included, to ``train_state.pt.preempt`` (beside
+``train_state.pt``, never over it), and raises ``TrainingPreempted``. A run
+with ``resume: true`` takes the newer of the two files; from a mid-epoch
+state it re-enters that epoch with the dataset's shuffles replayed and the
+consumed batches skipped. A finished run deletes the stale ``.preempt``.
+``preempt_after_steps`` acts as if the signal came at that global step.
 
 With a ``writer`` (``--log 1``, ``utils/logging.py``) the scalars are the
 JAX loop's, under its tags and steps: ``train/loss`` and
@@ -43,24 +56,45 @@ from __future__ import annotations
 import copy
 import dataclasses
 import os
-import sys
+import signal
+import threading
 import time
 from dataclasses import dataclass
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from multimodalbrainsurvival_torch.frames import write_frame
 from multimodalbrainsurvival_torch.ops import metrics as M
 from multimodalbrainsurvival_torch.ops.cox import cox_partial_likelihood_loss
+from multimodalbrainsurvival_torch.ops.nll_surv import nll_surv_loss
 from multimodalbrainsurvival_torch.train import checkpoint
 from multimodalbrainsurvival_torch.train.optim import TrainOptimizer
+
+
+class TrainingPreempted(RuntimeError):
+    """Raised after the emergency full-state save that a SIGTERM (or
+    ``preempt_after_steps``) asks for; ``resume: true`` continues the run
+    exactly from ``path``, at batch ``epoch_step`` of ``epoch``."""
+
+    def __init__(self, epoch: int, epoch_step: int, path: str):
+        super().__init__(
+            f"training preempted at epoch {epoch}, batch {epoch_step}; full "
+            f"train state saved to {path}; rerun with resume: true")
+        self.epoch = epoch
+        self.epoch_step = epoch_step
+        self.path = path
 
 
 @dataclass
 class TrainSettings:
     num_epochs: int = 10
     task: str = "survival_prediction"
+    # the head's width: survival_bin's bins, classification's classes
+    num_classes: int = 1
+    # classification's label column
+    target_label: str = "vital_status"
     batch_size: int = 128
     log_interval: int = 100
     save_dir: str | None = None
@@ -71,8 +105,14 @@ class TrainSettings:
     # reference script saves best from epoch 0 (1_GeneExpress_train.py:
     # 196-199); only the histo script skips epoch 0
     best_from_epoch: int = 0
-    # restore <save_dir>/train_state.pt and continue at the next epoch
+    # restore the newer of <save_dir>/train_state.pt and its .preempt
+    # sibling and continue where it stopped
     resume: bool = False
+    # SIGTERM → a full-state save at the next step boundary, then
+    # TrainingPreempted (needs save_dir)
+    emergency_checkpoint: bool = True
+    # act as if SIGTERM came once the global step reaches this (0 = never)
+    preempt_after_steps: int = 0
     # the LOGGED running loss is weighted by samples, or by the batch's
     # event count as the GeneExpress script does (1_GeneExpress_train.py:
     # 166-171); logging only
@@ -80,15 +120,17 @@ class TrainSettings:
     # k microbatches per optimizer step; batch_size % k == 0
     accumulate_steps: int = 1
     # stop once the val loss has not improved by more than min_delta for
-    # that many epochs (0 = never); counters restart on resume
+    # that many epochs (0 = never); the counters are part of the saved
+    # state, as of the last epoch boundary
     early_stop_patience: int = 0
     early_stop_min_delta: float = 0.0
 
 
 def make_loss_fn(settings: TrainSettings):
-    """``(loss_fn(out, arrays, mask), label keys)`` for the settings' task.
-    The serving CLIs score with the reference's Cox loss (the default
-    ``reference_parity=True``), as the JAX CLIs do."""
+    """``(loss_fn(out, arrays, mask), label keys)`` for the settings' task
+    (``loop.py:199-219`` of the JAX package). The serving CLIs score with
+    the reference's Cox loss (the default ``reference_parity=True``), as
+    the JAX CLIs do."""
     if settings.task == "survival_prediction":
 
         def loss_fn(out, arrays, mask):
@@ -101,11 +143,22 @@ def make_loss_fn(settings: TrainSettings):
             )
 
         return loss_fn, ("survival_months", "vital_status")
-    if settings.task in ("survival_bin", "classification"):
-        raise NotImplementedError(
-            f"task {settings.task!r} is not ported yet (ROADMAP.md, queue 1, "
-            "item 1)"
-        )
+    if settings.task == "survival_bin":
+
+        def loss_fn(out, arrays, mask):
+            censoring = 1.0 - arrays["vital_status"].float()
+            return nll_surv_loss(out, arrays["survival_bin"], censoring, mask=mask)
+
+        return loss_fn, ("survival_bin", "vital_status")
+    if settings.task == "classification":
+        label = settings.target_label
+
+        def loss_fn(out, arrays, mask):
+            ce = F.cross_entropy(out.float(), arrays[label].long(), reduction="none")
+            m = mask.float()
+            return (ce * m).sum() / torch.clamp(m.sum(), min=1.0)
+
+        return loss_fn, (label,)
     raise ValueError(f"Unknown task: {settings.task!r}")
 
 
@@ -117,10 +170,13 @@ def evaluate(adapter, dataset, settings: TrainSettings, *, split: str = "val",
     ``loss`` is the unweighted mean of the batch losses, as the reference's
     ``np.mean(loss_list)`` (``2_HistoPath_train.py:148``); the padded final
     batch gives the same per-batch loss as torch's ragged one. ``frames``
-    holds the score frame per level, ``"wsi"`` and ``"case"``.
+    holds the task's score frame per level, ``"wsi"`` and ``"case"``
+    (``default_frame`` picks the one a train run writes).
     """
     loss_fn, loss_keys = make_loss_fn(settings)
     keys = tuple(dict.fromkeys(adapter.array_keys + loss_keys))
+    label_keys = tuple(dict.fromkeys(
+        loss_keys + (settings.target_label, "survival_months", "vital_status")))
     outputs, losses, masks = [], [], []
     ids: dict[str, list] = {k: [] for k in adapter.id_keys}
     labels: dict[str, list] = {}
@@ -133,7 +189,7 @@ def evaluate(adapter, dataset, settings: TrainSettings, *, split: str = "val",
         masks.append(mask)
         for k in adapter.id_keys:
             ids[k].extend(v for v, m in zip(batch[k], mask) if m)
-        for k in loss_keys:
+        for k in label_keys:
             if k in batch:
                 labels.setdefault(k, []).extend(np.asarray(batch[k])[mask].tolist())
 
@@ -161,7 +217,18 @@ def evaluate(adapter, dataset, settings: TrainSettings, *, split: str = "val",
         if not ids.get(key):
             continue
         level = "wsi" if key == "WSI" else "case"
-        ci, frames[level] = M.survival_ci(outputs, ids[key], months, status)
+        if settings.task == "classification":
+            acc, f1, auc, frames[level] = M.classification_scores(
+                outputs, ids[key], np.array(labels[settings.target_label]))
+            metrics.update({f"{level}_acc": acc, f"{level}_f1": f1,
+                            f"{level}_auc": auc})
+            print(f"{split} {level}  | acc {acc:.3f} | f1 {f1:.3f} | auc {auc:.3f}")
+            continue
+        if settings.task == "survival_bin":
+            ci, frames[level] = M.nllsurv_ci(outputs, status, months, ids[key],
+                                             settings.num_classes)
+        else:
+            ci, frames[level] = M.survival_ci(outputs, ids[key], months, status)
         metrics[f"{level}_CI"] = ci
         print(f"{split} {level}  | CI {ci:.3f}")
     if writer is not None:
@@ -216,10 +283,13 @@ def _drain_losses(pending: list, running_loss: float, seen: float, epoch: int):
     return running_loss, seen
 
 
-def _score_frame(frames: dict):
-    """The frame a train run writes: per WSI where there is one, else per
-    case (``loop.py:430-432``)."""
-    return frames.get("wsi", next(iter(frames.values()), None))
+def default_frame(frames: dict, task: str):
+    """The frame a train run writes: per WSI for ``survival_prediction`` and
+    ``classification``, per case for ``survival_bin``, as the reference's
+    train script keeps them (``loop.py:386-433`` of the JAX package); the
+    other level where a dataset has one only."""
+    want = "case" if task == "survival_bin" else "wsi"
+    return frames.get(want, next(iter(frames.values()), None))
 
 
 def train_model(adapter, datasets: dict, optimizer: TrainOptimizer,
@@ -227,113 +297,218 @@ def train_model(adapter, datasets: dict, optimizer: TrainOptimizer,
     """Train ``adapter.model`` in place; returns the final frames and
     metrics (``<split>_output_{last,best}``, ``<split>_metrics_{last,best}``).
     The model ends holding the last weights. ``writer``: a
-    ``MetricWriter`` or None."""
-    print("train: no emergency checkpoint on SIGTERM (not ported); a SIGTERM "
-          "loses the work done since the last epoch boundary", file=sys.stderr)
+    ``MetricWriter`` or None. Raises ``TrainingPreempted`` after an
+    emergency save (module docstring)."""
     loss_fn, loss_keys = make_loss_fn(settings)
     keys = tuple(dict.fromkeys(adapter.array_keys + loss_keys))
     model = adapter.model
+    train_set = datasets["train"]
+    reshuffles = hasattr(train_set, "shuffle")
     generator = torch.Generator(device=adapter.generator_device).manual_seed(settings.seed)
     save_dir = settings.save_dir
     if save_dir:
         os.makedirs(save_dir, exist_ok=True)
     state_path = os.path.join(save_dir, "train_state.pt") if save_dir else None
+    preempt_path = f"{state_path}.preempt" if state_path else None
 
     best_val_loss, best_epoch, step, start_epoch = float("inf"), -1, 0, 0
-    if settings.resume and state_path and os.path.exists(state_path):
-        state = checkpoint.load(state_path)
+    # early stopping: the raw minimum val loss and the epochs since it, as
+    # of the last epoch boundary in the saved state
+    es_best, es_stale = float("inf"), 0
+    es_saved = (es_best, es_stale)
+    # (state_epoch, epoch_step) describe completed work: (-1, 0) nothing;
+    # (E, 0) epoch E done; (E, k > 0) k batches of epoch E done
+    state_epoch, epoch_step = -1, 0
+    # a mid-epoch resume: the epoch's shuffle() ran and its accumulators
+    # come with the state
+    mid_epoch = False
+    # the epoch's running-loss accumulators, and those of its last log line
+    running_loss = seen = last_running_loss = last_seen = 0.0
+    pending: list = []
+
+    def full_state() -> dict:
+        return {
+            "model": checkpoint.cpu_state_dict(model),
+            "optimizer": optimizer.state_dict(),
+            "generator": generator.get_state(),
+            "meta": {"epoch": state_epoch, "step": step, "epoch_step": epoch_step,
+                     "best_val_loss": best_val_loss, "best_epoch": best_epoch,
+                     "es_best": es_saved[0], "es_stale": es_saved[1],
+                     "running_loss": running_loss, "seen": seen,
+                     "last_running_loss": last_running_loss, "last_seen": last_seen},
+        }
+
+    # the newer of the boundary state and an emergency one
+    saved = [p for p in (state_path, preempt_path) if p and os.path.exists(p)]
+    restore_from = max(saved, key=os.path.getmtime) if settings.resume and saved else None
+    if restore_from:
+        state = checkpoint.load(restore_from)
         model.load_state_dict(state["model"])
         optimizer.load_state_dict(state["optimizer"])
         generator.set_state(state["generator"])
         meta = state["meta"]
         step, best_val_loss, best_epoch = meta["step"], meta["best_val_loss"], meta["best_epoch"]
-        start_epoch = meta["epoch"] + 1
-        print(f"Resumed full train state from {state_path}: epoch {start_epoch}, "
-              f"step {step}, best_val_loss {best_val_loss:.4f}")
+        es_best = meta.get("es_best", es_best)
+        es_stale = meta.get("es_stale", es_stale)
+        es_saved = (es_best, es_stale)
+        state_epoch, epoch_step = meta["epoch"], meta.get("epoch_step", 0)
+        mid_epoch = epoch_step > 0
+        if mid_epoch:
+            # re-enter that epoch, whose shuffle() already ran, skip the
+            # batches already consumed and carry its accumulators
+            start_epoch = state_epoch
+            shuffles_done = state_epoch + 1
+            running_loss, seen, last_running_loss, last_seen = (
+                meta[k] for k in ("running_loss", "seen", "last_running_loss",
+                                  "last_seen"))
+        else:
+            start_epoch = shuffles_done = state_epoch + 1
+        print(f"Resumed full train state from {restore_from}: epoch {start_epoch}"
+              + (f" (batch {epoch_step})" if mid_epoch else "")
+              + f", step {step}, best_val_loss {best_val_loss:.4f}")
         # the dataset's in-slide permutations advance once per epoch: bring a
-        # freshly built dataset to where the uninterrupted run's would be
-        if hasattr(datasets["train"], "shuffle"):
-            for _ in range(start_epoch):
-                datasets["train"].shuffle()
+        # freshly built dataset to where the interrupted run's was
+        if reshuffles:
+            for _ in range(shuffles_done):
+                train_set.shuffle()
 
-    es_best, es_stale = float("inf"), 0
-    for epoch in range(start_epoch, settings.num_epochs):
-        print(f"Epoch {epoch}/{settings.num_epochs - 1}")
-        print("-" * 10)
-        if hasattr(datasets["train"], "shuffle"):
-            datasets["train"].shuffle()
-        running_loss = seen = last_running_loss = last_seen = 0.0
-        pending: list = []
-        t_last, steps_since_log = time.time(), 0
-        for batch in datasets["train"].batches(
-            settings.batch_size, shuffle=True, seed=settings.seed + epoch,
-            **adapter.loader_kwargs,
-        ):
-            arrays = adapter.to_device(batch, keys)
-            mask = np.asarray(batch[adapter.sample_mask_key])
-            if settings.running_loss_weight == "events" and "vital_status" in batch:
-                weight = float((np.asarray(batch["vital_status"], np.float64) * mask).sum())
-            else:
-                weight = float(mask.sum())
-            loss = train_step(adapter, optimizer, loss_fn, arrays, settings, generator)
-            step += 1
-            steps_since_log += 1
-            # losses stay on the device until a log line or the epoch's end
-            pending.append((loss, weight, step))
-            if step % settings.log_interval == 0:
-                running_loss, seen = _drain_losses(pending, running_loss, seen, epoch)
-                # a windowed average since the last log line
-                # (2_HistoPath_train.py:346-358)
-                window = (running_loss - last_running_loss) / max(seen - last_seen, 1e-9)
-                last_running_loss, last_seen = running_loss, seen
-                speed = steps_since_log * settings.batch_size / (time.time() - t_last)
-                t_last, steps_since_log = time.time(), 0
-                print(f"train | epoch {epoch} | step {step} | loss {window:10.3f} "
-                      f"|{speed:10.3f} bags/s")
-                if writer is not None:
-                    writer.scalar("train/loss", window, step)
-                    writer.scalar("train/bags_per_s", speed, step)
-        running_loss, seen = _drain_losses(pending, running_loss, seen, epoch)
-        print(f"EPOCH Loss: {running_loss / max(seen, 1e-9):.4f}")
+    preempt_flag = threading.Event()
+    prev_handler, handler_installed = None, False
+    if save_dir and settings.emergency_checkpoint:
+        def on_sigterm(signum, frame):
+            preempt_flag.set()
+            print("preemption signal received: checkpointing at the next step "
+                  "boundary...", flush=True)
 
-        for split in ("train", "val"):
-            if split not in datasets:
-                continue
-            split_loss, _, _ = evaluate(adapter, datasets[split], settings, split=split,
-                                        writer=writer, epoch=epoch)
-            print(f"{split.upper()} Loss: {split_loss:.4f}")
-            if split != "val":
-                continue
-            if split_loss < es_best - settings.early_stop_min_delta:
-                es_best, es_stale = split_loss, 0
-            else:
-                es_stale += 1
-            if split_loss < best_val_loss and (
-                epoch >= settings.best_from_epoch or not settings.reference_parity
-            ):
-                best_epoch, best_val_loss = epoch, split_loss
-                if save_dir:
-                    checkpoint.save(os.path.join(save_dir, "model_dict_best.pt"),
-                                    checkpoint.cpu_state_dict(model))
-        if state_path:
-            checkpoint.save(state_path, {
-                "model": checkpoint.cpu_state_dict(model),
-                "optimizer": optimizer.state_dict(),
-                "generator": generator.get_state(),
-                "meta": {"epoch": epoch, "step": step, "best_val_loss": best_val_loss,
-                         "best_epoch": best_epoch},
-            })
-        if settings.early_stop_patience > 0 and es_stale >= settings.early_stop_patience:
-            print(f"Early stopping at epoch {epoch}: val loss has not improved by "
-                  f"> {settings.early_stop_min_delta:g} for {es_stale} epochs "
-                  f"(best {es_best:.4f})")
-            break
+        try:
+            prev_handler = signal.signal(signal.SIGTERM, on_sigterm)
+            handler_installed = True
+        except ValueError:
+            pass  # not the main thread: no signal-driven preemption
+
+    def maybe_preempt() -> None:
+        """Between steps: on a preemption request, save the full state to
+        the ``.preempt`` sibling and raise."""
+        nonlocal running_loss, seen
+        if not (save_dir and settings.emergency_checkpoint):
+            return
+        if not (preempt_flag.is_set() or (settings.preempt_after_steps
+                                          and step >= settings.preempt_after_steps)):
+            return
+        running_loss, seen = _drain_losses(pending, running_loss, seen, state_epoch)
+        t0 = time.perf_counter()
+        checkpoint.save(preempt_path, full_state())
+        print(f"PREEMPTED: saved full train state (epoch {state_epoch}, batch "
+              f"{epoch_step}, global step {step}) to {preempt_path} in "
+              f"{time.perf_counter() - t0:.3f} s "
+              f"({os.path.getsize(preempt_path) / 1e6:.1f} MB); rerun with "
+              "resume: true to continue exactly", flush=True)
+        raise TrainingPreempted(state_epoch, epoch_step, preempt_path)
+
+    try:
+        for epoch in range(start_epoch, settings.num_epochs):
+            # a request that came during the last epoch's evals saves here
+            maybe_preempt()
+            print(f"Epoch {epoch}/{settings.num_epochs - 1}")
+            print("-" * 10)
+            skip = epoch_step if mid_epoch else 0
+            if not mid_epoch:
+                if reshuffles:
+                    train_set.shuffle()
+                epoch_step = 0
+                running_loss = seen = last_running_loss = last_seen = 0.0
+            mid_epoch = False
+            pending = []
+            t_last, steps_since_log = time.time(), 0
+            batches = train_set.batches(
+                settings.batch_size, shuffle=True, seed=settings.seed + epoch,
+                skip_batches=skip, **adapter.loader_kwargs)
+            try:
+                for batch in batches:
+                    maybe_preempt()
+                    arrays = adapter.to_device(batch, keys)
+                    mask = np.asarray(batch[adapter.sample_mask_key])
+                    if settings.running_loss_weight == "events" and "vital_status" in batch:
+                        weight = float((np.asarray(batch["vital_status"], np.float64)
+                                        * mask).sum())
+                    else:
+                        weight = float(mask.sum())
+                    loss = train_step(adapter, optimizer, loss_fn, arrays, settings,
+                                      generator)
+                    step += 1
+                    epoch_step += 1
+                    state_epoch = epoch
+                    steps_since_log += 1
+                    # losses stay on the device until a log line or the epoch's end
+                    pending.append((loss, weight, step))
+                    if step % settings.log_interval == 0:
+                        running_loss, seen = _drain_losses(pending, running_loss, seen,
+                                                           epoch)
+                        # a windowed average since the last log line
+                        # (2_HistoPath_train.py:346-358)
+                        window = (running_loss - last_running_loss) / max(
+                            seen - last_seen, 1e-9)
+                        last_running_loss, last_seen = running_loss, seen
+                        speed = steps_since_log * settings.batch_size / (
+                            time.time() - t_last)
+                        t_last, steps_since_log = time.time(), 0
+                        print(f"train | epoch {epoch} | step {step} | loss "
+                              f"{window:10.3f} |{speed:10.3f} bags/s", flush=True)
+                        if writer is not None:
+                            writer.scalar("train/loss", window, step)
+                            writer.scalar("train/bags_per_s", speed, step)
+                    maybe_preempt()
+            finally:
+                # stops and joins the loader's producer thread, also when a
+                # preemption leaves the loop
+                batches.close()
+            running_loss, seen = _drain_losses(pending, running_loss, seen, epoch)
+            print(f"EPOCH Loss: {running_loss / max(seen, 1e-9):.4f}")
+
+            for split in ("train", "val"):
+                if split not in datasets:
+                    continue
+                split_loss, _, _ = evaluate(adapter, datasets[split], settings,
+                                            split=split, writer=writer, epoch=epoch)
+                print(f"{split.upper()} Loss: {split_loss:.4f}")
+                if split == "val":
+                    if split_loss < es_best - settings.early_stop_min_delta:
+                        es_best, es_stale = split_loss, 0
+                    else:
+                        es_stale += 1
+                    if split_loss < best_val_loss and (
+                        epoch >= settings.best_from_epoch or not settings.reference_parity
+                    ):
+                        best_epoch, best_val_loss = epoch, split_loss
+                        if save_dir:
+                            checkpoint.save(os.path.join(save_dir, "model_dict_best.pt"),
+                                            checkpoint.cpu_state_dict(model))
+                # the state is still (epoch, all its batches): a resume from
+                # here re-runs the epoch's evals and best-model bookkeeping
+                maybe_preempt()
+            state_epoch, epoch_step = epoch, 0
+            es_saved = (es_best, es_stale)
+            if state_path:
+                checkpoint.save(state_path, full_state())
+            if settings.early_stop_patience > 0 and es_stale >= settings.early_stop_patience:
+                print(f"Early stopping at epoch {epoch}: val loss has not improved by "
+                      f"> {settings.early_stop_min_delta:g} for {es_stale} epochs "
+                      f"(best {es_best:.4f})")
+                break
+    finally:
+        if handler_installed:
+            # None: the previous handler was not installed from Python
+            signal.signal(signal.SIGTERM,
+                          prev_handler if prev_handler is not None else signal.SIG_DFL)
 
     candidates = [("last", adapter)]
     best_path = os.path.join(save_dir, "model_dict_best.pt") if save_dir else None
     if save_dir:
         checkpoint.save(os.path.join(save_dir, "model_last.pt"),
                         checkpoint.cpu_state_dict(model))
+        # a finished run: an emergency state from before is stale
+        if os.path.exists(preempt_path):
+            os.remove(preempt_path)
     if best_path and os.path.exists(best_path):
         print(f"LOADING BEST MODEL, best epoch = {best_epoch}")
         best_model = copy.deepcopy(model)
@@ -350,7 +525,7 @@ def train_model(adapter, datasets: dict, optimizer: TrainOptimizer,
             _, frames, metrics = evaluate(
                 a, datasets[split], settings, split=split, writer=writer,
                 epoch=best_epoch if tag == "best" else settings.num_epochs - 1)
-            outputs[f"{split}_output_{tag}"] = _score_frame(frames)
+            outputs[f"{split}_output_{tag}"] = default_frame(frames, settings.task)
             outputs[f"{split}_metrics_{tag}"] = metrics
     if settings.output_dir:
         os.makedirs(settings.output_dir, exist_ok=True)

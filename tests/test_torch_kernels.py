@@ -177,10 +177,10 @@ def test_attention_pool_function_gradients_match_plain_autograd(cuda, name, dtyp
     assert not grads[pool][0][~mask].any()
 
 
-def _mil_train_step(device, seed=0):
+def _mil_train_step(device, seed=0, task="survival_prediction", num_classes=1):
     """One train step (ResNet-18 + attention, float32, 32 px, freeze ladder
-    at 2, augmentation off) from seeded weights and bags; returns the
-    model with its gradients, and the loss."""
+    at 2, augmentation off) of ``task`` from seeded weights and bags;
+    returns the model with its gradients, and the loss."""
     import numpy as np
 
     from multimodalbrainsurvival_torch.cli._common import build_mil_model
@@ -195,7 +195,8 @@ def _mil_train_step(device, seed=0):
     )
 
     torch.manual_seed(seed)
-    cfg = Config({"model_name": "resnet18", "aggregator": "attention", "num_classes": 1})
+    cfg = Config({"model_name": "resnet18", "aggregator": "attention",
+                  "num_classes": num_classes})
     model = build_mil_model(cfg)
     with torch.no_grad():
         model.aggregator.vector.normal_(0.0, 0.2)
@@ -208,8 +209,10 @@ def _mil_train_step(device, seed=0):
              "bag_mask": np.array([[1, 1, 1], [1, 1, 0], [1, 1, 1], [0, 0, 0]], bool),
              "sample_mask": np.array([1, 1, 1, 0], bool),
              "survival_months": np.array([10.0, 20.0, 5.0, 0.0], np.float32),
-             "vital_status": np.array([1.0, 0.0, 1.0, 0.0], np.float32)}
-    settings = TrainSettings(task="survival_prediction", batch_size=4)
+             "vital_status": np.array([1.0, 0.0, 1.0, 0.0], np.float32),
+             "label": np.array([1, 0, 0, 0], np.int32)}
+    settings = TrainSettings(task=task, num_classes=num_classes, target_label="label",
+                             batch_size=4)
     loss_fn, keys = make_loss_fn(settings)
     arrays = adapter.to_device(batch, adapter.array_keys + keys)
     loss = train_step(adapter, opt, loss_fn, arrays, settings,
@@ -249,6 +252,32 @@ def test_mil_train_step_on_the_card_sends_gradients_through_k1(cuda):
     for name in ("aggregator.linear.weight", "aggregator.vector",
                  "resnet.layer4.1.conv2.weight"):
         assert model.get_parameter(name).grad.abs().sum() > 0, name
+
+
+@pytest.mark.gpu
+def test_classification_train_step_on_the_card_sends_gradients_through_k1(cuda):
+    """The same with the ``classification`` task (two classes, softmax
+    cross-entropy): K1 forward and its backward run once, and every
+    trainable gradient, the head's bias too, equals the CPU's within 1e-3
+    of its scale; the frozen stages have none."""
+    before = attention_pool.launches, attention_pool_backward.calls
+    model, loss = _mil_train_step(cuda, task="classification", num_classes=2)
+    torch.cuda.synchronize()
+    assert attention_pool.launches == before[0] + 1
+    assert attention_pool_backward.calls == before[1] + 1
+    ref, ref_loss = _mil_train_step(torch.device("cpu"), task="classification",
+                                    num_classes=2)
+    assert abs(loss.item() - ref_loss.item()) <= 1e-4 * max(1.0, abs(ref_loss.item()))
+    ref_params = dict(ref.named_parameters())
+    trainable = ("fc.", "aggregator.", "resnet.layer4.")
+    for name, p in model.named_parameters():
+        if not name.startswith(trainable):
+            assert p.grad is None and not p.requires_grad, name
+            continue
+        want = ref_params[name].grad
+        scale = want.abs().max().item()
+        assert p.grad is not None and scale > 0, name
+        assert (p.grad.cpu() - want).abs().max().item() <= 1e-3 * scale, name
 
 
 # K3: products (M, K, N) and convs (batch, H, W, C, N, kernel, stride, pad)

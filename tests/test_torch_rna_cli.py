@@ -271,16 +271,20 @@ def test_resume_at_dropout_is_exact(cohort, tmp_path):
 
 
 def test_emergency_checkpoint_is_reported_ignored(cohort, tmp_path, capsys):
-    """The port has no SIGTERM save: the key is reported as ignored, and
-    training says on stderr what a SIGTERM loses."""
+    """``emergency_checkpoint`` is read now (the SIGTERM save,
+    ``tests/test_torch_preemption.py``): it is no longer reported as
+    ignored, and training no longer says that a SIGTERM loses the epoch's
+    work; the multi-host ``preempt_sync_every`` still is ignored."""
     from multimodalbrainsurvival_torch.config import Config
 
-    cfg = _config(cohort, tmp_path / "out", num_epochs=1, emergency_checkpoint=True)
-    assert Config(cfg).ignored_keys() == ["emergency_checkpoint"]
+    cfg = _config(cohort, tmp_path / "out", num_epochs=1, emergency_checkpoint=True,
+                  preempt_sync_every=8)
+    assert Config(cfg).ignored_keys() == ["preempt_sync_every"]
     rna_train.main(["--config", _write(tmp_path / "cfg.json", cfg), "--device", "cpu"])
     out, err = capsys.readouterr()
-    assert "ignoring keys with no meaning in the port: emergency_checkpoint" in out
-    assert "a SIGTERM loses the work done since the last epoch boundary" in err
+    assert "ignoring keys with no meaning in the port: preempt_sync_every\n" in out
+    assert "SIGTERM" not in err
+    assert not (tmp_path / "out/models/rna_model/train_state.pt.preempt").exists()
 
 
 def test_train_without_card_defaults_to_cuda_and_raises(cohort, tmp_path, monkeypatch):
