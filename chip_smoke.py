@@ -32,7 +32,15 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    the plain version at 16 x 16 x 2048 and 128 x 2 x 2048 (padded) and
    128 x 1 x 2048 (there dW = dv = 0: checked to be 0) in both dtypes
    within ``K1_GRAD_TOL``, forward + backward and the backward alone
-   timed beside the plain version's autograd;
+   timed beside the plain version's autograd; K2a's and K2b's bf16 forms
+   at the joint RNA encoder's shapes (batch 128: 12,778 -> 4,096 and
+   4,096 -> 2,048; K2a within ``K2A_BF16_TOL`` of the output's scale, K2b
+   single and paired bit for bit), timed beside ``torch.matmul`` /
+   ``torch.mul`` of the same bf16 operands, and K2a in float32 at the
+   early-fusion MLP's shapes (batch 256: 4,096 -> 2,048 -> 200 -> 1) and
+   the joint head's (128 x 4,096 -> 1); at each of these shapes
+   ``DropoutMatmul``'s gradients reach x and W and match autograd of the
+   plain version;
 4. main path: a synthetic cohort (8 slides x 64 patches at 224 px, packed
    shards, made from a seed) through the port's ``histo_savescore`` and
    ``histo_extractfeatures`` at ResNet-50 / attention 2048 / bfloat16 on
@@ -89,7 +97,35 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    SIGTERM after its first ``bags/s`` line, must exit 143 and leave
    ``train_state.pt.preempt`` (the save's seconds and size are printed);
    rerun with ``resume: true`` it must take that state up, finish, delete
-   it, and end with the weights of phase 8's uninterrupted run.
+   it, and end with the weights of phase 8's uninterrupted run;
+13. int8 RNA serving: phase 6's ``model_last.pt`` through ``rna_savescore``
+   and ``rna_extractfeatures`` with ``quantize: "int8"`` at batch 256 (the
+   test split 266 rows), no kernel of the port launched; the embeddings
+   against phase 6's float ones (per-sample cosine > ``INT8_COSINE``);
+   ``rna_extractfeatures`` again at batch 16, where every product is
+   padded past 16 rows for ``torch._int_mm`` (the dataset pads each batch
+   to the batch size, so at 256 none is), against the batch-256
+   embeddings; a batch of 10 rows on the card against the CPU (equal int8
+   weights, activations and int32 products), dense_0 and dense_1 timed
+   beside K2a and SGEMM;
+14. early fusion: a synthetic 4,096-feature cohort (train 1,024 / val 256
+   / test 256, from a seed) through ``feature_train`` (2 epochs, batch 256,
+   dropout 0.5, Adam at 1e-5, float32) and ``feature_savescore``, counted
+   (K2a 3 and K2b 1 + 2 pairs a step) and checked; one train step timed;
+15. joint fusion at the reference's joint scale (ResNet-50 and the RNA
+   encoder in bf16, 224 px, batch 128 x bags of 1, LRs 5e-5 / 1e-6 / 1e-2,
+   ``n_layers_to_train`` 2, augmentation on) on phase 4's slides with a
+   12,778-gene vector per case: ``joint_train`` for 2 epochs,
+   ``joint_savescore`` on its model in floating point, with ``fold_bn:
+   true`` (K4) and ``quantize: "int8"`` (K3 and the int8 RNA MLP), and
+   ``joint_train`` with ``quantize_trunk: "int8"`` for an epoch, each
+   counted (K2a and K2b, bf16 forms apart, on training; K3 on int8 and the
+   trunk; K4 on folded; K1 never) and its frames checked; the folded and
+   int8 embeddings against the float ones by cosine; one train step timed;
+16. fusion references: from one seeded init, two float32 dropout-free
+   train steps of a small joint cohort (augmentation off) and of a small
+   early-fusion cohort on the card and on the CPU; the val scores must
+   agree.
 
 The last lines are the ``kernels`` JSON line, the nvidia-smi line and
 ``{"ok": true, "device": {...}}``. Without a card, or without the rest of
@@ -101,6 +137,7 @@ from __future__ import annotations
 import contextlib
 import copy
 import csv
+import functools
 import json
 import math
 import os
@@ -116,9 +153,13 @@ import numpy as np
 import torch
 
 from multimodalbrainsurvival_torch.cli import (
+    feature_savescore,
+    feature_train,
     histo_extractfeatures,
     histo_savescore,
     histo_train,
+    joint_savescore,
+    joint_train,
     rna_extractfeatures,
     rna_savescore,
     rna_train,
@@ -133,7 +174,7 @@ from multimodalbrainsurvival_torch.cli._common import (
 )
 from multimodalbrainsurvival_torch.cli.rna_train import build_rna_model, build_rna_optimizer
 from multimodalbrainsurvival_torch.config import Config
-from multimodalbrainsurvival_torch.data import RNATableDataset
+from multimodalbrainsurvival_torch.data import FeatureTableDataset, RNATableDataset
 from multimodalbrainsurvival_torch.device import configure_precision
 from multimodalbrainsurvival_torch.kernels import build
 from multimodalbrainsurvival_torch.kernels.attention_pool import (
@@ -143,6 +184,7 @@ from multimodalbrainsurvival_torch.kernels.attention_pool import (
     pool,
 )
 from multimodalbrainsurvival_torch.kernels.dropout_matmul import (
+    DropoutMatmul,
     dropout_matmul,
     dropout_matmul_plain,
     keep_mask,
@@ -174,7 +216,11 @@ from multimodalbrainsurvival_torch.models.resnet import Bottleneck
 from multimodalbrainsurvival_torch.models.rna import RNA_GENES
 from multimodalbrainsurvival_torch.ops.metrics import concordance_index
 from multimodalbrainsurvival_torch.train import TrainSettings
-from multimodalbrainsurvival_torch.train.adapters import MILAdapter, TableAdapter
+from multimodalbrainsurvival_torch.train.adapters import (
+    JointAdapter,
+    MILAdapter,
+    TableAdapter,
+)
 from multimodalbrainsurvival_torch.train.loop import make_loss_fn, train_step
 from multimodalbrainsurvival_torch.train.optim import (
     build_grouped_optimizer,
@@ -291,19 +337,29 @@ COUNTERS = {"attention_pool": attention_pool, "qmm_requant": qmm_requant,
             "fused_bottleneck_stage": fused_bottleneck_stage}
 
 
+# the launches of K2a's and K2b's bf16 forms, counted beside the kernels'
+# own counters (which count both dtypes)
+BF16_COUNTERS = {"dropout_matmul_bf16": dropout_matmul,
+                 "seeded_dropout_bf16": seeded_dropout,
+                 "seeded_dropout_pair_bf16": seeded_dropout_pair}
+
+
 # what the launch counters read, and K1's backward calls (plain PyTorch, no
 # kernel of the port)
-COUNT_NAMES = (*COUNTERS, "attention_pool_backward")
+COUNT_NAMES = (*COUNTERS, *BF16_COUNTERS, "attention_pool_backward")
 
 
 def reset_counts() -> None:
     for fn in COUNTERS.values():
         fn.launches = 0
+    for fn in BF16_COUNTERS.values():
+        fn.bf16_launches = 0
     attention_pool_backward.calls = 0
 
 
 def read_counts() -> dict:
     return {**{name: fn.launches for name, fn in COUNTERS.items()},
+            **{name: fn.bf16_launches for name, fn in BF16_COUNTERS.items()},
             "attention_pool_backward": attention_pool_backward.calls}
 
 
@@ -1270,21 +1326,23 @@ def check_dropout_pair(device: torch.device, g: torch.Generator, scrub: torch.Te
     return rec
 
 
-def make_rna_cohort(root: str, sizes: dict, seed: int) -> dict:
+def make_rna_cohort(root: str, sizes: dict, seed: int, width: int = RNA_GENES,
+                    prefix: str = "rna_") -> dict:
     """Synthetic RNA CSVs (case, survival_months, vital_status, rna_0 …
-    rna_12777; standard-normal expression, one case per row) from ``seed``.
-    Returns each split's path."""
+    rna_12777; standard-normal expression, one case per row) from ``seed``;
+    with ``width`` and ``prefix`` the early-fusion feature tables
+    (``feature_0`` … ``feature_4095``). Returns each split's path."""
     rng = np.random.default_rng(seed)
     os.makedirs(root, exist_ok=True)
     header = "case,survival_months,vital_status," + ",".join(
-        f"rna_{i}" for i in range(RNA_GENES))
-    row = ",".join(["%.5g"] * RNA_GENES)
+        f"{prefix}{i}" for i in range(width))
+    row = ",".join(["%.5g"] * width)
     paths = {}
     for split, n in sizes.items():
-        x = rng.standard_normal((n, RNA_GENES), dtype=np.float32)
+        x = rng.standard_normal((n, width), dtype=np.float32)
         months = rng.uniform(1, 120, n)
         status = rng.integers(0, 2, n)
-        paths[split] = os.path.join(root, f"rna_{split}.csv")
+        paths[split] = os.path.join(root, f"{prefix}{split}.csv")
         with open(paths[split], "w") as f:
             f.write(header + "\n")
             for i in range(n):
@@ -1486,7 +1544,7 @@ def _run_counted(cli: str, main, cfg_path: str, expected: dict, smi: str) -> dic
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = read_counts()
-    print(f"histo train path {cli}: launches {counts} (expected {expected}); "
+    print(f"{cli}: launches {counts} (expected {expected}); "
           f"{wall:.2f} s wall clock [{smi}]")
     if counts != expected:
         raise AssertionError(f"{cli} launched {counts}, expected {expected}")
@@ -1865,6 +1923,571 @@ def check_preemption(root: str, smi: str) -> dict:
     return rec
 
 
+# --- fusion and int8 RNA (phases 3, 13-16) ---------------------------------------
+
+# the joint model (phase 15): ResNet-50 and the RNA encoder in bf16, 224 px,
+# batches of 128 bags of 1 patch (config_joint_train.json), its Adam LRs
+JOINT_BATCH, JOINT_EPOCHS = 128, 2
+JOINT_LRS = {"lr_histo": 5e-5, "lr_rna": 1e-6, "lr_mlp": 1e-2}
+# the joint path's batches an epoch and a split: 8 slides x 64 patches
+JOINT_BATCHES = math.ceil(N_WSI * N_PATCH / JOINT_BATCH)
+# K2a in bf16 at the joint RNA encoder's shapes (batch 128), in float32 at
+# the early-fusion MLP's (batch 256) and the joint head's: (where, M, K, N, p)
+K2_BF16_SHAPES = (("joint dense_0", JOINT_BATCH, RNA_GENES, 4096, 0.5),
+                  ("joint dense_1", JOINT_BATCH, 4096, 2048, 0.5))
+K2_FUSION_SHAPES = (("early dense_0", 256, 4096, 2048, 0.5),
+                    ("early dense_1", 256, 2048, 200, 0.5),
+                    ("early head", 256, 200, 1, 0.5),
+                    ("joint head", JOINT_BATCH, 4096, 1, 0.8))
+# K2a bf16 vs plain: the same bf16 operands, float32 sums in another order;
+# within 1e-4 of the output's scale (a kernel that rounded its output to
+# bf16 would miss it by 2**-9 / 1e-4 = 20x)
+K2A_BF16_TOL = 1e-4
+# DropoutMatmul's gradients vs autograd of the plain version, err / max(1,
+# max|plain|): float32 1e-4; bf16 2**-7 (the backward's products in bf16)
+K2_GRAD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2**-7}
+# the early-fusion path (phase 14): 4,096 features (histo + RNA embeddings),
+# batches of 256, 2 epochs, Adam at 1e-5, dropout 0.5
+EARLY_WIDTH, EARLY_BATCH, EARLY_EPOCHS = 4096, 256, 2
+EARLY_SPLITS = {"train": 1024, "val": 256, "test": 256}
+# per train step of either fused model: K2a once per Dropout -> Linear pair
+# (early: 3; joint: the encoder's 2 in bf16 and the head's in float32); K2b's
+# single form on the first layer's data input, its pair on every other
+# layer's g·W and x
+EARLY_K2 = {"dropout_matmul": 3, "seeded_dropout": 1, "seeded_dropout_pair": 2}
+JOINT_K2 = {"dropout_matmul": 3, "dropout_matmul_bf16": 2, "seeded_dropout": 1,
+            "seeded_dropout_bf16": 1, "seeded_dropout_pair": 2,
+            "seeded_dropout_pair_bf16": 1}
+
+
+def _k2_bounds(M, K, N, dtype) -> dict:
+    """K2a's least time: x and w read once, out (float32) written once,
+    against 2·M·K·N operations at the dtype's peak (bf16 tensor, float32
+    FMA)."""
+    size = torch.finfo(dtype).bits // 8
+    t_bytes = (size * (M * K + N * K) + 4 * M * N) / HBM_BYTES_PER_S * 1e3
+    t_ops = 2 * M * K * N / PEAK_FLOPS[dtype] * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def _grad_check(x, w, seed, p) -> float:
+    """DropoutMatmul's dx and dW against autograd of the plain version on
+    the card, err / max(1, max|plain|); raises if a gradient is zero."""
+    g = torch.randn(x.shape[0], w.shape[0], device=x.device,
+                    generator=torch.Generator(device=x.device).manual_seed(1))
+    tx, tw = x.clone().requires_grad_(), w.clone().requires_grad_()
+    DropoutMatmul.apply(tx, tw, seed, p).backward(g)
+    px, pw = x.clone().requires_grad_(), w.clone().requires_grad_()
+    dropout_matmul_plain(px, pw, seed, p).backward(g)
+    torch.cuda.synchronize()
+    err = 0.0
+    for got, want in ((tx.grad, px.grad), (tw.grad, pw.grad)):
+        if got.dtype != x.dtype or not got.abs().max().item() > 0:
+            raise AssertionError("DropoutMatmul's gradient did not reach x or W")
+        scale = max(1.0, want.float().abs().max().item())
+        err = max(err, (got.float() - want.float()).abs().max().item() / scale)
+    return err
+
+
+def check_dropout_matmul_fusion(device: torch.device, smi: str) -> dict:
+    """K2a and K2b in bf16 at the joint RNA encoder's shapes (K2a within
+    ``K2A_BF16_TOL`` of its plain version's scale, K2b single and paired bit
+    for bit), timed as phase 3 times (L2 scrubbed, behind the sleep kernel)
+    in turns with the plain version and ``torch.matmul`` / ``torch.mul`` of
+    the same bf16 operands; K2a in float32 at the early-fusion and joint head
+    shapes within ``K2A_TOL``, timed beside SGEMM; at every shape
+    ``DropoutMatmul``'s gradients against autograd of the plain version."""
+    g = torch.Generator(device="cpu").manual_seed(SEED + 5)
+    scrub = torch.empty(64 << 20, dtype=torch.uint8, device=device)
+    seed = 20240608
+    a_recs, b_recs, pair_recs, f32_recs = [], [], [], []
+    for where, M, K, N, p in K2_BF16_SHAPES + K2_FUSION_SHAPES:
+        bf16 = (where, M, K, N, p) in K2_BF16_SHAPES
+        dtype = torch.bfloat16 if bf16 else torch.float32
+        x = torch.randn(M, K, generator=g).to(device, dtype)
+        w = (torch.randn(N, K, generator=g) / math.sqrt(K)).to(device, dtype)
+        out = dropout_matmul(x, w, seed, p)
+        torch.cuda.synchronize()
+        want = dropout_matmul_plain(x, w, seed, p)
+        err = (out - want).abs().max().item()
+        scale = want.abs().max().item()
+        tol = K2A_BF16_TOL * scale if bf16 else K2A_TOL
+        grad_err = _grad_check(x, w, seed, p)
+        xm = seeded_dropout_plain(x, seed, p)
+        fns = {"k2a": lambda: dropout_matmul(x, w, seed, p),
+               "k2a_plain": lambda: dropout_matmul_plain(x, w, seed, p),
+               # yardstick only: the port never calls it
+               "k2a_library": lambda: torch.matmul(xm, w.t())}
+        kinds = ["k2a"]
+        if bf16:
+            b = torch.randn(M, K, generator=g).to(device, dtype)
+            single = seeded_dropout(x, seed, p)
+            pair = seeded_dropout_pair(x, b, seed, p)
+            torch.cuda.synchronize()
+            mismatches = int((single != xm).sum())
+            pair_mismatches = int((pair[0] != xm).sum()) + int(
+                (pair[1] != seeded_dropout_plain(b, seed, p)).sum())
+            mask = (keep_mask(M, K, seed, p, device).float() * float(keep_scale(p))
+                    ).to(dtype)
+            fns.update({
+                "k2b": lambda: seeded_dropout(x, seed, p),
+                "k2b_plain": lambda: seeded_dropout_plain(x, seed, p),
+                "k2b_library": lambda: torch.mul(x, mask),
+                "pair": lambda: seeded_dropout_pair(x, b, seed, p),
+                "pair_plain": lambda: seeded_dropout_pair_plain(x, b, seed, p),
+                "pair_library": lambda: (torch.mul(x, mask), torch.mul(b, mask)),
+            })
+            kinds += ["k2b", "pair"]
+        times = {name: [] for name in fns}
+        for kind in kinds:
+            for suffix in ("_plain", "", "_library", "_library", "", "_plain"):
+                times[kind + suffix].append(_time_ms(fns[kind + suffix], 25, scrub))
+        ms = {name: sum(t) / len(t) for name, t in times.items()}
+        a = {"where": where, "M": M, "K": K, "N": N, "p": p,
+             "dtype": str(dtype).removeprefix("torch."), "max_abs_err": err,
+             "scale": scale, "grad_err": grad_err, "ms": ms["k2a"],
+             "plain_ms": ms["k2a_plain"], "library_ms": ms["k2a_library"],
+             **_k2_bounds(M, K, N, dtype)}
+        print(f"dropout_matmul {json.dumps(a)} [{smi}]")
+        if not err <= tol:
+            raise AssertionError(f"dropout_matmul at {where} ({dtype}) disagrees with "
+                                 f"its plain version: {err} > {tol}")
+        if not grad_err <= K2_GRAD_TOL[dtype]:
+            raise AssertionError(f"DropoutMatmul's gradient at {where}: {grad_err}")
+        (a_recs if bf16 else f32_recs).append(a)
+        if bf16:
+            for kind, n_in, bad, recs in (("k2b", 1, mismatches, b_recs),
+                                          ("pair", 2, pair_mismatches, pair_recs)):
+                t_bytes = 2 * 2 * n_in * M * K / HBM_BYTES_PER_S * 1e3
+                t_ops = n_in * M * K / PEAK_FLOPS[torch.float32] * 1e3
+                rec = {"where": where, "M": M, "K": K, "mismatches": bad,
+                       "max_abs_err": 0.0 if not bad else float("nan"),
+                       "ms": ms[kind], "plain_ms": ms[f"{kind}_plain"],
+                       "library_ms": ms[f"{kind}_library"],
+                       "bound_ms": max(t_bytes, t_ops),
+                       "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+                print(f"seeded_dropout{'_pair' if kind == 'pair' else ''} bf16 "
+                      f"{json.dumps(rec)} [{smi}]")
+                if bad:
+                    raise AssertionError(f"seeded_dropout ({kind}, bf16) at {where}: "
+                                         f"{bad} values differ from the plain version")
+                recs.append(rec)
+        del x, w, out, want, xm
+
+    def total(recs):
+        return {"max_abs_err": max(r["max_abs_err"] for r in recs),
+                **{k: sum(r[k] for r in recs)
+                   for k in ("ms", "plain_ms", "library_ms", "bound_ms")},
+                "bound_by": max(recs, key=lambda r: r["bound_ms"])["bound_by"],
+                "shapes": recs}
+
+    return {"dropout_matmul_bf16": total(a_recs), "seeded_dropout_bf16": total(b_recs),
+            "seeded_dropout_pair_bf16": total(pair_recs),
+            "dropout_matmul_fusion_f32": total(f32_recs)}
+
+
+def drive_rna_int8(root: str, device: torch.device, smi: str, k2: dict) -> dict:
+    """Phase 13: phase 6's ``model_last.pt`` through ``rna_savescore`` and
+    ``rna_extractfeatures`` with ``quantize: "int8"`` at batch 256, the test
+    split ragged (its last batch 10 rows, padded to 256 by the dataset); no
+    kernel of the port runs (the int8 product is ``torch._int_mm``). The
+    embeddings against phase 6's float ones (per-sample cosine >
+    ``INT8_COSINE``); ``rna_extractfeatures`` at batch ``INT_MM_MIN_M``, so
+    that every product of the CLI takes ``int8_matmul``'s row padding,
+    against the batch-256 embeddings (per-row scales: a row's output does
+    not depend on its batch); one batch of 10 rows on the card against the
+    CPU (equal int8 weights, activations and int32 products), and dense_0
+    and dense_1 (one ``_int8_linear`` with its input's requant) timed beside
+    K2a's and SGEMM's phase 3 times."""
+    from multimodalbrainsurvival_torch.cli.rna_train import load_rna_model
+    from multimodalbrainsurvival_torch.models.quantize import (
+        INT_MM_MIN_M,
+        _int8_linear,
+        _requant_rows,
+        int8_matmul,
+        quantize_rna_encoder,
+        quantized_mlp,
+    )
+
+    paths = {split: os.path.join(root, "rna", f"rna_{split}.csv")
+             for split in ("train", "val")}
+    paths["test"] = make_rna_cohort(os.path.join(root, "rna_ragged"),
+                                    {"test": RNA_BATCH + 10}, SEED + 2)["test"]
+    cfg, cfg_path = _rna_config(root, paths, "rna_int8", quantize="int8",
+                                checkpoint_path=os.path.join(root, "rna_ckpt"))
+    by_cli = {}
+    for cli, main in (("rna_savescore_int8", rna_savescore.main),
+                      ("rna_extractfeatures_int8", rna_extractfeatures.main)):
+        by_cli[cli] = _run_counted(cli, main, cfg_path, {}, smi)
+    out, float_out = cfg["output_path"], os.path.join(root, "rna_serve")
+    cosines = {}
+    for split, n in (("train", RNA_SPLITS["train"]), ("val", RNA_SPLITS["val"]),
+                     ("test", RNA_BATCH + 10)):
+        scores = np.array(_read_csv_column(os.path.join(out, f"rna_{split}_df.csv"),
+                                           "score"), float)
+        feats = np.loadtxt(os.path.join(out, f"rna_features_{split}.csv"), delimiter=",")
+        if not (scores.shape == (n,) and np.isfinite(scores).all()
+                and feats.shape == (n, 2048) and np.isfinite(feats).all()):
+            raise AssertionError(f"int8 {split}: bad outputs {scores.shape} {feats.shape}")
+        if split != "test":
+            want = np.loadtxt(os.path.join(float_out, f"rna_features_{split}.csv"),
+                              delimiter=",")
+            cos = np.sum(feats * want, 1) / np.maximum(
+                np.linalg.norm(feats, axis=1) * np.linalg.norm(want, axis=1), 1e-30)
+            cosines[split] = float(cos.min())
+    print(f"int8 RNA serving: per-sample cosine to the float embeddings, min {cosines}")
+    if min(cosines.values()) <= INT8_COSINE:
+        raise AssertionError(f"int8 RNA embeddings: cosine {cosines} <= {INT8_COSINE}")
+    small, small_path = _rna_config(root, paths, "rna_int8_small", quantize="int8",
+                                    checkpoint_path=cfg["checkpoint_path"],
+                                    batch_size=INT_MM_MIN_M)
+    by_cli["rna_extractfeatures_int8_small"] = _run_counted(
+        "rna_extractfeatures_int8_small", rna_extractfeatures.main, small_path, {}, smi)
+    small_diff = 0.0
+    for split in ("train", "val", "test"):
+        name = f"rna_features_{split}.csv"
+        got = np.loadtxt(os.path.join(small["output_path"], name), delimiter=",")
+        want = np.loadtxt(os.path.join(out, name), delimiter=",")
+        if got.shape != want.shape:
+            raise AssertionError(f"int8 {split} at batch {INT_MM_MIN_M}: {got.shape}")
+        small_diff = max(small_diff, float(np.abs(got - want).max()))
+    print(f"int8 RNA extract at batch {INT_MM_MIN_M} (every product padded past "
+          f"{INT_MM_MIN_M} rows) against batch {RNA_BATCH}: max_abs_diff {small_diff:.3e}")
+    if small_diff > 1e-6:
+        raise AssertionError(f"int8 RNA at batch {INT_MM_MIN_M}: {small_diff}")
+
+    config = Config(cfg)
+    model = load_rna_model(config, device, RNA_GENES)
+    qtree = quantize_rna_encoder(model.rna_mlp)
+    qtree_cpu = quantize_rna_encoder(load_rna_model(config, torch.device("cpu"),
+                                                    RNA_GENES).rna_mlp)
+    if qtree["layers"][0]["k"].shape != (4096, RNA_GENES + -RNA_GENES % 8):
+        raise AssertionError("dense_0's int8 weight is not padded to a K multiple of 8")
+    for got, want in zip(qtree["layers"], qtree_cpu["layers"]):
+        if not all(torch.equal(got[k].cpu(), want[k]) for k in ("k", "ws", "b")):
+            raise AssertionError("the int8 RNA weights differ between card and CPU")
+    last = list(RNATableDataset(paths["test"]).batches(RNA_BATCH))[-1]
+    x = torch.from_numpy(last["data"][last["mask"]])
+    x_q, _ = _requant_rows(x)
+    x_q_card, _ = _requant_rows(x.to(device))
+    y32 = int8_matmul(x_q_card, qtree["layers"][0]["k"], 4096).cpu()
+    if not (torch.equal(x_q_card.cpu(), x_q) and torch.equal(
+            y32, int8_matmul(x_q, qtree_cpu["layers"][0]["k"], 4096))):
+        raise AssertionError("the int8 RNA batch's int32 products differ card vs CPU")
+    out_card = quantized_mlp(qtree, x.to(device)).cpu()
+    out_cpu = quantized_mlp(qtree_cpu, x)
+    diff = (out_card - out_cpu).abs().max().item()
+    print(f"int8 RNA batch of {x.shape[0]} rows: int32 products equal card vs CPU; "
+          f"outputs max_abs_diff {diff:.3e}")
+    if not torch.allclose(out_card, out_cpu, rtol=1e-6, atol=1e-6):
+        raise AssertionError(f"int8 RNA outputs card vs CPU differ by {diff}")
+
+    # dense_0 and dense_1 at batch 256: the requant of the layer's input, the
+    # int8 product and the epilogue
+    scrub = torch.empty(64 << 20, dtype=torch.uint8, device=device)
+    x = torch.randn(RNA_BATCH, RNA_GENES, device=device,
+                    generator=torch.Generator(device=device).manual_seed(SEED))
+    l0, l1 = qtree["layers"]
+
+    def layer(lp, y, relu):
+        return _int8_linear(lp, *_requant_rows(torch.relu(y) if relu else y))
+
+    with torch.inference_mode():
+        h = layer(l0, x, False)
+        times = {"dense_0": _time_ms(lambda: layer(l0, x, False), 25, scrub),
+                 "dense_1": _time_ms(lambda: layer(l1, h, True), 25, scrub)}
+    k2a = {r["where"]: r for r in k2["dropout_matmul"]["shapes"]}
+    layers = {}
+    for name, (K, N) in (("dense_0", (RNA_GENES, 4096)), ("dense_1", (4096, 2048))):
+        t_bytes = (4 * RNA_BATCH * K + N * K + 4 * RNA_BATCH * N) / HBM_BYTES_PER_S * 1e3
+        t_ops = 2 * RNA_BATCH * K * N / PEAK_INT8_OPS * 1e3
+        layers[name] = {"ms": times[name], "bound_ms": max(t_bytes, t_ops),
+                        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                        "k2a_ms": k2a[name]["ms"], "sgemm_ms": k2a[name]["library_ms"]}
+        print(f"int8 RNA {name} (batch {RNA_BATCH}; requant, torch._int_mm, epilogue): "
+              f"{times[name]:.4f} ms; bound {layers[name]['bound_ms']:.4f} ms "
+              f"({layers[name]['bound_by']}); K2a {k2a[name]['ms']:.4f} ms, SGEMM "
+              f"{k2a[name]['library_ms']:.4f} ms (phase 3) [{smi}]")
+    return {"launches": by_cli, "rna_int8_cosine_min": cosines,
+            "rna_int8_card_vs_cpu_max_abs_diff": diff,
+            "rna_int8_batch16_max_abs_diff": small_diff, "rna_int8_layers": layers}
+
+
+def _check_frames(path: str, rows: int, index: bool = False) -> np.ndarray:
+    """A score frame: its header, ``rows`` rows, finite scores."""
+    with open(path) as f:
+        header = f.readline().strip()
+    want = ("," if index else "") + "id,score,survival_months,vital_status"
+    scores = np.array(_read_csv_column(path, "score"), float)
+    if header != want or scores.shape != (rows,) or not np.isfinite(scores).all():
+        raise AssertionError(f"{path}: bad frame {header} {scores.shape}")
+    return scores
+
+
+def _train_step_profile(label: str, adapter, optimizer, arrays: dict, batch_size: int,
+                        k2a_ms: float, smi: str) -> dict:
+    """One train step's device time on a batch already on the card (CUDA
+    events, mean of 5 after 3 warm-up steps), its profile, the card's idle
+    share, and K2a's (its own phase-3 time, ``k2a_ms``; the profiler drops
+    some of its records) and K2b's (profiled) share of the step."""
+    settings = TrainSettings(batch_size=batch_size)
+    loss_fn, _ = make_loss_fn(settings)
+    generator = torch.Generator(device=adapter.generator_device).manual_seed(SEED)
+
+    def step():
+        return train_step(adapter, optimizer, loss_fn, arrays, settings, generator)
+
+    for _ in range(3):
+        step()
+    torch.cuda.reset_peak_memory_stats(adapter.device)
+    events = []
+    for _ in range(5):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        loss = step()
+        end.record()
+        events.append((start, end))
+    torch.cuda.synchronize()
+    step_ms = sum(s.elapsed_time(e) for s, e in events) / len(events)
+    peak_gb = torch.cuda.max_memory_allocated(adapter.device) / 1e9
+    if not torch.isfinite(loss):
+        raise AssertionError(f"{label} loss {loss.item()}")
+    profile = device_breakdown(step, step_ms, label,
+                               {"k2a": "::Dropout>", "k2b": "seeded_dropout_kernel"})
+    busy = profile["device_busy_ms"] - profile["k2a_ms"] + k2a_ms
+    share = (k2a_ms + profile["k2b_ms"]) / step_ms
+    print(f"{label}: {step_ms:.3f} ms on the card, peak memory {peak_gb:.2f} GB, the "
+          f"card idle {100 * (1 - busy / step_ms):.1f}% of it; K2a {k2a_ms:.4f} ms "
+          f"(its own timing) + K2b {profile['k2b_ms']:.4f} ms, {100 * share:.2f}% of the "
+          f"step [{smi}]")
+    return {"step_ms": step_ms, "peak_memory_gb": peak_gb, "idle_share": 1 - busy / step_ms,
+            "k2a_ms": k2a_ms, "k2b_ms": profile["k2b_ms"], "k2_share_of_step": share,
+            "profile": profile}
+
+
+def drive_early_fusion(root: str, device: torch.device, smi: str, k2: dict) -> tuple:
+    """Phase 14: a synthetic 4,096-feature cohort (train 1,024 / val 256 /
+    test 256, from a seed) through ``feature_train`` (2 epochs, batch 256,
+    dropout 0.5, Adam at 1e-5, float32) and ``feature_savescore`` on its
+    ``model_last.pt``, counted; the frames checked; one train step timed."""
+    paths = make_rna_cohort(os.path.join(root, "early"), EARLY_SPLITS, SEED + 3,
+                            width=EARLY_WIDTH, prefix="feature_")
+    ckpt = os.path.join(root, "early_ckpt")
+    cfg = {"batch_size": EARLY_BATCH, "num_epochs": EARLY_EPOCHS, "dropout": 0.5,
+           "lr": 1e-5, "weight_decay": 1e-5, "flag": "early_smoke",
+           "checkpoint_path": ckpt, "output_path": os.path.join(root, "early_serve"),
+           "model_path": os.path.join(ckpt, "models", "early_smoke", "model_last.pt"),
+           **{f"{split}_csv_path": path for split, path in paths.items()}}
+    cfg_path = os.path.join(root, "early.json")
+    with open(cfg_path, "w") as f:
+        json.dump(cfg, f)
+    steps = EARLY_EPOCHS * math.ceil(EARLY_SPLITS["train"] / EARLY_BATCH)
+    by_cli = {
+        "feature_train": _run_counted("feature_train", feature_train.main, cfg_path,
+                                      {k: n * steps for k, n in EARLY_K2.items()}, smi),
+        "feature_savescore": _run_counted("feature_savescore", feature_savescore.main,
+                                          cfg_path, {}, smi),
+    }
+    for split, n in EARLY_SPLITS.items():
+        for tag in ("last", "best"):
+            _check_frames(os.path.join(ckpt, "outputs", "early_smoke",
+                                       f"{split}_output_{tag}.csv"), n)
+        _check_frames(os.path.join(cfg["output_path"],
+                                   f"model_last.pt_feature_{split}_df.csv"), n, index=True)
+    config = Config(cfg)
+    torch.manual_seed(SEED)
+    model = feature_train.build_feature_model(config, EARLY_WIDTH).to(device)
+    adapter = TableAdapter(model=model, device=device)
+    optimizer = wrap_optimizer(build_grouped_optimizer(model, [("all", "", 1e-5)], 1e-5))
+    ds = FeatureTableDataset(paths["train"])
+    arrays = adapter.to_device(next(ds.batches(EARLY_BATCH, shuffle=True, seed=SEED)),
+                               adapter.array_keys + ("survival_months", "vital_status"))
+    k2a_ms = sum(r["ms"] for r in k2["dropout_matmul_fusion_f32"]["shapes"]
+                 if r["where"].startswith("early"))
+    step = _train_step_profile(f"early-fusion train step (batch {EARLY_BATCH}, 4,096 -> "
+                               "2,048 -> 200 -> 1, float32, dropout 0.5)", adapter,
+                               optimizer, arrays, EARLY_BATCH, k2a_ms, smi)
+    return by_cli, {"early_fusion_train_step": step}
+
+
+def make_joint_csv(root: str) -> str:
+    """The main path's cohort (phase 4) with a 12,778-gene RNA vector per
+    case from a seed, as the joint CLIs read it."""
+    rng = np.random.default_rng(SEED + 4)
+    with open(os.path.join(root, "cohort.csv")) as f:
+        lines = f.read().splitlines()
+    vectors: dict[str, np.ndarray] = {}
+    rows = [lines[0] + "," + ",".join(f"rna_{i}" for i in range(RNA_GENES))]
+    for line in lines[1:]:
+        case = line.split(",")[0]
+        if case not in vectors:
+            vectors[case] = rng.standard_normal(RNA_GENES, dtype=np.float32)
+        rows.append(line + "," + ",".join("%.5g" % v for v in vectors[case]))
+    path = os.path.join(root, "joint.csv")
+    with open(path, "w") as f:
+        f.write("\n".join(rows) + "\n")
+    return path
+
+
+def _joint_config(root: str, csv_path: str, name: str, **overrides) -> tuple[dict, str]:
+    """Phase 15's configuration: ResNet-50 and the RNA encoder in bf16, 224
+    px, batches of 128 bags of 1, the reference's joint LRs, the ladder at 2,
+    flips and jitter on."""
+    keys = {"batch_size": JOINT_BATCH, "train_bag_size": 1, "val_bag_size": 1,
+            "n_layers_to_train": 2, "augment": True, "flag": "joint_smoke",
+            "weight_decay": 1e-5, "log_interval": 1, "model_path": "",
+            "checkpoint_path": os.path.join(root, f"{name}_ckpt"), **JOINT_LRS}
+    return _config(root, csv_path, name, **{**keys, **overrides})
+
+
+def _joint_embeddings(configs: dict, device: torch.device) -> dict:
+    """The (B, 4096) embeddings of one val batch through each serving
+    adapter of ``configs`` (float, folded, int8)."""
+    out = {}
+    for mode, c in configs.items():
+        config = Config(c)
+        datasets = joint_train.build_joint_datasets(config, False)
+        build = functools.partial(joint_train.build_joint_model, in_features=RNA_GENES)
+        adapter = serving_adapter(config, device, datasets, build, JointAdapter)
+        batch = next(datasets["val"].batches(JOINT_BATCH, num_threads=8))
+        out[mode] = adapter.extract(adapter.to_device(batch, adapter.array_keys)
+                                    ).double().cpu()
+    return out
+
+
+def drive_joint_path(root: str, device: torch.device, smi: str, k2: dict) -> tuple:
+    """Phase 15: ``joint_train`` (2 epochs) on the main path's cohort with an
+    RNA vector per case, ``joint_savescore`` on its model in floating point,
+    with ``fold_bn: true`` and with ``quantize: "int8"``, then ``joint_train``
+    with ``quantize_trunk: "int8"`` for an epoch; each counted (K2a and K2b
+    on training, K3 on int8 and the trunk, K4 on folded, K1 never); the
+    frames checked; the folded and int8 embeddings against the float ones;
+    one train step timed."""
+    csv_path = make_joint_csv(root)
+    n_cases = len(set(_read_csv_column(csv_path, "case")))
+    cfg, cfg_path = _joint_config(root, csv_path, "joint", num_epochs=JOINT_EPOCHS)
+    model_last = os.path.join(cfg["checkpoint_path"], "models", "joint_smoke",
+                              "model_last.pt")
+    serve = {mode: _joint_config(root, csv_path, f"joint_serve_{mode}",
+                                 model_path=model_last,
+                                 output_path=os.path.join(root, f"joint_serve_{mode}"),
+                                 **keys)
+             for mode, keys in (("float", {}), ("folded", {"fold_bn": True}),
+                                ("int8", {"quantize": "int8"}))}
+    cfg8, cfg8_path = _joint_config(root, csv_path, "joint_int8", num_epochs=1,
+                                    quantize_trunk="int8")
+    steps = JOINT_BATCHES * JOINT_EPOCHS
+    serve_batches = 3 * JOINT_BATCHES
+    trunk_batches = JOINT_BATCHES * (1 + 2 + 6)  # train steps, 2 evals, 6 final evals
+    by_cli = {"joint_train": _run_counted(
+        "joint_train", joint_train.main, cfg_path,
+        {k: n * steps for k, n in JOINT_K2.items()}, smi)}
+    for mode, expected in (
+        ("float", {}),
+        ("folded", {"fused_bottleneck_stage": K4_LAUNCHES_PER_BATCH * serve_batches}),
+        ("int8", {"qmm_requant": K3_LAUNCHES_PER_BATCH * serve_batches,
+                  "qconv_residual_requant": K3_RESIDUAL_PER_BATCH * serve_batches,
+                  "stem_requant_pool": STEM_PER_BATCH * serve_batches}),
+    ):
+        by_cli[f"joint_savescore_{mode}"] = _run_counted(
+            f"joint_savescore_{mode}", joint_savescore.main, serve[mode][1], expected, smi)
+    by_cli["joint_train_int8_trunk"] = _run_counted(
+        "joint_train_int8_trunk", joint_train.main, cfg8_path,
+        {**{k: n * JOINT_BATCHES for k, n in JOINT_K2.items()},
+         "qmm_requant": K3_TRUNK_PER_BATCH * trunk_batches,
+         "qconv_residual_requant": K3_TRUNK_RESIDUAL_PER_BATCH * trunk_batches,
+         "stem_requant_pool": trunk_batches}, smi)
+    for c in (cfg, cfg8):
+        for split in ("train", "val", "test"):
+            for tag in ("last", "best"):
+                _check_frames(os.path.join(c["checkpoint_path"], "outputs", "joint_smoke",
+                                           f"{split}_output_{tag}.csv"), N_WSI)
+    for mode, (c, _) in serve.items():
+        for split in ("train", "val", "test"):
+            _check_frames(os.path.join(c["output_path"],
+                                       f"model_last.pt_joint_{split}_df.csv"), n_cases,
+                          index=True)
+    emb = _joint_embeddings({mode: c for mode, (c, _) in serve.items()}, device)
+    cosine = {}
+    for mode, floor in (("folded", FOLDED_COSINE), ("int8", INT8_COSINE)):
+        cos = torch.nn.functional.cosine_similarity(emb[mode], emb["float"], dim=1)
+        cosine[mode] = cos.min().item()
+        if not cosine[mode] >= floor:
+            raise AssertionError(f"joint {mode} embeddings: cosine {cosine[mode]} < {floor}")
+    print(f"joint serving: per-sample cosine of the 4,096-d embeddings to the float "
+          f"path, min {cosine}")
+
+    config = Config(cfg)
+    torch.manual_seed(SEED)
+    model = joint_train.build_joint_model(config, in_features=RNA_GENES).to(
+        device, memory_format=torch.channels_last)
+    adapter = JointAdapter(model=model, device=device, augment=True)
+    optimizer = wrap_optimizer(joint_train.build_joint_optimizer(model, config))
+    train = joint_train.build_joint_datasets(config, False)["train"]
+    batches = train.batches(JOINT_BATCH, shuffle=True, seed=SEED, num_threads=8)
+    try:
+        arrays = adapter.to_device(next(batches), adapter.array_keys
+                                   + ("survival_months", "vital_status"))
+    finally:
+        batches.close()
+    k2a_ms = k2["dropout_matmul_bf16"]["ms"] + sum(
+        r["ms"] for r in k2["dropout_matmul_fusion_f32"]["shapes"]
+        if r["where"] == "joint head")
+    step = _train_step_profile(
+        f"joint train step (ResNet-50 + RNA 12,778 -> 4,096 -> 2,048, bf16, "
+        f"{JOINT_BATCH} bags of 1 at {IMG} px, augmentation on, n_layers_to_train 2)",
+        adapter, optimizer, arrays, JOINT_BATCH, k2a_ms, smi)
+    return by_cli, {"joint_train_step": step, "joint_serving_cosine_min": cosine}
+
+
+def check_fusion_against_cpu(root: str) -> dict:
+    """Phase 16: from one seeded init, two float32 dropout-free train steps
+    on the card (K2a, K2b, cuDNN) and on the CPU (plain versions) of a small
+    joint cohort (augmentation off, the whole network) and of a small
+    early-fusion cohort: the val scores must agree."""
+    csv_path = os.path.join(root, "joint.csv")
+    init = os.path.join(root, "model_joint.pt")
+    cfg, _ = _joint_config(root, csv_path, "joint_init")
+    torch.save(random_state_dict(joint_train.build_joint_model(
+        Config(cfg), in_features=RNA_GENES), SEED), init)
+    paths = make_rna_cohort(os.path.join(root, "early_small"),
+                            {"train": 32, "val": 16, "test": 16}, SEED + 6,
+                            width=EARLY_WIDTH, prefix="feature_")
+    diffs = {}
+    for name in ("joint", "early"):
+        scores = {}
+        for dev in ("cuda", "cpu"):
+            run = f"{name}_ref_{dev}"
+            if name == "joint":
+                c, c_path = _joint_config(
+                    root, csv_path, run, compute_dtype="float32", batch_size=4,
+                    train_bag_size=2, val_bag_size=2, max_patch_per_wsi_train=2,
+                    max_patch_per_wsi_val=2, num_epochs=1, augment=False, dropout=0.0,
+                    n_layers_to_train=6, model_path=init, flag="ref",
+                    lr_histo=1e-5, lr_rna=1e-5, lr_mlp=1e-5)
+                joint_train.main(["--config", c_path, "--device", dev])
+            else:
+                c = {"batch_size": 16, "num_epochs": 1, "dropout": 0.0, "lr": 1e-5,
+                     "weight_decay": 1e-5, "flag": "ref",
+                     "checkpoint_path": os.path.join(root, run),
+                     **{f"{split}_csv_path": p for split, p in paths.items()}}
+                c_path = os.path.join(root, f"{run}.json")
+                with open(c_path, "w") as f:
+                    json.dump(c, f)
+                feature_train.main(["--config", c_path, "--device", dev])
+            scores[dev] = np.array(_read_csv_column(os.path.join(
+                c["checkpoint_path"], "outputs", "ref", "val_output_last.csv"), "score"),
+                float)
+        diffs[name] = float(np.abs(scores["cuda"] - scores["cpu"]).max())
+        print(f"{name} fusion reference: 2 float32 train steps, val scores cuda vs cpu "
+              f"max_abs_diff {diffs[name]:.3e} (scale {np.abs(scores['cpu']).max():.3e})")
+        if not np.allclose(scores["cuda"], scores["cpu"], rtol=1e-3, atol=1e-4):
+            raise AssertionError(f"{name}: cuda scores {scores['cuda']} != cpu "
+                                 f"{scores['cpu']}")
+    return diffs
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -1894,6 +2517,7 @@ def main() -> int:
     k3 = check_qmm_requant(device)
     k3_more = check_residual_and_stem(device)
     k2 = check_dropout_matmul(device)
+    k2f = check_dropout_matmul_fusion(device, smi)
     k4 = check_fused_stage(device)
 
     with tempfile.TemporaryDirectory() as root:
@@ -1909,24 +2533,46 @@ def main() -> int:
                       for name in ("classification", "survival_bin")}
         references["transformer_serving"] = check_transformer_against_cpu(root)
         preemption = check_preemption(root, smi)
+        rna_int8 = drive_rna_int8(root, device, smi, k2)
+        early_launches, early_e2e = drive_early_fusion(root, device, smi, k2f)
+        joint_launches, joint_e2e = drive_joint_path(root, device, smi, k2f)
+        fusion_references = check_fusion_against_cpu(root)
     e2e.update(rna_e2e)
     e2e.update(train_e2e)
     e2e.update(task_e2e)
     e2e["task_references_max_abs_diff"] = references
     e2e["preemption"] = preemption
+    e2e.update(early_e2e)
+    e2e.update(joint_e2e)
+    e2e.update({k: v for k, v in rna_int8.items() if k != "launches"})
+    e2e["fusion_references_max_abs_diff"] = fusion_references
     train_launches.update(task_launches)
+    fusion_runs = {**rna_int8["launches"], **early_launches, **joint_launches}
+    train_launches.update(fusion_runs)
     for cli, rec in train_launches.items():
         launches[cli] = rec["launches"]
-    k2_launches = {name: {cli: rec["launches"][name] for cli, rec in rna_launches.items()}
-                   for name in ("dropout_matmul", "seeded_dropout", "seeded_dropout_pair")}
+    k2_runs = {**rna_launches, **fusion_runs}
+    k2_names = ("dropout_matmul", "seeded_dropout", "seeded_dropout_pair")
+    # each K2 counter counts both dtypes: its float32 form's launches are the
+    # rest after the bf16 form's
+    k2_launches = {name: {cli: rec["launches"][name] - rec["launches"].get(f"{name}_bf16", 0)
+                          for cli, rec in k2_runs.items()} for name in k2_names}
+    k2_bf16 = {name: {cli: rec["launches"][f"{name}_bf16"] for cli, rec in k2_runs.items()
+                      if rec["launches"][f"{name}_bf16"]} for name in k2_names}
     k2_source = "multimodalbrainsurvival_torch/kernels/csrc/dropout_matmul.cu"
     # deleted from the JAX package; read it with git show 4fbc57a^:<file>
     k2_replaces = "multimodalbrainsurvival_tpu/ops/pallas/dropout_matmul.py:"
     k2b_pair = {"name": "seeded_dropout_pair", "route": "cuda", "source": k2_source,
                 "replaces": k2_replaces + "135",
                 "launches": sum(k2_launches["seeded_dropout_pair"].values()),
-                "launches_by_path": k2_launches["seeded_dropout_pair"],
+                "launches_by_path": {cli: n for cli, n in
+                                     k2_launches["seeded_dropout_pair"].items() if n},
                 **k2["seeded_dropout_pair"], "tolerance": 0}
+    k2b_pair_bf16 = {"name": "seeded_dropout_pair_bf16", "route": "cuda",
+                     "source": k2_source, "replaces": k2_replaces + "135",
+                     "launches": sum(k2_bf16["seeded_dropout_pair"].values()),
+                     "launches_by_path": k2_bf16["seeded_dropout_pair"],
+                     **k2f["seeded_dropout_pair_bf16"], "tolerance": 0}
 
     bf16 = timings["bfloat16"]
     by_path = {path: counts["attention_pool"] for path, counts in launches.items()}
@@ -2011,10 +2657,38 @@ def main() -> int:
         "source": k2_source,
         "replaces": k2_replaces + "160",
         "launches": sum(k2_launches["dropout_matmul"].values()),
-        "launches_by_path": k2_launches["dropout_matmul"],
+        "launches_by_path": {cli: n for cli, n in k2_launches["dropout_matmul"].items()
+                             if n},
         # times and bounds: sums over the shapes listed (drop probability 0.5)
         **k2["dropout_matmul"],
         "tolerance": K2A_TOL,
+        # float32 at the early-fusion MLP's and the joint head's shapes
+        "fusion_shapes": k2f["dropout_matmul_fusion_f32"],
+    }, {
+        "name": "dropout_matmul_bf16",
+        "route": "cuda",
+        "source": k2_source,
+        "replaces": k2_replaces + "160",
+        "launches": sum(k2_bf16["dropout_matmul"].values()),
+        "launches_by_path": k2_bf16["dropout_matmul"],
+        # times and bounds: sums over the joint RNA encoder's two layers at
+        # batch 128 (drop probability 0.5); library: torch.matmul of the
+        # pre-masked bf16 x
+        **k2f["dropout_matmul_bf16"],
+        "tolerance": "%g of max|plain|" % K2A_BF16_TOL,
+    }, {
+        "name": "seeded_dropout_bf16",
+        "route": "cuda",
+        "source": k2_source,
+        "replaces": k2_replaces + "135",
+        "launches": k2b_pair_bf16["launches"] + sum(k2_bf16["seeded_dropout"].values()),
+        "launches_by_path": {cli: k2_bf16["seeded_dropout"].get(cli, 0)
+                             + k2b_pair_bf16["launches_by_path"].get(cli, 0)
+                             for cli in {*k2_bf16["seeded_dropout"],
+                                         *k2b_pair_bf16["launches_by_path"]}},
+        **k2f["seeded_dropout_bf16"],
+        "tolerance": 0,
+        "pair": k2b_pair_bf16,
     }, {
         "name": "seeded_dropout",
         "route": "cuda",
@@ -2022,8 +2696,9 @@ def main() -> int:
         "replaces": k2_replaces + "135",
         # K2b in both forms: the single form's launches and the pair's
         "launches": k2b_pair["launches"] + sum(k2_launches["seeded_dropout"].values()),
-        "launches_by_path": {cli: n + k2b_pair["launches_by_path"][cli]
-                             for cli, n in k2_launches["seeded_dropout"].items()},
+        "launches_by_path": {cli: n + k2_launches["seeded_dropout_pair"][cli]
+                             for cli, n in k2_launches["seeded_dropout"].items()
+                             if n + k2_launches["seeded_dropout_pair"][cli]},
         # the single form's times and bounds: sums over the shapes listed
         # (drop probability 0.5)
         **k2["seeded_dropout"],

@@ -44,13 +44,19 @@ from multimodalbrainsurvival_torch.models.convert import load_reference_state_di
 from multimodalbrainsurvival_torch.models.folding import fold_resnet_state_dict
 from multimodalbrainsurvival_torch.models.quantize import (
     quantize_mil_resnet,
+    quantize_rna_encoder,
     quantize_trunk_for_training,
 )
 from multimodalbrainsurvival_torch.train import TrainingPreempted
 from multimodalbrainsurvival_torch.train.adapters import (
+    JointAdapter,
     MILAdapter,
+    QuantizedJointAdapter,
     QuantizedMILAdapter,
+    QuantizedTableAdapter,
+    QuantTrunkJointAdapter,
     QuantTrunkMILAdapter,
+    TableAdapter,
 )
 from multimodalbrainsurvival_torch.train.optim import (
     TrainOptimizer,
@@ -209,8 +215,9 @@ def extract_features_frames(cases: list[str], feats: np.ndarray):
 
 def quantize_mode(config: Config) -> str:
     """Validated ``quantize`` config value: ``""`` (float serving, default)
-    or ``"int8"`` (W8A8 ResNet, ``models/quantize.py``). int8 implies
-    ``fold_bn``: the int8 weights are built from the folded kernels."""
+    or ``"int8"`` (W8A8 ResNet and RNA MLP, ``models/quantize.py``). For a
+    ResNet int8 implies ``fold_bn``: the int8 weights are built from the
+    folded kernels."""
     quant = str(config.get("quantize", "") or "").lower()
     if quant not in ("", "int8"):
         raise ValueError(f"unsupported quantize mode: {quant!r}")
@@ -234,7 +241,11 @@ def build_mil_model(config, fold_bn: bool = False) -> AggregationModel:
     return AggregationModel(resnet, aggregator, out_features=config.num_classes)
 
 
-def build_datasets(config, quick: bool) -> dict[str, PatchBagDataset]:
+def build_datasets(config, quick: bool, dataset_cls: type = PatchBagDataset
+                   ) -> dict[str, PatchBagDataset]:
+    """The three splits' patch-bag datasets (``dataset_cls``: the joint
+    CLIs' ``PatchBagRNADataset`` adds each case's RNA vector); ``--quick``
+    caps the patches per slide at 20."""
     if config.get("cache_patches_on_device", False):
         raise NotImplementedError(
             "cache_patches_on_device is not ported yet (ROADMAP.md, queue 1, "
@@ -249,17 +260,17 @@ def build_datasets(config, quick: bool) -> dict[str, PatchBagDataset]:
         keep_remainder=bool(config.get("keep_bag_remainder", False)),
     )
     return {
-        "train": PatchBagDataset(
+        "train": dataset_cls(
             csv_path=config["train_csv_path"],
             bag_size=config.get("train_bag_size", 1),
             max_patches_total=max_train, **common,
         ),
-        "val": PatchBagDataset(
+        "val": dataset_cls(
             csv_path=config["val_csv_path"],
             bag_size=config.get("val_bag_size", 1),
             max_patches_total=max_val, **common,
         ),
-        "test": PatchBagDataset(
+        "test": dataset_cls(
             csv_path=config["test_csv_path"],
             bag_size=config.get("val_bag_size", 1),
             max_patches_total=max_val, **common,
@@ -267,17 +278,19 @@ def build_datasets(config, quick: bool) -> dict[str, PatchBagDataset]:
     }
 
 
-def load_mil_model(config: Config, device: torch.device) -> AggregationModel:
-    """Build the MIL model, load ``model_path`` (a reference-keyed ``.pt``),
-    fold BatchNorm when ``fold_bn: true`` or ``quantize: "int8"``, and place
-    it on ``device`` in eval mode with ``channels_last`` convolution
-    weights. Checkpoints are always stored unfolded."""
+def load_mil_model(config: Config, device: torch.device,
+                   build=build_mil_model) -> torch.nn.Module:
+    """Build the MIL model (or the model ``build(config, fold_bn=...)``
+    makes: the joint CLIs'), load ``model_path`` (a reference-keyed
+    ``.pt``), fold BatchNorm when ``fold_bn: true`` or ``quantize:
+    "int8"``, and place it on ``device`` in eval mode with ``channels_last``
+    convolution weights. Checkpoints are always stored unfolded."""
     fold = bool(config.get("fold_bn", False)) or bool(quantize_mode(config))
     state = load_reference_state_dict(config["model_path"])
-    model = build_mil_model(config)
+    model = build(config)
     model.load_state_dict(state)
     if fold:
-        model = build_mil_model(config, fold_bn=True)
+        model = build(config, fold_bn=True)
         model.load_state_dict(fold_resnet_state_dict(state))
         print("folded BatchNorm into conv weights for serving")
     return model.to(device, memory_format=torch.channels_last).eval()
@@ -285,26 +298,43 @@ def load_mil_model(config: Config, device: torch.device) -> AggregationModel:
 
 def quantize_serving(config: Config, adapter: MILAdapter, probe: dict
                      ) -> QuantizedMILAdapter:
-    """Swap a float MIL serving adapter for the int8 (W8A8) one: calibrate
-    the activation ranges on the probe batch and quantize the folded ResNet
-    weights. Deviates from reference numerics by int8 rounding (per-sample
-    embedding cosine > 0.995), opt-in for that reason."""
+    """Swap a float MIL or joint serving adapter for the int8 (W8A8) one:
+    calibrate the activation ranges on the probe batch and quantize the
+    folded ResNet weights; for the joint model also the RNA encoder
+    (``quantize_rna_encoder``, dynamic activation scales: nothing to
+    calibrate). Deviates from reference numerics by int8 rounding
+    (per-sample embedding cosine > 0.995), opt-in for that reason."""
     qtree = quantize_mil_resnet(adapter.model.resnet, [probe["patch_bag"]],
                                 arch=config.model_name)
+    common = dict(model=adapter.model, device=adapter.device,
+                  loader_kwargs=adapter.loader_kwargs, qtree=qtree,
+                  arch=config.model_name)
+    if isinstance(adapter, JointAdapter):
+        print("quantized ResNet + RNA encoder to int8 (W8A8) for serving")
+        return QuantizedJointAdapter(qtree_rna=quantize_rna_encoder(adapter.model.rna_mlp),
+                                     **common)
     print("quantized ResNet to int8 (W8A8) for serving")
-    return QuantizedMILAdapter(
-        model=adapter.model, device=adapter.device,
-        loader_kwargs=adapter.loader_kwargs, qtree=qtree,
-        arch=config.model_name,
-    )
+    return QuantizedMILAdapter(**common)
 
 
-def serving_adapter(config: Config, device: torch.device, datasets: dict
-                    ) -> MILAdapter:
-    """The serving CLIs' adapter: the float model, or with ``quantize:
-    "int8"`` its int8 encoder calibrated on the first train batch."""
-    adapter = MILAdapter(
-        model=load_mil_model(config, device),
+def quantize_rna_serving(adapter: TableAdapter) -> QuantizedTableAdapter:
+    """Swap the float RNA serving adapter for the int8 (W8A8) one (JAX
+    ``cli/_common.py:388-413``): the encoder's Linear layers quantized, the
+    activation scales dynamic per row (nothing to calibrate), the Cox head
+    float. Opt-in (``quantize: "int8"``), as for the ResNet paths."""
+    print("quantized RNA encoder to int8 (W8A8) for serving")
+    return QuantizedTableAdapter(model=adapter.model, device=adapter.device,
+                                 loader_kwargs=adapter.loader_kwargs,
+                                 qtree=quantize_rna_encoder(adapter.model.rna_mlp))
+
+
+def serving_adapter(config: Config, device: torch.device, datasets: dict,
+                    build=build_mil_model, adapter_cls: type = MILAdapter) -> MILAdapter:
+    """The serving CLIs' adapter: the float model (``build``'s, MIL by
+    default, in ``adapter_cls``), or with ``quantize: "int8"`` its int8
+    encoders, the ResNet's calibrated on the first train batch."""
+    adapter = adapter_cls(
+        model=load_mil_model(config, device, build),
         device=device,
         loader_kwargs={"num_threads": int(config.get("num_workers", 8)) or 1},
     )
@@ -318,11 +348,10 @@ def serving_adapter(config: Config, device: torch.device, datasets: dict
 
 def quantize_trunk_training(config: Config, adapter: MILAdapter, datasets: dict,
                             batch_size: int, seed: int) -> MILAdapter:
-    """With ``quantize_trunk: "int8"``, swap a float MIL training adapter
-    for the int8 frozen-trunk one (JAX ``cli/_common.py:416-496``, its MIL
-    branch; the joint branch comes with fusion, ROADMAP.md item 5).
+    """With ``quantize_trunk: "int8"``, swap a float MIL or joint training
+    adapter for the int8 frozen-trunk one (JAX ``cli/_common.py:416-496``).
 
-    The freeze ladder trains the first ``n_layers_to_train`` of ``fc,
+    Both freeze ladders train the first ``n_layers_to_train`` of ``fc,
     layer4, …``, so the stem and ``min(4, 5 - max(n, 1))`` residual stages
     below them run forward-only every step; that prefix is folded,
     calibrated and quantized once, here, on the JAX CLI's calibration set:
@@ -350,7 +379,8 @@ def quantize_trunk_training(config: Config, adapter: MILAdapter, datasets: dict,
                                         augment=adapter.augment, seed=seed)
     print(f"quantize_trunk: int8 frozen prefix = stem + {trunk_stages} stage(s); "
           "the trainable tail stays float")
-    return QuantTrunkMILAdapter(
+    cls = QuantTrunkJointAdapter if isinstance(adapter, JointAdapter) else QuantTrunkMILAdapter
+    return cls(
         model=adapter.model, device=adapter.device,
         loader_kwargs=adapter.loader_kwargs, augment=adapter.augment,
         qtree=qtree, trunk_stages=trunk_stages, arch=config.model_name,

@@ -6,6 +6,7 @@ encoder's 2048-d ``extract`` over every split, takes the per-case mean
 (``:73-81``) and writes ``rna_cases_<split>.csv`` (the bytes of
 ``pd.DataFrame(cases).to_csv``) and ``rna_features_<split>.csv``
 (``np.savetxt``, comma-delimited; ``:136-149``) into ``output_path``.
+``quantize: "int8"`` extracts through the W8A8 encoder.
 """
 
 from __future__ import annotations
@@ -20,7 +21,7 @@ from multimodalbrainsurvival_torch.cli._common import (
     load_config,
     make_parser,
 )
-from multimodalbrainsurvival_torch.cli.rna_train import build_rna_datasets, load_rna_model
+from multimodalbrainsurvival_torch.cli.rna_train import build_rna_datasets, rna_serving_adapter
 from multimodalbrainsurvival_torch.device import resolve_device
 from multimodalbrainsurvival_torch.frames import write_frame
 from multimodalbrainsurvival_torch.train.adapters import TableAdapter
@@ -48,8 +49,7 @@ def main(argv=None):
     os.makedirs(output_path or ".", exist_ok=True)
 
     datasets = build_rna_datasets(config)
-    adapter = TableAdapter(model=load_rna_model(config, device, datasets["train"].feature_dim),
-                           device=device)
+    adapter = rna_serving_adapter(config, device, datasets["train"].feature_dim)
     suffix = f"_{flag}" if "cv" in flag else ""
     for split, ds in datasets.items():
         print(f"extracting features for dataset : {split}")

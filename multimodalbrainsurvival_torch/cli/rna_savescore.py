@@ -4,6 +4,8 @@ Parity with ``2_GeneExpression/2_GeneExpress_savescore.py`` and the JAX CLI
 ``multimodalbrainsurvival_tpu/cli/rna_savescore.py``: loads ``model_path``
 (a reference-keyed ``.pt``), evaluates each split, and writes the per-case
 score frames ``<output_path>/rna_<split>[_<flag>]_df.csv`` (``:180-190``).
+``quantize: "int8"`` serves the W8A8 encoder (``models/quantize.py::
+quantized_mlp``) under the float Cox head.
 """
 
 from __future__ import annotations
@@ -15,11 +17,10 @@ from multimodalbrainsurvival_torch.cli._common import (
     make_parser,
     savescore_name,
 )
-from multimodalbrainsurvival_torch.cli.rna_train import build_rna_datasets, load_rna_model
+from multimodalbrainsurvival_torch.cli.rna_train import build_rna_datasets, rna_serving_adapter
 from multimodalbrainsurvival_torch.device import resolve_device
 from multimodalbrainsurvival_torch.frames import write_frame
 from multimodalbrainsurvival_torch.train import TrainSettings, evaluate
-from multimodalbrainsurvival_torch.train.adapters import TableAdapter
 
 
 def main(argv=None):
@@ -30,8 +31,7 @@ def main(argv=None):
     os.makedirs(output_path or ".", exist_ok=True)
 
     datasets = build_rna_datasets(config)
-    model = load_rna_model(config, device, datasets["train"].feature_dim)
-    adapter = TableAdapter(model=model, device=device)
+    adapter = rna_serving_adapter(config, device, datasets["train"].feature_dim)
     settings = TrainSettings(task="survival_prediction", batch_size=config.batch_size)
     for split, ds in datasets.items():
         print(f"Evaluation for dataset : {split}")

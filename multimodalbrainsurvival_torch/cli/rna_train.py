@@ -32,6 +32,7 @@ from multimodalbrainsurvival_torch.cli._common import (
     make_writer,
     maybe_restore,
     quantize_mode,
+    quantize_rna_serving,
     run_train,
     tune_optimizer,
 )
@@ -74,13 +75,18 @@ def load_rna_model(config: Config, device: torch.device,
                    in_features: int) -> RNAOnlyModel:
     """The serving CLIs' model: ``model_path`` (a reference-keyed ``.pt``)
     on ``device``, in eval mode, float32."""
-    if quantize_mode(config):
-        raise NotImplementedError(
-            "quantize: int8 RNA serving is not ported yet (ROADMAP.md, queue 1, "
-            "item 9)")
     model = build_rna_model(config, in_features)
     model.load_state_dict(load_reference_state_dict(config["model_path"]))
     return model.to(device).eval()
+
+
+def rna_serving_adapter(config: Config, device: torch.device,
+                        in_features: int) -> TableAdapter:
+    """The serving CLIs' adapter: the float model, or with ``quantize:
+    "int8"`` its int8 encoder (``quantize_rna_serving``)."""
+    adapter = TableAdapter(model=load_rna_model(config, device, in_features),
+                           device=device)
+    return quantize_rna_serving(adapter) if quantize_mode(config) else adapter
 
 
 def main(argv=None):

@@ -23,7 +23,13 @@ The port's own copy of ``multimodalbrainsurvival_tpu/data/patches.py:36-370``
 
 Batches are read by a pool of threads in a producer thread that keeps at
 most ``prefetch`` batches ahead (``data/patches.py:284-350`` of the JAX
-package). Only numpy and the standard library are needed unless a bag must
+package).
+
+``PatchBagRNADataset`` and ``PatchRNADataset`` (JAX ``data/patches.py:
+371-470``, reference ``5_JointFusion/datasets.py:62-126``) add the slide's
+RNA vector, the CSV's ``rna_`` columns of its row, as ``rna_data``; it is
+kept with the slide's entry, so it follows the slide through the
+shuffles, the producer thread and a resume's skipped batches. Only numpy and the standard library are needed unless a bag must
 decode PNGs or resize shard rows. The C++ loader and the device cache of
 the JAX package come with a later slice (ROADMAP.md, queue 1, item 11).
 """
@@ -248,3 +254,65 @@ class PatchBagDataset:
                 except queue.Empty:
                     break
             thread.join(timeout=5)
+
+
+def read_rna_columns(path: str) -> tuple[list[str], np.ndarray]:
+    """Each row's ``wsi_file_name`` without its extension, and the (rows,
+    genes) float32 matrix of the columns whose name contains ``rna_``, read
+    with the stdlib ``csv`` module (BOM stripped)."""
+    with open(path, newline="") as f:
+        reader = csv.reader(f)
+        columns = [c.lstrip("\ufeff") for c in next(reader)]
+        rna_idx = [i for i, c in enumerate(columns) if "rna_" in c]
+        if not rna_idx:
+            raise ValueError(f"No 'rna_' columns in {path}")
+        wsi_col = columns.index("wsi_file_name")
+        wsis, rows = [], []
+        for row in reader:
+            wsis.append(str(row[wsi_col]).split(".")[0])
+            rows.append(np.asarray([row[i] for i in rna_idx], np.float64))
+    return wsis, np.asarray(rows, np.float64).astype(np.float32).reshape(-1, len(rna_idx))
+
+
+class PatchBagRNADataset(PatchBagDataset):
+    """Bag index + the case's RNA vector (``5_JointFusion/datasets.py:
+    62-126``): batches add ``rna_data`` (B, genes) float32, zero on padded
+    rows."""
+
+    def __init__(self, patch_data_path: str, csv_path: str, **kw):
+        super().__init__(patch_data_path, csv_path, **kw)
+        wsis, rna = read_rna_columns(csv_path)
+        for wsi, vector in zip(wsis, rna):
+            self.data[wsi]["rna_data"] = vector
+        self.rna_dim = rna.shape[1]
+
+    def _load_bag(self, item_idx: int) -> dict:
+        out = super()._load_bag(item_idx)
+        out["rna_data"] = self.data[self.index[item_idx][0]]["rna_data"]
+        return out
+
+    def _assemble(self, items: list[dict], batch_size: int) -> dict:
+        rna = np.zeros((batch_size, self.rna_dim), np.float32)
+        for i, it in enumerate(items):
+            rna[i] = it.pop("rna_data")
+        batch = super()._assemble(items, batch_size)
+        batch["rna_data"] = rna
+        return batch
+
+
+class PatchRNADataset(PatchBagRNADataset):
+    """One item per patch + the case's RNA vector, for the per-patch joint
+    model (the reference's version is broken, ``5_JointFusion/datasets.py:
+    182``): a ``bag_size=1`` index with the remainder kept; batches also
+    give ``patch`` (B, H, W, 3)."""
+
+    def __init__(self, patch_data_path: str, csv_path: str, **kw):
+        kw.pop("bag_size", None)
+        kw.pop("keep_remainder", None)
+        super().__init__(patch_data_path, csv_path, bag_size=1, keep_remainder=True,
+                         **kw)
+
+    def _assemble(self, items: list[dict], batch_size: int) -> dict:
+        batch = super()._assemble(items, batch_size)
+        batch["patch"] = batch["patch_bag"][:, 0]
+        return batch

@@ -1,9 +1,11 @@
-"""Tabular (CSV) datasets: RNA expression.
+"""Tabular (CSV) datasets: RNA expression and early-fusion features.
 
-The port's own copy of ``multimodalbrainsurvival_tpu/data/tables.py:29-109``
-(reference ``2_GeneExpression/datasets.py:11-52`` ``RNADataset``): every
-column whose name CONTAINS ``"rna_"`` is a feature (12,778 at the reference
-width), the other columns are labels and ids. The whole CSV becomes one
+The port's own copy of ``multimodalbrainsurvival_tpu/data/tables.py:29-116``
+(reference ``2_GeneExpression/datasets.py:11-52`` ``RNADataset`` and
+``3_EarlyFusion``'s ``featureDataset``): every column whose name CONTAINS
+``"rna_"`` (12,778 at the reference width), or ``"feature_"`` (4,096: the
+histo and RNA embeddings side by side), is a feature, the other columns are
+labels and ids. The whole CSV becomes one
 contiguous (N, D) float32 matrix, and batches are statically shaped padded
 slices with a validity mask.
 
@@ -110,3 +112,11 @@ class RNATableDataset(TableDataset):
 
     def __init__(self, csv_path: str):
         super().__init__(csv_path, "rna_")
+
+
+class FeatureTableDataset(TableDataset):
+    """Parity with ``featureDataset``: features are the ``'feature_'``
+    columns."""
+
+    def __init__(self, csv_path: str):
+        super().__init__(csv_path, "feature_")

@@ -1,5 +1,5 @@
-// Seeded dropout fused into a float32 matrix product (K2a), and the same
-// dropout applied alone (K2b), for Hopper (sm_90a).
+// Seeded dropout fused into a float32 or bf16 matrix product (K2a), and the
+// same dropout applied alone (K2b), for Hopper (sm_90a).
 //
 // Replaces the TPU kernels of
 // multimodalbrainsurvival_tpu/ops/pallas/dropout_matmul.py (deleted in commit
@@ -71,12 +71,25 @@
 // ~5.4 us on an H100 (PERF.md), so at dense_1 most of K2b's time is not
 // its bytes.
 //
+// The bf16 form (the joint model's RNA encoder in compute_dtype bfloat16,
+// as the TPU kernel took a bf16 x): x and w bf16, the mask the same
+// function of (seed, row, col), a kept value float32(x) * s rounded once to
+// bf16, the products on the bf16 wgmma path K1 uses (splitk_tn.cuh), float32
+// sums and a float32 (M, N) output. splitk_tn.cuh masks each bf16 k-tile of
+// x in shared memory after it lands. dense_0's bf16 rows are 25,556 bytes,
+// 4 bytes off a 16-byte boundary: that layer takes cp.async in 4-byte
+// pieces, the 4,096-wide rows TMA; an odd K has no route (the wrapper
+// refuses it). K2b's bf16 forms mask bf16 tensors the same way, in pieces
+// of up to 8 values.
+//
 // Every entry launches on the caller's stream, allocates nothing, and
 // returns the CUDA error code of the launch.
 
 #include <cstdint>
+#include <cstring>
 #include <initializer_list>
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include "splitk_tn.cuh"
@@ -100,12 +113,28 @@ __device__ __forceinline__ bool keep(uint32_t row, uint32_t col, const Mask& mas
   return h >= mask.threshold;
 }
 
-__device__ __forceinline__ float dropped(float v, uint32_t row, uint32_t col,
-                                         const Mask& mask) {
-  return keep(row, col, mask) ? __fmul_rn(v, mask.scale) : 0.f;
+// A kept value: v * scale in float32, rounded once to T (bf16: round to
+// nearest even), as the plain version's (x.float() * s).to(dtype).
+__device__ __forceinline__ float scaled(float v, float s) { return __fmul_rn(v, s); }
+__device__ __forceinline__ __nv_bfloat16 scaled(__nv_bfloat16 v, float s) {
+  return __float2bfloat16_rn(__fmul_rn(__bfloat162float(v), s));
+}
+template <typename T>
+__device__ __forceinline__ T zero() {
+  return T(0.f);
+}
+template <>
+__device__ __forceinline__ __nv_bfloat16 zero<__nv_bfloat16>() {
+  return __float2bfloat16_rn(0.f);
 }
 
-// K2a's parts of the product: the mask on x's k-tiles, and the store of C.
+template <typename T>
+__device__ __forceinline__ T dropped(T v, uint32_t row, uint32_t col, const Mask& mask) {
+  return keep(row, col, mask) ? scaled(v, mask.scale) : zero<T>();
+}
+
+// K2a's parts of the product: the mask on x's k-tiles (float32 as they are
+// split, bf16 in place), and the store of C.
 struct Dropout {
   struct Params {
     float* out;  // (M, N)
@@ -123,6 +152,16 @@ struct Dropout {
     v.y = dropped(v.y, m, k + 1, ep.mask);
     v.z = dropped(v.z, m, k + 2, ep.mask);
     v.w = dropped(v.w, m, k + 3, ep.mask);
+  }
+  static __device__ __forceinline__ bool masks(const Params& ep) { return ep.mask.on; }
+  // x[m, k .. k + 7] in bf16
+  static __device__ __forceinline__ void transform_bf16(const Params& ep, uint4& v,
+                                                        int m, int k) {
+    __nv_bfloat16 e[8];
+    memcpy(e, &v, sizeof(v));
+#pragma unroll
+    for (int i = 0; i < 8; ++i) e[i] = dropped(e[i], m, k + i, ep.mask);
+    memcpy(&v, e, sizeof(v));
   }
   static __device__ __forceinline__ void row(const Params& ep,
                                              const splitk::Problem& p,
@@ -143,73 +182,86 @@ struct Dropout {
 };
 
 // K2b's launch: THREADS a block, each thread with up to ILP pieces of V
-// floats (of each tensor) loaded before it hashes, so that a block has
-// ILP x THREADS x 4V bytes in flight.
+// values (of each tensor) loaded before it hashes, so that a block has
+// ILP x THREADS x V x sizeof(T) bytes in flight.
 constexpr int K2B_THREADS = 256;
 constexpr int K2B_ILP = 4;
 
-// V consecutive floats, loaded and stored as one 4V-byte access
-// (ld.global.v4.f32 / .v2.f32 / .f32) where the address is 4V-byte aligned.
-template <int V>
-struct alignas(4 * V) Piece {
-  float f[V];
+// V consecutive values of T, loaded and stored as one access of their
+// bytes (ld.global.v4.u32 / .v2.u32 / .u32 / .u16) where the address is
+// aligned to them.
+template <typename T, int V>
+struct alignas(sizeof(T) * V) Piece {
+  T f[V];
+};
+template <int BYTES>
+struct Word;
+template <>
+struct Word<16> {
+  using type = uint4;
+};
+template <>
+struct Word<8> {
+  using type = uint2;
+};
+template <>
+struct Word<4> {
+  using type = unsigned int;
+};
+template <>
+struct Word<2> {
+  using type = unsigned short;
 };
 
 // K2b reads each input once, so its loads are streaming (ld.global.cs:
 // evicted from L2 first), which keeps its outputs, read next by the
 // product of dW, in L2 in their place.
-template <int V>
-__device__ __forceinline__ Piece<V> take(const float* p) {
-  Piece<V> r;
-  if constexpr (V == 4) {
-    const float4 t = __ldcs(reinterpret_cast<const float4*>(p));
-    r.f[0] = t.x, r.f[1] = t.y, r.f[2] = t.z, r.f[3] = t.w;
-  } else if constexpr (V == 2) {
-    const float2 t = __ldcs(reinterpret_cast<const float2*>(p));
-    r.f[0] = t.x, r.f[1] = t.y;
-  } else {
-    r.f[0] = __ldcs(p);
-  }
+template <typename T, int V>
+__device__ __forceinline__ Piece<T, V> take(const T* p) {
+  using W = typename Word<sizeof(T) * V>::type;
+  const W w = __ldcs(reinterpret_cast<const W*>(p));
+  Piece<T, V> r;
+  memcpy(&r, &w, sizeof(W));
   return r;
 }
 
-template <int V>
-__device__ __forceinline__ void put(float* p, const Piece<V>& v) {
-  *reinterpret_cast<Piece<V>*>(p) = v;
+template <typename T, int V>
+__device__ __forceinline__ void put(T* p, const Piece<T, V>& v) {
+  *reinterpret_cast<Piece<T, V>*>(p) = v;
 }
 
 // out_a = M ⊙ a · s and, for PAIR, out_b = M ⊙ b · s with the same mask
 // hashed once, all (M, K) row-major. Block (bx, by) takes rows by, by +
 // gridDim.y, ...; in a row its threads span the columns, so (row, col) come
 // from the loop counters and no element divides. A row is a scalar head up
-// to the first V-float boundary, pieces of V floats, and a scalar tail; the
-// launch makes every tensor's base the same offset from a 4V-byte boundary,
+// to the first V-value boundary, pieces of V values, and a scalar tail; the
+// launch makes every tensor's base the same offset from a piece boundary,
 // so the head is the same in all of them.
-template <int V, bool PAIR>
+template <typename T, int V, bool PAIR>
 __global__ void __launch_bounds__(K2B_THREADS)
-    seeded_dropout_kernel(const float* __restrict__ a, const float* __restrict__ b,
-                          float* __restrict__ out_a, float* __restrict__ out_b,
+    seeded_dropout_kernel(const T* __restrict__ a, const T* __restrict__ b,
+                          T* __restrict__ out_a, T* __restrict__ out_b,
                           int M, int K, Mask mask) {
   const int step = K2B_THREADS * gridDim.x;
   for (int row = blockIdx.y; row < M; row += gridDim.y) {
     const size_t base = static_cast<size_t>(row) * K;
     const int misaligned = static_cast<int>(
-        (reinterpret_cast<uintptr_t>(a + base) >> 2) & (V - 1));
+        (reinterpret_cast<uintptr_t>(a + base) / sizeof(T)) & (V - 1));
     const int head = min((V - misaligned) & (V - 1), K);
     const int pieces = static_cast<unsigned>(K - head) / V;
-    const float* const ra = a + base + head;
-    const float* const rb = PAIR ? b + base + head : nullptr;
-    float* const wa = out_a + base + head;
-    float* const wb = PAIR ? out_b + base + head : nullptr;
+    const T* const ra = a + base + head;
+    const T* const rb = PAIR ? b + base + head : nullptr;
+    T* const wa = out_a + base + head;
+    T* const wb = PAIR ? out_b + base + head : nullptr;
     for (int p0 = blockIdx.x * K2B_THREADS + threadIdx.x; p0 < pieces;
          p0 += K2B_ILP * step) {
-      Piece<V> va[K2B_ILP], vb[K2B_ILP];
+      Piece<T, V> va[K2B_ILP], vb[K2B_ILP];
 #pragma unroll
       for (int j = 0; j < K2B_ILP; ++j) {
         const int p = p0 + j * step;
         if (p < pieces) {
-          va[j] = take<V>(ra + p * V);
-          if (PAIR) vb[j] = take<V>(rb + p * V);
+          va[j] = take<T, V>(ra + p * V);
+          if (PAIR) vb[j] = take<T, V>(rb + p * V);
         }
       }
 #pragma unroll
@@ -220,8 +272,8 @@ __global__ void __launch_bounds__(K2B_THREADS)
 #pragma unroll
           for (int e = 0; e < V; ++e) {
             const bool kept = keep(row, col + e, mask);
-            va[j].f[e] = kept ? __fmul_rn(va[j].f[e], mask.scale) : 0.f;
-            if (PAIR) vb[j].f[e] = kept ? __fmul_rn(vb[j].f[e], mask.scale) : 0.f;
+            va[j].f[e] = kept ? scaled(va[j].f[e], mask.scale) : zero<T>();
+            if (PAIR) vb[j].f[e] = kept ? scaled(vb[j].f[e], mask.scale) : zero<T>();
           }
           put(wa + p * V, va[j]);
           if (PAIR) put(wb + p * V, vb[j]);
@@ -237,30 +289,32 @@ __global__ void __launch_bounds__(K2B_THREADS)
                       : (t >= 32 && t - 32 < tail) ? head + pieces * V + t - 32 : -1;
       if (col >= 0) {
         const bool kept = keep(row, col, mask);
-        out_a[base + col] = kept ? __fmul_rn(a[base + col], mask.scale) : 0.f;
-        if (PAIR) out_b[base + col] = kept ? __fmul_rn(b[base + col], mask.scale) : 0.f;
+        out_a[base + col] = kept ? scaled(a[base + col], mask.scale) : zero<T>();
+        if (PAIR) out_b[base + col] = kept ? scaled(b[base + col], mask.scale) : zero<T>();
       }
     }
   }
 }
 
-// The widest piece (4, 2 or 1 floats) at which every base is the same offset
-// from a piece boundary (the bases congruent modulo the piece's bytes): then
-// every row of every tensor starts at the same offset too, whatever K.
+// The widest piece (16, 8 or 4 bytes; else one value) at which every base
+// is the same offset from a piece boundary (the bases congruent modulo the
+// piece's bytes): then every row of every tensor starts at the same offset
+// too, whatever K. Returns the piece's values.
+template <typename T>
 int piece_width(std::initializer_list<const void*> bases) {
-  for (int v = 4; v > 1; v /= 2) {
-    const uintptr_t m = 4 * v - 1;
+  for (int bytes = 16; bytes > static_cast<int>(sizeof(T)); bytes /= 2) {
+    const uintptr_t m = bytes - 1;
     const uintptr_t r = reinterpret_cast<uintptr_t>(*bases.begin()) & m;
     bool same = true;
     for (const void* p : bases) same = same && (reinterpret_cast<uintptr_t>(p) & m) == r;
-    if (same) return v;
+    if (same) return bytes / static_cast<int>(sizeof(T));
   }
   return 1;
 }
 
-// Blocks of seeded_dropout_kernel<V, PAIR> that fit on the card at once
+// Blocks of seeded_dropout_kernel<T, V, PAIR> that fit on the card at once
 // (SM count x occupancy), asked once; 0 if the runtime cannot say.
-template <int V, bool PAIR>
+template <typename T, int V, bool PAIR>
 int resident_blocks() {
   static int n = -1;
   if (n < 0) {
@@ -269,7 +323,8 @@ int resident_blocks() {
          cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) ==
              cudaSuccess &&
          cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-             &per_sm, seeded_dropout_kernel<V, PAIR>, K2B_THREADS, 0) == cudaSuccess)
+             &per_sm, seeded_dropout_kernel<T, V, PAIR>, K2B_THREADS, 0) ==
+             cudaSuccess)
             ? sms * per_sm
             : 0;
   }
@@ -278,30 +333,37 @@ int resident_blocks() {
 
 // One wave: gridDim.x blocks span a row's pieces at up to ILP a thread,
 // gridDim.y as many rows as the card holds blocks of the rest.
-template <int V, bool PAIR>
-cudaError_t launch_dropout(const float* a, const float* b, float* out_a, float* out_b,
-                           int M, int K, const Mask& mask, cudaStream_t stream) {
-  const int resident = resident_blocks<V, PAIR>();
+template <typename T, int V, bool PAIR>
+cudaError_t launch_dropout(const T* a, const T* b, T* out_a, T* out_b, int M, int K,
+                           const Mask& mask, cudaStream_t stream) {
+  const int resident = resident_blocks<T, V, PAIR>();
   if (resident < 1) return cudaErrorInvalidConfiguration;
   const int per_block = K2B_THREADS * K2B_ILP;
   const int gx = K / V > per_block ? (K / V + per_block - 1) / per_block : 1;
   int gy = resident / gx;
   gy = gy < 1 ? 1 : gy > M ? M : gy > 65535 ? 65535 : gy;
-  seeded_dropout_kernel<V, PAIR>
+  seeded_dropout_kernel<T, V, PAIR>
       <<<dim3(gx, gy), K2B_THREADS, 0, stream>>>(a, b, out_a, out_b, M, K, mask);
   return cudaGetLastError();
 }
 
-template <bool PAIR>
-int seeded_dropout_launch(const float* a, const float* b, float* out_a, float* out_b,
-                          int M, int K, const Mask& mask, void* stream) {
+template <typename T, bool PAIR>
+int seeded_dropout_launch(const T* a, const T* b, T* out_a, T* out_b, int M, int K,
+                          const Mask& mask, void* stream) {
   if (M <= 0 || K <= 0) return static_cast<int>(cudaSuccess);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  int v = PAIR ? piece_width({a, b, out_a, out_b}) : piece_width({a, out_a});
-  const cudaError_t err =
-      v == 4   ? launch_dropout<4, PAIR>(a, b, out_a, out_b, M, K, mask, s)
-      : v == 2 ? launch_dropout<2, PAIR>(a, b, out_a, out_b, M, K, mask, s)
-               : launch_dropout<1, PAIR>(a, b, out_a, out_b, M, K, mask, s);
+  const int v = PAIR ? piece_width<T>({a, b, out_a, out_b}) : piece_width<T>({a, out_a});
+  cudaError_t err;
+  if constexpr (sizeof(T) == 2) {
+    err = v == 8   ? launch_dropout<T, 8, PAIR>(a, b, out_a, out_b, M, K, mask, s)
+          : v == 4 ? launch_dropout<T, 4, PAIR>(a, b, out_a, out_b, M, K, mask, s)
+          : v == 2 ? launch_dropout<T, 2, PAIR>(a, b, out_a, out_b, M, K, mask, s)
+                   : launch_dropout<T, 1, PAIR>(a, b, out_a, out_b, M, K, mask, s);
+  } else {
+    err = v == 4   ? launch_dropout<T, 4, PAIR>(a, b, out_a, out_b, M, K, mask, s)
+          : v == 2 ? launch_dropout<T, 2, PAIR>(a, b, out_a, out_b, M, K, mask, s)
+                   : launch_dropout<T, 1, PAIR>(a, b, out_a, out_b, M, K, mask, s);
+  }
   return static_cast<int>(err);
 }
 
@@ -309,33 +371,69 @@ Mask make_mask(uint32_t seed, uint32_t threshold, float scale, int on) {
   return Mask{seed * 0x9E3779B1u, threshold, scale, on};
 }
 
-}  // namespace
-
-// out (M, N) = dropout(x (M, K)) @ w (N, K)^T, all float32 row-major on
-// the device; out must be 16-byte aligned.
-extern "C" int dropout_matmul_f32(const float* x, const float* w, float* out,
-                                  int M, int N, int K, uint32_t seed,
-                                  uint32_t threshold, float scale, int apply_mask,
-                                  void* stream) {
+template <typename T>
+int dropout_matmul_launch(const T* x, const T* w, float* out, int M, int N, int K,
+                          uint32_t seed, uint32_t threshold, float scale,
+                          int apply_mask, void* stream) {
   const splitk::Problem p{x, w, M, N, K, 0, 0};
   const Dropout::Params ep{out, make_mask(seed, threshold, scale, apply_mask)};
-  return static_cast<int>(splitk::launch<float, Dropout>(
+  return static_cast<int>(splitk::launch<T, Dropout>(
       p, ep, static_cast<cudaStream_t>(stream)));
 }
 
+}  // namespace
+
+extern "C" {
+
+// out (M, N) = dropout(x (M, K)) @ w (N, K)^T, x and w float32 row-major on
+// the device, out float32 and 16-byte aligned.
+int dropout_matmul_f32(const float* x, const float* w, float* out, int M, int N,
+                       int K, uint32_t seed, uint32_t threshold, float scale,
+                       int apply_mask, void* stream) {
+  return dropout_matmul_launch(x, w, out, M, N, K, seed, threshold, scale,
+                               apply_mask, stream);
+}
+
+// The same with x and w bf16 (rows and bases 4-byte aligned: K even), the
+// products on the bf16 tensor cores, float32 sums and output.
+int dropout_matmul_bf16(const __nv_bfloat16* x, const __nv_bfloat16* w, float* out,
+                        int M, int N, int K, uint32_t seed, uint32_t threshold,
+                        float scale, int apply_mask, void* stream) {
+  return dropout_matmul_launch(x, w, out, M, N, K, seed, threshold, scale,
+                               apply_mask, stream);
+}
+
 // out (M, K) = dropout(x (M, K)), float32 row-major on the device.
-extern "C" int seeded_dropout_f32(const float* x, float* out, int M, int K,
-                                  uint32_t seed, uint32_t threshold, float scale,
-                                  void* stream) {
-  return seeded_dropout_launch<false>(x, nullptr, out, nullptr, M, K,
-                                      make_mask(seed, threshold, scale, 1), stream);
+int seeded_dropout_f32(const float* x, float* out, int M, int K, uint32_t seed,
+                       uint32_t threshold, float scale, void* stream) {
+  return seeded_dropout_launch<float, false>(x, nullptr, out, nullptr, M, K,
+                                             make_mask(seed, threshold, scale, 1),
+                                             stream);
 }
 
 // out_a = dropout(a), out_b = dropout(b) with one mask, all (M, K) float32
 // row-major on the device; each mask value hashed once.
-extern "C" int seeded_dropout_pair_f32(const float* a, const float* b, float* out_a,
-                                       float* out_b, int M, int K, uint32_t seed,
-                                       uint32_t threshold, float scale, void* stream) {
-  return seeded_dropout_launch<true>(a, b, out_a, out_b, M, K,
-                                     make_mask(seed, threshold, scale, 1), stream);
+int seeded_dropout_pair_f32(const float* a, const float* b, float* out_a, float* out_b,
+                            int M, int K, uint32_t seed, uint32_t threshold,
+                            float scale, void* stream) {
+  return seeded_dropout_launch<float, true>(a, b, out_a, out_b, M, K,
+                                            make_mask(seed, threshold, scale, 1),
+                                            stream);
 }
+
+// The bf16 forms of the two: kept values scaled in float32 and rounded once.
+int seeded_dropout_bf16(const __nv_bfloat16* x, __nv_bfloat16* out, int M, int K,
+                        uint32_t seed, uint32_t threshold, float scale, void* stream) {
+  return seeded_dropout_launch<__nv_bfloat16, false>(
+      x, nullptr, out, nullptr, M, K, make_mask(seed, threshold, scale, 1), stream);
+}
+
+int seeded_dropout_pair_bf16(const __nv_bfloat16* a, const __nv_bfloat16* b,
+                             __nv_bfloat16* out_a, __nv_bfloat16* out_b, int M, int K,
+                             uint32_t seed, uint32_t threshold, float scale,
+                             void* stream) {
+  return seeded_dropout_launch<__nv_bfloat16, true>(
+      a, b, out_a, out_b, M, K, make_mask(seed, threshold, scale, 1), stream);
+}
+
+}  // extern "C"

@@ -5,7 +5,8 @@
 //     C[m, n] = sum_k A'[m, k] B[n, k]          A (M, K), B (N, K), row-major
 //
 // where A' is A after the caller's per-element transform (K2a's dropout
-// mask; K1 leaves A as it is), and C goes to the caller's epilogue one row
+// mask, in float32 and bf16; K1 leaves A as it is), and C goes to the
+// caller's epilogue one row
 // of a tile at a time (K1: tanh, the gate vector and a sum over the row;
 // K2a: a store). Both operands are read as they lie in memory: x (B·bag or
 // batch rows) and an nn.Linear weight are K-major already.
@@ -30,7 +31,8 @@
 // 16-byte aligned, TMA loads them (one thread, an mbarrier per stage);
 // otherwise every thread copies its own 16-byte chunks by cp.async in
 // 8- or 4-byte pieces (rows of 12,778 float32 are 8 bytes off a 16-byte
-// boundary, so no tensor map can describe them). Elements past M, N or K
+// boundary, and rows of 12,778 bf16 4 bytes, so no tensor map can
+// describe them; bf16 rows must be 4-byte aligned, K even). Elements past M, N or K
 // read as zero. A ring of 3 (float32) or 6 (bf16) stages keeps the next
 // k-tiles' loads in flight: a stage is refilled as soon as its products are
 // done. In bf16 one wgmma group stays in flight across steps.
@@ -46,7 +48,9 @@
 // So in float32 each k-tile's products start a fresh accumulator, and the
 // block adds it into a second one in registers with IEEE float32
 // additions. The split and the caller's transform of k-tile i + 1 run
-// while the tensor cores work on k-tile i.
+// while the tensor cores work on k-tile i. In bf16 a caller with a
+// transform (`transform_bf16`) rewrites A's k-tile in shared memory, 8
+// values a 16-byte chunk, after it lands and before the products read it.
 
 #pragma once
 
@@ -54,6 +58,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "hopper.cuh"
 
@@ -96,6 +102,14 @@ struct Prec<float> {
   static constexpr CUtensorMapDataType MAP = CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
 };
 
+// Whether the epilogue Epi masks A in bf16 (K2a: `transform_bf16`, and
+// `masks(ep)` saying whether this launch applies it).
+template <class Epi, class = void>
+struct TransformsBf16 : std::false_type {};
+template <class Epi>
+struct TransformsBf16<Epi, std::void_t<decltype(&Epi::transform_bf16)>>
+    : std::true_type {};
+
 template <typename T>
 constexpr int smem_bytes() {
   return 1024 /* alignment slack */ + Prec<T>::STAGES * Prec<T>::TILES * TILE +
@@ -114,7 +128,9 @@ struct Problem {
 // A block: tile (blockIdx.z, blockIdx.y) of C, k-tiles [blockIdx.x *
 // kt_split, ...) of K; the cluster is the blocks along x. Epi supplies
 //   Epi::transform(ep, float4& v, m, k): A[m, k .. k + 3] as loaded -> A'
-//     (float32 only);
+//     (float32);
+//   Epi::transform_bf16(ep, uint4& v, m, k), optional: A[m, k .. k + 7]
+//     as loaded -> A' (bf16), where Epi::masks(ep);
 //   Epi::cols(ep, p, n_tile, lane) -> Epi::Cols: what a lane's columns of
 //     the tile need, loaded once for all its rows;
 //   Epi::row(ep, p, cols, m, n_tile, lane, float4 c): C[m, n_tile * BN +
@@ -126,7 +142,6 @@ __global__ void __launch_bounds__(THREADS, 1)
                   const __grid_constant__ CUtensorMap bmap, const Problem p,
                   const typename Epi::Params ep) {
   using P = Prec<T>;
-  static_assert(ROUTE == kTma || sizeof(T) == 4, "cp.async pieces are whole values");
   constexpr int S = P::STAGES;
   constexpr int LAG = P::LAG;
   // k-tiles in flight: step i refills the stage of step i - LAG, whose
@@ -134,6 +149,9 @@ __global__ void __launch_bounds__(THREADS, 1)
   constexpr int AHEAD = S - LAG;
   constexpr int STAGE = P::TILES * TILE;
   constexpr int EPR = ROW / sizeof(T);  // elements of K per k-tile
+  constexpr int EPC = 16 / sizeof(T);   // elements of K per 16-byte chunk
+  // elements of K per cp.async piece (the route keeps K a multiple of it)
+  constexpr int EPP = ROUTE / sizeof(T);
   extern __shared__ unsigned char smem_raw[];
   // the swizzle pattern repeats every 1024 bytes: align the tiles to it
   unsigned char* const smem =
@@ -181,13 +199,13 @@ __global__ void __launch_bounds__(THREADS, 1)
         const int q = tid + (i % CHUNKS) * THREADS;
         const int row = (is_a ? m0 : n0) + q / 8;
         const bool row_ok = row < (is_a ? p.M : p.N);
-        const float* const src = static_cast<const float*>(is_a ? p.a : p.b) +
-                                 (row_ok ? (size_t)row * p.K : 0);
+        const T* const src = static_cast<const T*>(is_a ? p.a : p.b) +
+                             (row_ok ? (size_t)row * p.K : 0);
         unsigned char* const dst =
             stage + (is_a ? 0 : TILE) + sw128_offset(q / 8, 16 * (q % 8));
 #pragma unroll
         for (int j = 0; j < 16 / ROUTE; ++j) {
-          const int k = k0 + 4 * (q % 8) + j * (ROUTE / 4);
+          const int k = k0 + EPC * (q % 8) + j * EPP;
           const bool ok = row_ok && k < p.K;
           cp_async_small<ROUTE>(dst + j * ROUTE, src + (ok ? k : 0), ok);
         }
@@ -220,6 +238,25 @@ __global__ void __launch_bounds__(THREADS, 1)
         *lo = l;
       }
       fence_proxy_async();
+    } else {
+      bool wrote = ROUTE != kTma;  // cp.async writes are the generic proxy's
+      if constexpr (TransformsBf16<Epi>::value) {
+        if (Epi::masks(ep)) {
+          unsigned char* const stage = smem + (it % S) * STAGE;
+          const int k0 = (kt0 + it) * EPR;
+#pragma unroll
+          for (int i = 0; i < CHUNKS; ++i) {  // A's chunks only
+            const int q = tid + i * THREADS;
+            uint4* const c =
+                reinterpret_cast<uint4*>(stage + sw128_offset(q / 8, 16 * (q % 8)));
+            uint4 v = *c;
+            Epi::transform_bf16(ep, v, m0 + q / 8, k0 + EPC * (q % 8));
+            *c = v;
+          }
+          wrote = true;
+        }
+      }
+      if (wrote) fence_proxy_async();
     }
   };
 
@@ -388,14 +425,15 @@ bool encode_operand(CUtensorMap* map, const void* base, int rows, int K) {
 
 // The route the operands' alignment allows: TMA when every row starts on a
 // 16-byte boundary, else cp.async in the largest piece (8 or 4 bytes) that
-// keeps every copy aligned.
+// keeps every copy aligned; 0 when no piece does (bf16 rows of an odd K).
 template <typename T>
 int route_of(const void* a, const void* b, int K) {
   const uintptr_t bases = reinterpret_cast<uintptr_t>(a) | reinterpret_cast<uintptr_t>(b);
   const size_t row = (size_t)K * sizeof(T);
   if (row % 16 == 0 && bases % 16 == 0) return kTma;
   if (row % 8 == 0 && bases % 8 == 0) return kCp8;
-  return kCp4;
+  if (row % 4 == 0 && bases % 4 == 0) return kCp4;
+  return 0;
 }
 
 template <typename T, int ROUTE, class Epi>
@@ -431,11 +469,9 @@ cudaError_t launch(const Problem& p, const typename Epi::Params& ep,
   if (p.M <= 0 || p.N <= 0 || p.K <= 0) return cudaErrorInvalidValue;
   const int route = route_of<T>(p.a, p.b, p.K);
   if (route == kTma) return launch_route<T, kTma, Epi>(p, ep, stream);
-  if constexpr (sizeof(T) == 4) {
-    if (route == kCp8) return launch_route<T, kCp8, Epi>(p, ep, stream);
-    return launch_route<T, kCp4, Epi>(p, ep, stream);
-  }
-  return cudaErrorInvalidValue;  // a bf16 operand TMA cannot describe
+  if (route == kCp8) return launch_route<T, kCp8, Epi>(p, ep, stream);
+  if (route == kCp4) return launch_route<T, kCp4, Epi>(p, ep, stream);
+  return cudaErrorInvalidValue;  // rows no 4-byte piece can copy
 }
 
 }  // namespace splitk

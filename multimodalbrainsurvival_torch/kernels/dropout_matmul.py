@@ -28,10 +28,18 @@ input is data), from the single form. ``W`` is in the ``nn.Linear`` layout
 (N, K). The two products of the backward stay ``torch.matmul``: the JAX
 package computed them outside Pallas too.
 
+Each kernel takes float32 or bfloat16 (the joint model's RNA encoder in
+``compute_dtype: "bfloat16"``), ``x`` and ``W`` in one dtype: a kept bf16
+value is ``float32(x)·s`` rounded once to bf16, K2a multiplies the bf16
+values with float32 sums into a float32 output, K2b writes bf16. In bf16
+the backward's products run in bf16 (float32 sums), so dx and dW come out
+in the inputs' dtype, as JAX's autodiff of a bf16 layer gives them.
+
 ``dropout_matmul``, ``seeded_dropout`` and ``seeded_dropout_pair`` dispatch
 on the device of their input: a CPU tensor goes to the plain version; a
 CUDA tensor launches the kernel or raises. Each wrapper's ``launches``
-counts its kernel's launches.
+counts its kernel's launches, in either dtype, and ``bf16_launches`` those
+of its bf16 form.
 """
 
 from __future__ import annotations
@@ -81,12 +89,14 @@ def keep_mask(rows: int, cols: int, seed: int, p: float,
 
 def seeded_dropout_plain(x: torch.Tensor, seed: int, p: float) -> torch.Tensor:
     """(M, K) ``x`` with the mask of ``seed`` applied and the kept values
-    scaled; ``x`` itself at ``p == 0``."""
+    scaled (in float32, rounded once to ``x``'s dtype); ``x`` itself at
+    ``p == 0``."""
     if p == 0:
         return x
     keep = keep_mask(x.shape[0], x.shape[1], seed, p, x.device)
     scale = torch.tensor(keep_scale(p), device=x.device)
-    return torch.where(keep, x * scale, torch.zeros((), device=x.device))
+    return torch.where(keep, (x.float() * scale).to(x.dtype),
+                       torch.zeros((), dtype=x.dtype, device=x.device))
 
 
 def seeded_dropout_pair_plain(a: torch.Tensor, b: torch.Tensor, seed: int,
@@ -98,23 +108,30 @@ def seeded_dropout_pair_plain(a: torch.Tensor, b: torch.Tensor, seed: int,
 def dropout_matmul_plain(x: torch.Tensor, weight: torch.Tensor, seed: int,
                          p: float) -> torch.Tensor:
     """(M, K) ``x`` masked and scaled, times the (N, K) ``weight``
-    transposed → (M, N)."""
-    return seeded_dropout_plain(x, seed, p) @ weight.t()
+    transposed → (M, N) float32: the product in float32 of the values in
+    their dtype."""
+    return seeded_dropout_plain(x, seed, p).float() @ weight.float().t()
+
+
+#: the C entries' suffix per dtype
+_SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
 
 def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Declare the C entry points' signatures on a built library."""
-    lib.dropout_matmul_f32.argtypes = (
-        [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
-        + [ctypes.c_uint32, ctypes.c_uint32, ctypes.c_float, ctypes.c_int,
-           ctypes.c_void_p]
-    )
-    lib.dropout_matmul_f32.restype = ctypes.c_int
     mask = [ctypes.c_uint32, ctypes.c_uint32, ctypes.c_float, ctypes.c_void_p]
-    lib.seeded_dropout_f32.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2 + mask
-    lib.seeded_dropout_f32.restype = ctypes.c_int
-    lib.seeded_dropout_pair_f32.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + mask
-    lib.seeded_dropout_pair_f32.restype = ctypes.c_int
+    for suffix in _SUFFIX.values():
+        fn = getattr(lib, f"dropout_matmul_{suffix}")
+        fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
+                       + [ctypes.c_uint32, ctypes.c_uint32, ctypes.c_float, ctypes.c_int,
+                          ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        fn = getattr(lib, f"seeded_dropout_{suffix}")
+        fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2 + mask
+        fn.restype = ctypes.c_int
+        fn = getattr(lib, f"seeded_dropout_pair_{suffix}")
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + mask
+        fn.restype = ctypes.c_int
     return lib
 
 
@@ -136,8 +153,10 @@ def _check(x: torch.Tensor, p: float, *others: torch.Tensor) -> None:
         raise ValueError(f"K = {x.shape[1]} > {MAX_K}: the mask's column index "
                          "would alias")
     for t in (x, *others):
-        if t.dtype != torch.float32:
-            raise ValueError(f"the kernels take float32, got {t.dtype}")
+        if t.dtype not in _SUFFIX:
+            raise ValueError(f"the kernels take float32 or bfloat16, got {t.dtype}")
+        if t.dtype != x.dtype:
+            raise ValueError(f"all inputs must be {x.dtype}, got {t.dtype}")
         if t.device != x.device:
             raise ValueError(f"all inputs must be on {x.device}, got {t.device}")
     if x.device.type not in ("cpu", "cuda"):
@@ -145,27 +164,33 @@ def _check(x: torch.Tensor, p: float, *others: torch.Tensor) -> None:
     if x.device.type == "cuda":
         if not all(t.is_contiguous() for t in (x, *others)):
             raise ValueError("the kernels take contiguous inputs")
-        if any(t.data_ptr() % 4 for t in (x, *others)):
-            raise ValueError("the kernels take float32 inputs on 4-byte boundaries")
+        size = x.element_size()
+        if any(t.data_ptr() % size for t in (x, *others)):
+            raise ValueError(f"the kernels take {x.dtype} inputs on {size}-byte "
+                             "boundaries")
         if x.numel() >= 2**31 or any(t.numel() >= 2**31 for t in others):
             raise ValueError(f"shape {tuple(x.shape)} is beyond the kernel's range")
 
 
 def dropout_matmul(x: torch.Tensor, weight: torch.Tensor, seed: int,
                    p: float) -> torch.Tensor:
-    """K2a: (M, K) float32 ``x`` with the mask of ``seed`` at drop
-    probability ``p`` applied, times the (N, K) float32 ``weight``
-    transposed → (M, N) float32. At ``p == 0`` a plain product."""
+    """K2a: (M, K) ``x`` with the mask of ``seed`` at drop probability ``p``
+    applied, times the (N, K) ``weight`` transposed → (M, N) float32; both
+    float32 or both bfloat16 (on the card with K even). At ``p == 0`` a
+    plain product."""
     _check(x, p, weight)
     if weight.dim() != 2 or weight.shape[1] != x.shape[1]:
         raise ValueError(f"weight must be (N, {x.shape[1]}), got {tuple(weight.shape)}")
     if x.device.type == "cpu":
         return dropout_matmul_plain(x, weight, seed, p)
     (M, K), N = x.shape, weight.shape[0]
+    if x.dtype == torch.bfloat16 and (K % 2 or x.data_ptr() % 4 or weight.data_ptr() % 4):
+        raise ValueError(f"the bf16 kernel loads rows in 4-byte pieces: K = {K} must be "
+                         "even and x and weight start on 4-byte boundaries")
     out = torch.empty((M, N), dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = _library().dropout_matmul_f32(
+        err = getattr(_library(), f"dropout_matmul_{_SUFFIX[x.dtype]}")(
             x.data_ptr(), weight.data_ptr(), out.data_ptr(), M, N, K,
             int(seed) & _M32, keep_threshold(p), float(keep_scale(p)),
             int(p > 0), stream,
@@ -173,26 +198,28 @@ def dropout_matmul(x: torch.Tensor, weight: torch.Tensor, seed: int,
     if err != 0:
         raise RuntimeError(f"dropout_matmul kernel launch failed: CUDA error {err}")
     dropout_matmul.launches += 1
+    dropout_matmul.bf16_launches += x.dtype == torch.bfloat16
     return out
 
 
 def seeded_dropout(x: torch.Tensor, seed: int, p: float) -> torch.Tensor:
-    """K2b: (M, K) float32 ``x`` with the mask of ``seed`` applied and kept
-    values scaled, bit for bit as the plain version; ``x`` itself at
-    ``p == 0`` (no launch)."""
+    """K2b: (M, K) float32 or bfloat16 ``x`` with the mask of ``seed``
+    applied and kept values scaled, bit for bit as the plain version; ``x``
+    itself at ``p == 0`` (no launch)."""
     _check(x, p)
     if x.device.type == "cpu" or p == 0:
         return seeded_dropout_plain(x, seed, p)
     out = torch.empty_like(x)
-    _launch("seeded_dropout", x.device, x.data_ptr(), out.data_ptr(), *x.shape,
+    _launch("seeded_dropout", x, x.data_ptr(), out.data_ptr(), *x.shape,
             seed=seed, p=p)
     seeded_dropout.launches += 1
+    seeded_dropout.bf16_launches += x.dtype == torch.bfloat16
     return out
 
 
 def seeded_dropout_pair(a: torch.Tensor, b: torch.Tensor, seed: int,
                         p: float) -> tuple[torch.Tensor, torch.Tensor]:
-    """K2b's paired form: two (M, K) float32 tensors with the one mask of
+    """K2b's paired form: two (M, K) tensors of one dtype with the one mask of
     ``seed`` applied, in one launch that hashes each mask value once; bit
     for bit ``seeded_dropout`` of each. ``(a, b)`` themselves at ``p == 0``
     (no launch)."""
@@ -203,26 +230,28 @@ def seeded_dropout_pair(a: torch.Tensor, b: torch.Tensor, seed: int,
     if a.device.type == "cpu" or p == 0:
         return seeded_dropout_pair_plain(a, b, seed, p)
     out_a, out_b = torch.empty_like(a), torch.empty_like(b)
-    _launch("seeded_dropout_pair", a.device, a.data_ptr(), b.data_ptr(),
+    _launch("seeded_dropout_pair", a, a.data_ptr(), b.data_ptr(),
             out_a.data_ptr(), out_b.data_ptr(), *a.shape, seed=seed, p=p)
     seeded_dropout_pair.launches += 1
+    seeded_dropout_pair.bf16_launches += a.dtype == torch.bfloat16
     return out_a, out_b
 
 
-def _launch(entry: str, device: torch.device, *args, seed: int, p: float) -> None:
-    """Call the C entry ``<entry>_f32`` with ``args``, then the mask of
-    ``seed`` at ``p`` and the current stream; raise if the launch failed."""
+def _launch(entry: str, x: torch.Tensor, *args, seed: int, p: float) -> None:
+    """Call the C entry ``<entry>_<dtype of x>`` with ``args``, then the mask
+    of ``seed`` at ``p`` and the current stream; raise if the launch
+    failed."""
+    device = x.device
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        err = getattr(_library(), f"{entry}_f32")(
+        err = getattr(_library(), f"{entry}_{_SUFFIX[x.dtype]}")(
             *args, int(seed) & _M32, keep_threshold(p), float(keep_scale(p)), stream)
     if err != 0:
         raise RuntimeError(f"{entry} kernel launch failed: CUDA error {err}")
 
 
-dropout_matmul.launches = 0
-seeded_dropout.launches = 0
-seeded_dropout_pair.launches = 0
+for _fn in (dropout_matmul, seeded_dropout, seeded_dropout_pair):
+    _fn.launches = _fn.bf16_launches = 0
 
 
 class DropoutMatmul(torch.autograd.Function):
@@ -230,7 +259,9 @@ class DropoutMatmul(torch.autograd.Function):
     backward (``_bwd``, ``dropout_matmul.py:207-218``): K2a forward, K2b on
     ``g W`` for dx and on ``x`` for dW, both in one launch of the paired
     form. dx is skipped when ``x`` needs no gradient (the data entering the
-    first layer), and then K2b's single form masks ``x`` alone."""
+    first layer), and then K2b's single form masks ``x`` alone. In bf16 the
+    float32 output's gradient is rounded to bf16 and both products run in
+    bf16 with float32 sums: dx and dW are bf16."""
 
     @staticmethod
     def forward(ctx, x, weight, seed: int, p: float):
@@ -241,7 +272,7 @@ class DropoutMatmul(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         x, weight = ctx.saved_tensors
-        g = g.contiguous()
+        g = g.to(x.dtype).contiguous()
         need_dx, need_dw = ctx.needs_input_grad[:2]
         dx = dw = None
         if need_dx and need_dw:

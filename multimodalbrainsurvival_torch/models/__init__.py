@@ -1,11 +1,16 @@
 """Models of the port: ResNet encoders (and the tanh projection on them),
-MIL aggregators and heads, the RNA MLP."""
+MIL aggregators and heads, the RNA MLP, the fusion models."""
 
 from multimodalbrainsurvival_torch.models.aggregators import (
     IdentityAggregator,
     TanhAttention,
     TransformerAggregator,
     make_aggregator,
+)
+from multimodalbrainsurvival_torch.models.fusion import (
+    BagHistopathologyRNAModel,
+    EarlyFusionMLP,
+    PatchHistopathologyRNAModel,
 )
 from multimodalbrainsurvival_torch.models.mil import (
     AggregationModel,
@@ -18,7 +23,10 @@ from multimodalbrainsurvival_torch.models.rna import RNAEncoder, RNAOnlyModel
 __all__ = [
     "AggregationModel",
     "AggregationProjectModel",
+    "BagHistopathologyRNAModel",
+    "EarlyFusionMLP",
     "IdentityAggregator",
+    "PatchHistopathologyRNAModel",
     "RESNET_CONSTRUCTORS",
     "RNAEncoder",
     "RNAOnlyModel",

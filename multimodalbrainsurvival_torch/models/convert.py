@@ -39,6 +39,18 @@ with ``fold_bn=True``, whose convolutions carry the bias
 dense_0``, ``encoder/dense_1`` and ``final`` → ``rna_mlp.1``, ``rna_mlp.4``
 and ``final_mlp.0`` (the reference's ``RNAOnlyModel`` keys).
 
+``flax_feature_to_torch`` and ``flax_joint_to_torch`` are the inverses of
+``torch_feature_to_flax`` and ``torch_joint_to_flax`` (``models/convert.py:
+193-224`` of the JAX package): ``dense_0``, ``dense_1``, ``head`` → the
+bare Sequential's ``1``, ``4``, ``7``; the joint tree's ``resnet`` (params
+and ``batch_stats``) → ``resnet.*``, ``rna_encoder/dense_{0,1}`` →
+``rna_mlp.{1,4}``, ``final`` → ``final_mlp.1``.
+
+``flax_mlp_qtree_to_torch`` carries the JAX package's int8 MLP tree
+(``quantize_mlp``: ``{"layers": [{k (in, out) int8, ws, b}]}``) into the
+port's (``models/quantize.py::pack_int8_linear``: ``k`` in the
+``nn.Linear`` layout, zero-padded to multiples of 8).
+
 ``flax_qtree_to_torch`` carries the JAX package's int8 serving tree
 (``models/quantize.py::quantize_resnet``) into the port's layout
 (``multimodalbrainsurvival_torch/models/quantize.py``): the same keys, HWIO
@@ -143,14 +155,50 @@ _RNA_LINEARS = {("encoder", "dense_0"): "rna_mlp.1",
 def flax_rna_to_torch(params: Mapping) -> dict[str, torch.Tensor]:
     """The JAX package's ``RNAOnlyModel`` params (numpy leaves) → the
     port's ``state_dict``."""
+    return _linears_to_torch(params, _RNA_LINEARS)
+
+
+def _linears_to_torch(params: Mapping, names: Mapping[tuple, str]) -> dict[str, torch.Tensor]:
+    """flax Dense params at each path of ``names`` → ``<name>.weight``
+    (out, in) and ``<name>.bias``."""
     state: dict[str, torch.Tensor] = {}
-    for path, name in _RNA_LINEARS.items():
+    for path, name in names.items():
         dense = params
         for key in path:
             dense = dense[key]
         state[f"{name}.weight"] = torch.tensor(np.asarray(dense["kernel"], np.float32).T)
         state[f"{name}.bias"] = torch.tensor(np.asarray(dense["bias"], np.float32))
     return state
+
+
+def flax_feature_to_torch(params: Mapping) -> dict[str, torch.Tensor]:
+    """The JAX package's ``EarlyFusionMLP`` params (numpy leaves) → the
+    port's (and the reference's) ``state_dict``."""
+    return _linears_to_torch(params, {("dense_0",): "1", ("dense_1",): "4",
+                                      ("head",): "7"})
+
+
+def flax_joint_to_torch(params: Mapping, batch_stats: Mapping | None = None
+                        ) -> dict[str, torch.Tensor]:
+    """The JAX package's ``BagHistopathologyRNAModel`` variables (numpy
+    leaves) → the port's ``state_dict``."""
+    state = flax_mil_to_torch({"resnet": params["resnet"]},
+                              {"resnet": (batch_stats or {}).get("resnet", {})})
+    state.update(_linears_to_torch(params, {
+        ("rna_encoder", "dense_0"): "rna_mlp.1", ("rna_encoder", "dense_1"): "rna_mlp.4",
+        ("final",): "final_mlp.1"}))
+    return state
+
+
+def flax_mlp_qtree_to_torch(qtree: Mapping) -> dict:
+    """The JAX package's int8 MLP qtree (numpy leaves) → the port's."""
+    from multimodalbrainsurvival_torch.models.quantize import pack_int8_linear
+
+    return {"layers": [
+        pack_int8_linear(torch.from_numpy(np.ascontiguousarray(np.asarray(lp["k"]).T)),
+                         torch.tensor(np.asarray(lp["ws"], np.float32)),
+                         torch.tensor(np.asarray(lp["b"], np.float32)))
+        for lp in qtree["layers"]]}
 
 
 def _qconv_to_torch(cp: Mapping) -> dict[str, torch.Tensor]:

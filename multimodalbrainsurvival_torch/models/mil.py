@@ -32,6 +32,18 @@ def masked_bag_mean(x: torch.Tensor, mask: torch.Tensor | None) -> torch.Tensor:
     return (x * m).sum(dim=1) / n
 
 
+def bag_patch_features(resnet: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    """(B, bag, C, H, W) → (B, bag, D) float32 per-patch embeddings of
+    ``resnet``; a folded Bottleneck ResNet through the fused stages."""
+    B, bag = x.shape[:2]
+    flat = x.reshape((B * bag,) + x.shape[2:])
+    if takes_fused_stages(resnet):
+        feats = fused_folded_extract(resnet, flat)
+    else:
+        feats = resnet.extract(flat)
+    return feats.reshape(B, bag, -1)
+
+
 class AggregationModel(nn.Module):
     def __init__(self, resnet: nn.Module, aggregator: nn.Module,
                  out_features: int = 1):
@@ -42,13 +54,7 @@ class AggregationModel(nn.Module):
 
     def patch_features(self, x: torch.Tensor) -> torch.Tensor:
         """(B, bag, C, H, W) → (B, bag, D) float32 per-patch embeddings."""
-        B, bag = x.shape[:2]
-        flat = x.reshape((B * bag,) + x.shape[2:])
-        if takes_fused_stages(self.resnet):
-            feats = fused_folded_extract(self.resnet, flat)
-        else:
-            feats = self.resnet.extract(flat)
-        return feats.reshape(B, bag, -1)
+        return bag_patch_features(self.resnet, x)
 
     def extract(self, x, mask=None):
         """(B, bag, C, H, W) → ((B, D) bag embedding, (B, bag) attention)."""

@@ -1,9 +1,10 @@
-"""int8 (W8A8) post-training quantization of the ResNet serving path.
+"""int8 (W8A8) post-training quantization of the ResNet and RNA MLP serving
+paths.
 
-Counterpart of ``multimodalbrainsurvival_tpu/models/quantize.py:46-365,
-452-478``: int8 serving and the int8 frozen trunk of training
-(``quantized_trunk``, ``quantize_trunk_for_training``; the RNA MLP comes
-with its slice, ROADMAP.md). The scheme is the JAX package's:
+Counterpart of ``multimodalbrainsurvival_tpu/models/quantize.py:46-478``:
+int8 serving, the int8 frozen trunk of training (``quantized_trunk``,
+``quantize_trunk_for_training``) and the int8 RNA MLP (``quantize_mlp``,
+``quantized_mlp``, below). The ResNet's scheme is the JAX package's:
 
 - **weights**: symmetric int8 with a per-output-channel scale, from the
   BN-folded kernels (``models/folding.py``);
@@ -296,3 +297,106 @@ def quantize_mil_resnet(resnet: torch.nn.Module, patch_bags_u8, *,
                                dtype=torch.float32)
         dicts.append(float_extract_amax(state, x, arch=arch)[1])
     return quantize_resnet(state, merge_amax(dicts), arch=arch)
+
+
+# --- int8 RNA MLP -------------------------------------------------------------
+#
+# The JAX package's W8A8 Dense stack (``models/quantize.py:386-451``) for
+# the RNA encoder: symmetric int8 weights with per-output-channel scales
+# and DYNAMIC per-row activation scales (a row's abs-max / 127, so nothing
+# is calibrated and nothing clips), int8 x int8 -> int32 products, and the
+# dequant (+ relu) + requant epilogue in plain PyTorch in the JAX order.
+# The product is one library call, ``torch._int_mm``, as the JAX package's
+# is an int32 ``dot_general`` outside any Pallas kernel. On the card it
+# takes M > 16 rows and K and N multiples of 8, which padding gives without
+# changing a sum: the int8 weight gets zero columns once, at quantize time
+# (dense_0's K 12,778 -> 12,784; zero rows where N is not a multiple of 8),
+# each quantized ``x`` the same zero columns, and a batch of 16 rows or
+# fewer zero rows, sliced off the product. The CPU runs the same padded
+# call, so card and CPU give equal int32 products.
+
+#: torch._int_mm on the card: K and N multiples of this, more than MIN_M rows
+INT_MM_ALIGN, INT_MM_MIN_M = 8, 16
+
+
+def _pad_to(n: int, multiple: int) -> int:
+    return -n % multiple
+
+
+def _over_127(t: torch.Tensor) -> torch.Tensor:
+    """``t / 127`` rounded as IEEE float32 division on any device: PyTorch
+    divides a CUDA tensor by a Python number as a product with its
+    reciprocal, which moves some scales by an ulp from the CPU's (and the
+    JAX package's) and with them some int8 values."""
+    return t / torch.full((), 127.0, device=t.device)
+
+
+def pack_int8_linear(kq: torch.Tensor, ws: torch.Tensor, b: torch.Tensor) -> dict:
+    """An (N, K) int8 weight in the ``nn.Linear`` layout with its (N,)
+    scales and bias → one layer of the int8 MLP's qtree: ``{"k": (N', K')
+    int8, "ws": (N,) float32, "b": (N,) float32}``, ``k`` zero-padded to
+    multiples of 8 rows and columns."""
+    k = F.pad(kq.to(torch.int8), (0, _pad_to(kq.shape[1], INT_MM_ALIGN),
+                                  0, _pad_to(kq.shape[0], INT_MM_ALIGN)))
+    return {"k": k.contiguous(), "ws": ws.float(), "b": b.float()}
+
+
+def _quantize_linear(weight: torch.Tensor, bias: torch.Tensor) -> dict:
+    """An ``nn.Linear``'s float (N, K) weight and bias → a qtree layer:
+    symmetric int8 with a per-output-channel scale (the abs-max over dim 1,
+    the JAX (K, N) kernel's axis 0), round half to even."""
+    w = weight.detach().float()
+    ws = _over_127(torch.clamp(w.abs().amax(dim=1), min=EPS))
+    kq = torch.round(w / ws[:, None]).clamp(-127, 127).to(torch.int8)
+    return pack_int8_linear(kq, ws, bias.detach())
+
+
+def quantize_mlp(linears) -> dict:
+    """``nn.Linear`` layers in order → the int8 serving qtree ``{"layers":
+    [{k, ws, b}, ...]}`` on their device (activation scales are dynamic:
+    nothing to calibrate)."""
+    return {"layers": [_quantize_linear(m.weight, m.bias) for m in linears]}
+
+
+def quantize_rna_encoder(encoder: torch.nn.Module) -> dict:
+    """The qtree of an ``RNAEncoder``'s Linear layers (JAX
+    ``quantize_rna_encoder``); the Cox head or the fusion tail stays
+    float."""
+    return quantize_mlp([m for m in encoder if isinstance(m, torch.nn.Linear)])
+
+
+def _requant_rows(y: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Dynamic per-row symmetric int8: ``(y_q int8, s_row (B,) float32)``
+    with ``y ≈ y_q · s_row[:, None]``; no calibration, no clipping."""
+    s = _over_127(torch.clamp(y.abs().amax(dim=-1), min=EPS))
+    y_q = torch.round(y / s[:, None]).clamp(-127, 127).to(torch.int8)
+    return y_q, s
+
+
+def int8_matmul(x_q: torch.Tensor, k: torch.Tensor, n: int) -> torch.Tensor:
+    """(M, K) int8 ``x_q`` times a padded (N', K') int8 weight ``k``
+    transposed → the (M, n) int32 product, through ``torch._int_mm`` with
+    ``x_q`` padded to K' columns and past ``INT_MM_MIN_M`` rows."""
+    M = x_q.shape[0]
+    a = F.pad(x_q, (0, k.shape[1] - x_q.shape[1], 0, max(0, INT_MM_MIN_M + 1 - M)))
+    return torch._int_mm(a.contiguous(), k.t())[:M, :n]
+
+
+def _int8_linear(lp: dict, x_q: torch.Tensor, s_row: torch.Tensor) -> torch.Tensor:
+    """One layer of the int8 stack: the (M, K) int8 input with its (M,) row
+    scales times the layer's int8 weight, then the epilogue ``y32 ·
+    (s_row[:, None] · ws) + b`` in the JAX order → (M, N) float32."""
+    y32 = int8_matmul(x_q, lp["k"], lp["ws"].shape[0])
+    return y32.float() * (s_row[:, None] * lp["ws"][None, :]) + lp["b"]
+
+
+def quantized_mlp(qtree: dict, x: torch.Tensor) -> torch.Tensor:
+    """(B, F) float input → (B, D) float32 output through the int8 stack:
+    every activation an int8 tensor with a per-row scale, each layer
+    ``_int8_linear`` (then relu and requant between layers), the JAX
+    order, so that with one qtree the two stacks agree to float32
+    rounding."""
+    y = x.float()
+    for i, lp in enumerate(qtree["layers"]):
+        y = _int8_linear(lp, *_requant_rows(F.relu(y) if i else y))
+    return y

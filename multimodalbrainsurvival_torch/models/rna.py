@@ -10,8 +10,16 @@ Dropout, Linear(4096, 2048))`` and ``final_mlp = Sequential(Linear(2048,
 In train mode each Dropout → Linear pair runs as one ``DropoutMatmul``
 (K2: the mask hashed inside the product, regenerated in the backward) with
 the ``nn.Dropout``'s ``p``, and one seed per layer per call, drawn from the
-caller's ``torch.Generator``; that is the only way train mode reaches the
-Linear layers. In eval mode each Linear is ``F.linear``.
+caller's ``torch.Generator`` (or given as ``seed``); that is the only way
+train mode reaches the Linear layers. In eval mode each Linear is
+``F.linear``.
+
+The encoder computes in ``dtype``, as the JAX ``RNAEncoder(dtype=...)``
+does: float32 (``rna_train``), or bfloat16 (the joint model under
+``compute_dtype: "bfloat16"``), where the input and the float32 weights are
+cast to bf16 each call (the casts carry the gradient to the float32
+leaves), each layer's float32 product is rounded to bf16 and its bias
+added in bf16 (flax ``Dense(dtype=bf16)``), and the output is float32.
 """
 
 from __future__ import annotations
@@ -28,11 +36,47 @@ from multimodalbrainsurvival_torch.kernels.dropout_matmul import DropoutMatmul
 RNA_GENES = 12778
 
 
+def draw_seed(generator: torch.Generator | None) -> int:
+    """A 31-bit base seed for K2's masks from ``generator`` (the default CPU
+    generator for None). A draw from a CUDA generator waits for the card:
+    the callers draw before they queue a step's work."""
+    device = generator.device if generator is not None else "cpu"
+    return int(torch.randint(0, 2**31, (), generator=generator, device=device))
+
+
+def dropout_linears(layers: nn.Sequential, y: torch.Tensor, training: bool,
+                    base: int | None, dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Run a ``Dropout → Linear (→ activation …)`` stack on ``y``: in train
+    mode each Dropout → Linear pair as one ``DropoutMatmul`` seeded ``base
+    + i`` for the i-th Linear (distinct seeds: equal seeds would give equal
+    masks on the columns the layers share), its float32 product rounded to
+    ``dtype`` and the bias added in ``dtype``; in eval mode ``F.linear`` in
+    ``dtype``. The operands are cast to ``dtype`` (bf16 or float32)."""
+    y = y.to(dtype)
+    p, layer = 0.0, 0
+    for m in layers:
+        if isinstance(m, nn.Dropout):
+            p = m.p
+        elif isinstance(m, nn.Linear):
+            w, b = m.weight.to(dtype), m.bias.to(dtype)
+            if training:
+                y = DropoutMatmul.apply(y.contiguous(), w.contiguous(), base + layer,
+                                        p).to(dtype) + b
+            else:
+                y = F.linear(y, w, b)
+            p, layer = 0.0, layer + 1
+        else:
+            y = m(y)
+    return y
+
+
 class RNAEncoder(nn.Sequential):
-    """``Dropout → Linear → ReLU → Dropout → Linear`` (float32)."""
+    """``Dropout → Linear → ReLU → Dropout → Linear`` in ``dtype``
+    (float32 output)."""
 
     def __init__(self, in_features: int = RNA_GENES,
-                 hidden_dims: Sequence[int] = (4096, 2048), dropout: float = 0.5):
+                 hidden_dims: Sequence[int] = (4096, 2048), dropout: float = 0.5,
+                 dtype: torch.dtype = torch.float32):
         layers: list[nn.Module] = []
         dims = [in_features, *hidden_dims]
         for i, (d_in, d_out) in enumerate(zip(dims[:-1], dims[1:])):
@@ -41,27 +85,16 @@ class RNAEncoder(nn.Sequential):
             layers += [nn.Dropout(dropout), nn.Linear(d_in, d_out)]
         super().__init__(*layers)
         self.out_features = dims[-1]
+        self.dtype = dtype
 
-    def forward(self, x: torch.Tensor, generator: torch.Generator | None = None
-                ) -> torch.Tensor:
-        y = x.float()
+    def forward(self, x: torch.Tensor, generator: torch.Generator | None = None,
+                seed: int | None = None) -> torch.Tensor:
+        """Train mode: the layers' masks from ``seed`` (its ``base``), else
+        from a seed drawn from ``generator``."""
+        base = None
         if self.training:
-            # distinct seeds per layer: equal seeds would give equal masks
-            # on the columns the layers share
-            base = int(torch.randint(0, 2**31, (), generator=generator))
-        p, layer = 0.0, 0
-        for m in self:
-            if isinstance(m, nn.Dropout):
-                p = m.p
-            elif isinstance(m, nn.Linear):
-                if self.training:
-                    y = DropoutMatmul.apply(y, m.weight, base + layer, p) + m.bias
-                else:
-                    y = F.linear(y, m.weight, m.bias)
-                p, layer = 0.0, layer + 1
-            else:
-                y = m(y)
-        return y
+            base = seed if seed is not None else draw_seed(generator)
+        return dropout_linears(self, x, self.training, base, self.dtype).float()
 
 
 class RNAOnlyModel(nn.Module):

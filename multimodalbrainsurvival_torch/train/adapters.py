@@ -1,13 +1,15 @@
 """Model adapters between host batches and the models.
 
-Counterpart of ``multimodalbrainsurvival_tpu/train/adapters.py:35-69,
-104-364`` (``TableAdapter``, ``MILAdapter``, ``QuantizedMILAdapter``,
-``QuantTrunkMILAdapter``): they know which batch keys are device tensors,
-move them to the model's device, run the preprocessing on the device
-(``ops/image.py``) and apply the model. ``TableAdapter`` (the RNA MLP) and
-``MILAdapter`` train and evaluate; in train mode ``MILAdapter`` adds the
-flips and colour jitter when ``augment`` is on. ``QuantTrunkMILAdapter``
-trains with the int8 frozen trunk; ``QuantizedMILAdapter`` serves only.
+Counterpart of ``multimodalbrainsurvival_tpu/train/adapters.py`` (the
+table, MIL and joint adapters and their int8 variants): they know which
+batch keys are device tensors, move them to the model's device, run the
+preprocessing on the device (``ops/image.py``) and apply the model.
+``TableAdapter`` (the RNA MLP, the early-fusion MLP), ``MILAdapter`` and
+``JointAdapter`` (the bag and the case's ``rna_data``) train and evaluate;
+in train mode the patch adapters add the flips and colour jitter when
+``augment`` is on. ``QuantTrunkMILAdapter`` and ``QuantTrunkJointAdapter``
+train with the int8 frozen trunk; ``QuantizedTableAdapter``,
+``QuantizedMILAdapter`` and ``QuantizedJointAdapter`` serve only.
 
 Each adapter names the device of the generator that the train loop hands
 its ``apply`` (``generator_device``): the CPU for the RNA MLP's dropout
@@ -24,8 +26,10 @@ from torch import nn
 
 from multimodalbrainsurvival_torch.models.quantize import (
     quantized_extract,
+    quantized_mlp,
     quantized_trunk,
 )
+from multimodalbrainsurvival_torch.models.rna import draw_seed
 from multimodalbrainsurvival_torch.ops.image import preprocess_patches
 
 
@@ -70,6 +74,27 @@ class TableAdapter:
         """(B, D) float32 embeddings (eval mode)."""
         self.model.eval()
         return self.model.extract(arrays[self.input_key])
+
+
+@dataclass(kw_only=True)
+class QuantizedTableAdapter(TableAdapter):
+    """int8 (W8A8) serving variant for the RNA MLP (JAX ``:73``): the
+    encoder runs through ``models/quantize.quantized_mlp`` with ``qtree``,
+    the Cox head through the float model's ``from_embedding``. Eval only."""
+
+    qtree: dict
+
+    def apply(self, arrays: dict, *, train: bool = False,
+              generator: torch.Generator | None = None) -> torch.Tensor:
+        if train:
+            raise ValueError("the int8 serving adapter is eval-only")
+        self.model.eval()
+        with torch.inference_mode():
+            return self.model.from_embedding(self.extract(arrays))
+
+    @torch.inference_mode()
+    def extract(self, arrays: dict) -> torch.Tensor:
+        return quantized_mlp(self.qtree, arrays[self.input_key])
 
 
 @dataclass
@@ -201,3 +226,62 @@ class QuantTrunkMILAdapter(MILAdapter):
                                stages=self.trunk_stages, arch=self.arch,
                                dtype=resnet.dtype)
         return resnet.extract_tail(fmap, self.trunk_stages).reshape(B, bag, -1)
+
+
+class _JointInputs:
+    """What a joint adapter adds to its patch adapter: the batch's
+    ``rna_data`` beside the bag, and the model's dropout seed drawn before
+    the step queues any work (a draw from the card's generator waits for
+    the card)."""
+
+    array_keys = ("patch_bag", "bag_mask", "sample_mask", "rna_data")
+
+    def _forward(self, arrays, train, generator) -> torch.Tensor:
+        seed = draw_seed(generator) if train else None
+        feats = self.patch_features(arrays, train=train, generator=generator)
+        return self.model.from_feats(feats, arrays["rna_data"], arrays["bag_mask"],
+                                     seed=seed).float()
+
+    @torch.inference_mode()
+    def extract(self, arrays: dict) -> torch.Tensor:
+        """(B, 4096) float32 bimodal embeddings (eval mode)."""
+        self.model.eval()
+        return self.model.extract_from_feats(self.patch_features(arrays),
+                                             arrays["rna_data"],
+                                             arrays["bag_mask"]).float()
+
+
+@dataclass
+class JointAdapter(_JointInputs, MILAdapter):
+    """Bimodal patch-bag + RNA models (``BagHistopathologyRNAModel``, JAX
+    ``:355``)."""
+
+
+@dataclass(kw_only=True)
+class QuantTrunkJointAdapter(_JointInputs, QuantTrunkMILAdapter):
+    """int8 frozen-trunk training of the joint model (JAX ``:365``): the
+    frozen ResNet prefix through K3, the trainable stages, the RNA encoder
+    and the head float; zero gradients below the seam, the float
+    checkpoint layout."""
+
+
+@dataclass(kw_only=True)
+class QuantizedJointAdapter(_JointInputs, QuantizedMILAdapter):
+    """int8 (W8A8) serving of the joint model (JAX ``:380``): the per-patch
+    ResNet through K3 (``qtree``), the RNA encoder through
+    ``quantized_mlp`` (``qtree_rna``), the pool and head float
+    (``from_all_feats``). Eval only."""
+
+    qtree_rna: dict
+
+    def _all_feats(self, arrays: dict) -> tuple:
+        return (self.patch_features(arrays),
+                quantized_mlp(self.qtree_rna, arrays["rna_data"]), arrays["bag_mask"])
+
+    def _forward(self, arrays, train, generator) -> torch.Tensor:
+        return self.model.from_all_feats(*self._all_feats(arrays)).float()
+
+    @torch.inference_mode()
+    def extract(self, arrays: dict) -> torch.Tensor:
+        self.model.eval()
+        return self.model.extract_from_all_feats(*self._all_feats(arrays)).float()

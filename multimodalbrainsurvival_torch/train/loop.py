@@ -14,13 +14,17 @@ one loop for every model through its adapter (``train/adapters.py``):
 - ``train_step``: forward + backward + one optimizer step, with
   ``accumulate_steps`` interleaved microbatches ``i, i+k, …`` summed and
   divided by k (``loop.py:480-536``);
-- ``train_model``: per epoch the train dataset's ``shuffle()`` where it has
+- ``train_model``: with ``pre_training_eval`` (early fusion) the train and
+  val evals once before epoch 0, logged as epoch -1; per epoch the train
+  dataset's ``shuffle()`` where it has
   one (the patch lists inside each slide, reference ``models.py:269-272``),
   the rows shuffled with ``seed + epoch`` (the JAX package's batch order),
   train steps, train/val evals, the best model by val loss from
   ``best_from_epoch`` on, early stopping, a full train state for ``resume:
   true`` at each epoch boundary; then ``model_last`` and the last/best
-  evals on every split with their ``<split>_output_{last,best}.csv``
+  evals (the best weights only where this run, or the run it resumed, kept
+  a best; else the last) on every split with their
+  ``<split>_output_{last,best}.csv``
   frames, per WSI for ``survival_prediction`` and ``classification`` and
   per case for ``survival_bin``, as the reference's train script keeps
   them (``2_HistoPath_train.py:124-141``).
@@ -117,6 +121,10 @@ class TrainSettings:
     # event count as the GeneExpress script does (1_GeneExpress_train.py:
     # 166-171); logging only
     running_loss_weight: str = "samples"
+    # evaluate train and val once before the first epoch, logged as epoch
+    # -1, as the EarlyFusion script does (2_EarlyFusion_train.py:311-312);
+    # logging only
+    pre_training_eval: bool = False
     # k microbatches per optimizer step; batch_size % k == 0
     accumulate_steps: int = 1
     # stop once the val loss has not improved by more than min_delta for
@@ -372,6 +380,13 @@ def train_model(adapter, datasets: dict, optimizer: TrainOptimizer,
             for _ in range(shuffles_done):
                 train_set.shuffle()
 
+    if settings.pre_training_eval and start_epoch == 0:
+        for split in ("train", "val"):
+            if split in datasets:
+                split_loss, _, _ = evaluate(adapter, datasets[split], settings,
+                                            split=split, writer=writer, epoch=-1)
+                print(f"{split.upper()} Loss: {split_loss:.4f}")
+
     preempt_flag = threading.Event()
     prev_handler, handler_installed = None, False
     if save_dir and settings.emergency_checkpoint:
@@ -509,7 +524,9 @@ def train_model(adapter, datasets: dict, optimizer: TrainOptimizer,
         # a finished run: an emergency state from before is stale
         if os.path.exists(preempt_path):
             os.remove(preempt_path)
-    if best_path and os.path.exists(best_path):
+    # only a best this run kept (or a resumed run restored): a file left in
+    # save_dir by an earlier run is not this run's best
+    if best_path and best_epoch >= 0 and os.path.exists(best_path):
         print(f"LOADING BEST MODEL, best epoch = {best_epoch}")
         best_model = copy.deepcopy(model)
         best_model.load_state_dict(checkpoint.load(best_path))

@@ -11,7 +11,9 @@ coupled L2, not AdamW); the port uses it as it is, one parameter group per
 (``2_HistoPath_train.py:544-551``, JAX ``train/optim.py:182-190``): the
 first ``n_layers_to_train`` of ``fc, resnet.layer4, …, resnet.layer1,
 resnet.conv1``, plus the aggregator, train; everything else (``resnet.bn1``
-always) is frozen, and so gets no weight decay and no Adam state. Frozen
+always) is frozen, and so gets no weight decay and no Adam state. The joint
+model's ladder (``JOINT_LADDER``) is matched as the JAX package matches it
+(``path_prefix_match``), inside the ``histo`` group. Frozen
 stages still update their BatchNorm running statistics in train mode: the
 reference's quirk, which the JAX package keeps.
 
@@ -44,19 +46,45 @@ def mil_freeze_ladder(n_layers_to_train: int) -> tuple[str, ...]:
     return MIL_LADDER[: max(0, int(n_layers_to_train))] + ("aggregator.",)
 
 
+#: the joint model's freeze ladder (JAX ``cli/joint_train.py:43-45``): the
+#: ResNet's own classifier first (which the port's ResNet does not hold:
+#: it matches nothing), then the stages top down
+JOINT_LADDER = ("resnet.fc", "resnet.layer4", "resnet.layer3", "resnet.layer2",
+                "resnet.layer1", "resnet.conv1")
+
+
+def path_prefix_match(*specs: str) -> Callable[[str], bool]:
+    """Matcher of ``.``-joined parameter names, as the JAX package's
+    ``path_prefix_match`` matches ``/``-joined paths: every segment of a
+    spec but the last matches a name's segment exactly, the last is a
+    prefix of the name's segment there (``resnet.layer4`` matches
+    ``resnet.layer4.0.conv1.weight``)."""
+    parsed = [spec.split(".") for spec in specs]
+
+    def match(name: str) -> bool:
+        path = name.split(".")
+        return any(len(path) >= len(seg) and path[:len(seg) - 1] == seg[:-1]
+                   and path[len(seg) - 1].startswith(seg[-1]) for seg in parsed)
+
+    return match
+
+
 def build_grouped_optimizer(
     model: nn.Module,
-    groups: Sequence[tuple[str, str | tuple[str, ...], float]],
+    groups: Sequence[tuple[str, str | tuple[str, ...] | Callable[[str], bool], float]],
     weight_decay: float = 0.0,
 ) -> torch.optim.Adam:
     """Adam over the parameters of ``model`` whose names start with a
-    group's prefix (or one of its prefixes; the first matching group wins),
-    each group at its own LR, all with torch's coupled ``weight_decay``.
-    Unmatched parameters are frozen."""
+    group's prefix (or one of its prefixes, or that its matcher takes; the
+    first matching group wins), each group at its own LR, all with torch's
+    coupled ``weight_decay``. Unmatched parameters are frozen."""
     params: dict[str, list] = {name: [] for name, _, _ in groups}
+
+    def matches(spec, pname: str) -> bool:
+        return spec(pname) if callable(spec) else pname.startswith(spec)
+
     for pname, p in model.named_parameters():
-        group = next((name for name, prefix, _ in groups
-                      if pname.startswith(prefix)), None)
+        group = next((name for name, spec, _ in groups if matches(spec, pname)), None)
         if group is None:
             p.requires_grad_(False)
         else:

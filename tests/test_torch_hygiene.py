@@ -13,9 +13,13 @@ import torch
 
 import multimodalbrainsurvival_torch
 from multimodalbrainsurvival_torch.cli import (
+    feature_savescore,
+    feature_train,
     histo_extractfeatures,
     histo_savescore,
     histo_train,
+    joint_savescore,
+    joint_train,
     rna_extractfeatures,
     rna_savescore,
     rna_train,
@@ -46,7 +50,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     assert "multimodalbrainsurvival_torch.models.quantize" in modules
     for name in ("kernels.dropout_matmul", "models.rna", "data.tables", "train.optim",
                  "train.checkpoint", "cli.rna_train", "cli.rna_savescore",
-                 "cli.rna_extractfeatures", "kernels.fused_stage", "models.serving"):
+                 "cli.rna_extractfeatures", "kernels.fused_stage", "models.serving",
+                 "models.fusion", "cli.feature_train", "cli.feature_savescore",
+                 "cli.joint_train", "cli.joint_savescore"):
         assert f"multimodalbrainsurvival_torch.{name}" in modules
     code = (
         "import importlib, json, sys\n"
@@ -64,6 +70,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
 @pytest.mark.parametrize("main", [
     histo_savescore.main, histo_extractfeatures.main, rna_train.main,
     rna_savescore.main, rna_extractfeatures.main, histo_train.main,
+    feature_train.main, feature_savescore.main, joint_train.main, joint_savescore.main,
 ])
 def test_cli_without_card_raises_unless_cpu_asked(main, tmp_path, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

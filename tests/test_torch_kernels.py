@@ -459,7 +459,27 @@ DM_SHAPES = {
     "k300_1200_byte_rows": (128, 300, 256),
     "k301_odd_4_byte_route": (77, 301, 200),
     "k302_even_8_byte_route": (64, 302, 130),
+    # early fusion (batch 256: 4,096 -> 2,048 -> 200 -> 1) and the joint
+    # model's head (batch 128, 4,096 -> 1)
+    "early_dense_0": (256, 4096, 2048),
+    "early_dense_1": (256, 2048, 200),
+    "early_head": (256, 200, 1),
+    "joint_head": (128, 4096, 1),
 }
+# K2a in bf16 (the joint model's RNA encoder, batch 128): dense_0's rows of
+# 25,556 bytes take cp.async in 4-byte pieces, dense_1's TMA; a ragged
+# shape of each route (1,208-byte rows: 8-byte pieces)
+DM_BF16_SHAPES = {
+    "joint_dense_0": (128, 12778, 4096),
+    "joint_dense_1": (128, 4096, 2048),
+    "ragged_37x302x65_4_byte_route": (37, 302, 65),
+    "ragged_64x604x130_8_byte_route": (64, 604, 130),
+    "ragged_77x304x200_tma": (77, 304, 200),
+}
+# the bf16 product vs the plain version (the product in float32 of the same
+# bf16 values): float32 sums in another order, within 1e-4 of the scale (an
+# output rounded to bf16 would miss it by 20x)
+DM_BF16_TOL = 1e-4
 
 
 def _dm_inputs(M, K, N, device, seed=0):
@@ -630,6 +650,145 @@ def test_dropout_matmul_kernel_rejects_bad_inputs(cuda):
         seeded_dropout_pair(x, x.cpu(), 1, 0.5)
     with pytest.raises(ValueError, match="contiguous"):
         seeded_dropout_pair(x, x.t().contiguous().t(), 1, 0.5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("p", [0.0, 0.5])
+@pytest.mark.parametrize("name", sorted(DM_BF16_SHAPES))
+def test_dropout_matmul_bf16_kernel_matches_plain(cuda, name, p):
+    x, w, _ = _dm_inputs(*DM_BF16_SHAPES[name], cuda)
+    x, w = x.bfloat16(), w.bfloat16()
+    before = dropout_matmul.launches
+    out = dropout_matmul(x, w, 20240607, p)
+    torch.cuda.synchronize()
+    assert dropout_matmul.launches == before + 1 and out.dtype == torch.float32
+    want = dropout_matmul_plain(x, w, 20240607, p)
+    scale = want.abs().max().item()
+    assert (out - want).abs().max().item() <= DM_BF16_TOL * scale
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("p", [0.1, 0.5, 0.8])
+@pytest.mark.parametrize("shape", K2B_SHAPES)
+def test_seeded_dropout_bf16_kernels_equal_plain(cuda, shape, p):
+    """K2b's single and paired bf16 forms, bit for bit: the kept values
+    scaled in float32 and rounded once to bf16."""
+    g = torch.Generator().manual_seed(7)
+    a, b = (torch.randn(shape, generator=g).bfloat16().to(cuda) for _ in range(2))
+    before = (seeded_dropout.launches, seeded_dropout_pair.launches)
+    out = seeded_dropout(a, -12345, p)
+    out_a, out_b = seeded_dropout_pair(a, b, -12345, p)
+    torch.cuda.synchronize()
+    assert (seeded_dropout.launches, seeded_dropout_pair.launches) == (
+        before[0] + 1, before[1] + 1)
+    want = seeded_dropout_plain(a, -12345, p)
+    assert out.dtype == torch.bfloat16 and torch.equal(out, want)
+    assert torch.equal(out_a, want)
+    assert torch.equal(out_b, seeded_dropout_plain(b, -12345, p))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shifts", [(1, 0), (2, 3), (5, 5), (7, 4)])
+@pytest.mark.parametrize("shape", [(128, 4096), (128, 12778), (37, 300)])
+def test_seeded_dropout_bf16_kernels_take_misaligned_inputs(cuda, shape, shifts):
+    """bf16 inputs starting 2-14 bytes past a 16-byte boundary: the pieces
+    narrow to what the bases share, and the values are the plain ones."""
+    g = torch.Generator().manual_seed(8)
+    a, b = (torch.randn(shape, generator=g).bfloat16().to(cuda) for _ in range(2))
+    sa, sb = (_shifted_as(t, s) for t, s in zip((a, b), shifts))
+    out = seeded_dropout(sa, 3, 0.5)
+    out_a, out_b = seeded_dropout_pair(sa, sb, 3, 0.5)
+    torch.cuda.synchronize()
+    assert torch.equal(out, seeded_dropout_plain(a, 3, 0.5))
+    assert torch.equal(out_a, seeded_dropout_plain(a, 3, 0.5))
+    assert torch.equal(out_b, seeded_dropout_plain(b, 3, 0.5))
+
+
+def _shifted_as(x, values):
+    """A contiguous copy of ``x`` starting ``values`` elements past a fresh
+    allocation, in ``x``'s dtype."""
+    base = torch.empty(x.numel() + values, dtype=x.dtype, device=x.device)
+    out = base[values:].view(x.shape)
+    out.copy_(x)
+    return out
+
+
+# every shape K2a runs at on the fusion paths and the RNA path, in the
+# dtype it runs there: (M, K, N, dtype)
+GRAD_ARRIVAL_SHAPES = {
+    **{name: (*DM_SHAPES[name], torch.float32)
+       for name in ("rna_dense_0", "rna_dense_1", "early_dense_0", "early_dense_1",
+                    "early_head", "joint_head")},
+    **{name: (*DM_BF16_SHAPES[name], torch.bfloat16)
+       for name in ("joint_dense_0", "joint_dense_1")},
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", sorted(GRAD_ARRIVAL_SHAPES))
+def test_dropout_matmul_gradients_reach_x_and_w(cuda, name):
+    """``DropoutMatmul`` at p = 0.5 gives x and W gradients of their dtype
+    that match autograd through the plain version (float32 1e-4; bf16 2**-7
+    of the scale: the backward's products in bf16) and are not zero."""
+    M, K, N, dtype = GRAD_ARRIVAL_SHAPES[name]
+    x, w, grad = _dm_inputs(M, K, N, cuda, seed=9)
+    x, w = x.to(dtype), w.to(dtype)
+    tx, tw = x.clone().requires_grad_(), w.clone().requires_grad_()
+    DropoutMatmul.apply(tx, tw, 79, 0.5).backward(grad)
+    px, pw = x.clone().requires_grad_(), w.clone().requires_grad_()
+    dropout_matmul_plain(px, pw, 79, 0.5).backward(grad)
+    torch.cuda.synchronize()
+    tol = 1e-4 if dtype == torch.float32 else 2**-7
+    for got, want in ((tx.grad, px.grad), (tw.grad, pw.grad)):
+        assert got.dtype == dtype and got.abs().max().item() > 0
+        scale = want.float().abs().max().item()
+        assert (got.float() - want.float()).abs().max().item() <= tol * max(scale, 1.0)
+
+
+@pytest.mark.gpu
+def test_dropout_matmul_bf16_kernel_rejects_bad_inputs(cuda):
+    x, w, _ = _dm_inputs(8, 17, 4, cuda)
+    with pytest.raises(ValueError, match="even"):
+        dropout_matmul(x.bfloat16(), w.bfloat16(), 1, 0.5)
+    with pytest.raises(ValueError, match="must be torch.bfloat16"):
+        dropout_matmul(x.bfloat16(), w, 1, 0.5)
+    with pytest.raises(ValueError, match="must be torch.float32"):
+        seeded_dropout_pair(x, x.bfloat16(), 1, 0.5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows", [256, 16, 3])
+def test_quantized_mlp_on_the_card_equals_the_cpu(cuda, rows):
+    """The int8 RNA MLP at the reference width: one qtree, equal int32
+    products on the card and the CPU (``torch._int_mm`` on K padded to
+    12,784 and, for 16 rows or fewer, M padded past 16), so outputs equal
+    to float32 rounding."""
+    from multimodalbrainsurvival_torch.models.quantize import (
+        _requant_rows,
+        int8_matmul,
+        quantize_rna_encoder,
+        quantized_mlp,
+    )
+    from multimodalbrainsurvival_torch.models.rna import RNAEncoder
+
+    torch.manual_seed(0)
+    enc = RNAEncoder()
+    x = torch.randn(rows, 12778)
+    qtree = quantize_rna_encoder(enc)
+    layer = qtree["layers"][0]
+    assert layer["k"].shape == (4096, 12784)
+    qtree_card = quantize_rna_encoder(enc.to(cuda))
+    for got, want in zip(qtree_card["layers"], qtree["layers"]):
+        for key in ("k", "ws", "b"):
+            assert torch.equal(got[key].cpu(), want[key]), key
+    x_q, s_row = _requant_rows(x)
+    x_q_card, s_row_card = _requant_rows(x.to(cuda))
+    assert torch.equal(x_q_card.cpu(), x_q) and torch.equal(s_row_card.cpu(), s_row)
+    y32 = int8_matmul(x_q_card, qtree_card["layers"][0]["k"], 4096)
+    assert torch.equal(y32.cpu(), int8_matmul(x_q, layer["k"], 4096))
+    want = quantized_mlp(qtree, x)
+    got = quantized_mlp(qtree_card, x.to(cuda)).cpu()
+    torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
 
 
 # K4: (batch, H, W, Cin, Cm, Cout = 4 Cm, blocks); block 0 has a projection

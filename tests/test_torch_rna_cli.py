@@ -295,6 +295,9 @@ def test_train_without_card_defaults_to_cuda_and_raises(cohort, tmp_path, monkey
 
 
 def test_unported_knobs_raise(cohort, tmp_path):
+    """A multi-device ``mesh`` raises (ROADMAP item 7) in training and in
+    serving; ``quantize: "int8"`` serving is ported (its parity with the
+    JAX CLIs: ``tests/test_torch_rna_int8.py``)."""
     out = tmp_path / "out"
     path = _write(tmp_path / "cfg.json", _config(cohort, out, mesh={"dp": 2}))
     with pytest.raises(NotImplementedError, match="item 7"):
@@ -302,7 +305,8 @@ def test_unported_knobs_raise(cohort, tmp_path):
     model = tmp_path / "model.pt"
     torch.save(build_rna_model(None, N_GENES).state_dict(), str(model))
     path = _write(tmp_path / "serve.json", _config(
-        cohort, out, quantize="int8", model_path=str(model), output_path=str(out)))
+        cohort, out, quantize="int8", model_path=str(model), output_path=str(out),
+        mesh={"dp": 2}))
     for main in (rna_savescore.main, rna_extractfeatures.main):
-        with pytest.raises(NotImplementedError, match="item 9"):
+        with pytest.raises(NotImplementedError, match="item 7"):
             main(["--config", path, "--device", "cpu"])

@@ -138,14 +138,13 @@ SPLITK_DTYPE = {"no_flush": torch.float32, "l2_prefetch_128": torch.float32,
 # that share of one wave's blocks; ``l2_256`` asks L2 to fetch 256 bytes
 # for each 16-byte load; ``no_hash`` (no mask) and ``empty`` (a launch that
 # does nothing) compute something else, to size the rest.
-STORE_CS = ("  *reinterpret_cast<Piece<V>*>(p) = v;\n",
-            "  if constexpr (V == 4)\n"
-            "    __stcs(reinterpret_cast<float4*>(p), make_float4(v.f[0], v.f[1], v.f[2], v.f[3]));\n"
-            "  else if constexpr (V == 2)\n"
-            "    __stcs(reinterpret_cast<float2*>(p), make_float2(v.f[0], v.f[1]));\n"
-            "  else\n"
-            "    __stcs(p, v.f[0]);\n")
-K2B_LAUNCH = ("  seeded_dropout_kernel<V, PAIR>\n"
+STORE_CS = ("  *reinterpret_cast<Piece<T, V>*>(p) = v;\n",
+            "  using W = typename Word<sizeof(T) * V>::type;\n"
+            "  W w;\n"
+            "  memcpy(&w, &v, sizeof(W));\n"
+            "  __stcs(reinterpret_cast<W*>(p), w);\n")
+K2B_LOAD = "  const W w = __ldcs(reinterpret_cast<const W*>(p));\n"
+K2B_LAUNCH = ("  seeded_dropout_kernel<T, V, PAIR>\n"
               "      <<<dim3(gx, gy), K2B_THREADS, 0, stream>>>(a, b, out_a, out_b, M, K, mask);\n")
 K2B_VARIANTS = {
     "committed": [],
@@ -153,16 +152,16 @@ K2B_VARIANTS = {
                "            const long long i = static_cast<long long>(row) * K + col + e;\n"
                "            const bool kept = keep(static_cast<uint32_t>(i / K),\n"
                "                                   static_cast<uint32_t>(i % K), mask);\n")],
-    "pieces_8": [("  int v = PAIR ? piece_width({a, b, out_a, out_b}) : piece_width({a, out_a});\n",
-                  "  int v = PAIR ? piece_width({a, b, out_a, out_b}) : piece_width({a, out_a});\n"
-                  "  if (v == 4 && K % 4) v = 2;\n")],
+    "pieces_8": [("  const int v = PAIR ? piece_width<T>({a, b, out_a, out_b}) : "
+                  "piece_width<T>({a, out_a});\n",
+                  "  int v = PAIR ? piece_width<T>({a, b, out_a, out_b}) : "
+                  "piece_width<T>({a, out_a});\n"
+                  "  if (sizeof(T) == 4 && v == 4 && K % 4) v = 2;\n")],
     **{f"ilp_{n}": [("constexpr int K2B_ILP = 4;", f"constexpr int K2B_ILP = {n};")]
        for n in (1, 2)},
     **{f"threads_{n}": [("constexpr int K2B_THREADS = 256;", f"constexpr int K2B_THREADS = {n};")]
        for n in (128, 512)},
-    "load_default": [("  Piece<V> r;\n  if constexpr (V == 4) {\n    const float4 t = __ldcs(",
-                      "  return *reinterpret_cast<const Piece<V>*>(p);\n  Piece<V> r;\n"
-                      "  if constexpr (V == 4) {\n    const float4 t = __ldcs(")],
+    "load_default": [(K2B_LOAD, "  const W w = *reinterpret_cast<const W*>(p);\n")],
     "store_cs": [STORE_CS],
     "pdl": [("  const int step = K2B_THREADS * gridDim.x;\n",
              "  hopper::pdl_wait();\n  const int step = K2B_THREADS * gridDim.x;\n"),
@@ -176,14 +175,17 @@ K2B_VARIANTS = {
              "  attr.val.programmaticStreamSerializationAllowed = 1;\n"
              "  cfg.attrs = &attr;\n"
              "  cfg.numAttrs = 1;\n"
-             "  cudaLaunchKernelEx(&cfg, seeded_dropout_kernel<V, PAIR>, a, b, out_a, out_b, M, K,\n"
-             "                     mask);\n")],
+             "  cudaLaunchKernelEx(&cfg, seeded_dropout_kernel<T, V, PAIR>, a, b, out_a, out_b, M,\n"
+             "                     K, mask);\n")],
     "grid_half": [("  int gy = resident / gx;\n", "  int gy = resident / gx / 2;\n")],
     "grid_eighth": [("  int gy = resident / gx;\n", "  int gy = resident / gx / 8;\n")],
-    "l2_256": [("    const float4 t = __ldcs(reinterpret_cast<const float4*>(p));\n",
-                "    float4 t;\n"
-                "    asm volatile(\"ld.global.cs.L2::256B.v4.f32 {%0, %1, %2, %3}, [%4];\"\n"
-                "                 : \"=f\"(t.x), \"=f\"(t.y), \"=f\"(t.z), \"=f\"(t.w) : \"l\"(p));\n")],
+    "l2_256": [(K2B_LOAD,
+                "  W w;\n"
+                "  if constexpr (sizeof(W) == 16)\n"
+                "    asm volatile(\"ld.global.cs.L2::256B.v4.u32 {%0, %1, %2, %3}, [%4];\"\n"
+                "                 : \"=r\"(w.x), \"=r\"(w.y), \"=r\"(w.z), \"=r\"(w.w) : \"l\"(p));\n"
+                "  else\n"
+                "    w = __ldcs(reinterpret_cast<const W*>(p));\n")],
     "no_hash": [("            const bool kept = keep(row, col + e, mask);\n",
                  "            const bool kept = true;\n")],
     "empty": [("  const int step = K2B_THREADS * gridDim.x;\n",
