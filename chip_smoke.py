@@ -125,7 +125,28 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
 16. fusion references: from one seeded init, two float32 dropout-free
    train steps of a small joint cohort (augmentation off) and of a small
    early-fusion cohort on the card and on the CPU; the val scores must
-   agree.
+   agree;
+17. late fusion, host input, the device cache and traces: (a) two of
+   phase 4's slides written as PNG directories (a stdlib PNG writer), the
+   C++ loader's decode of them and ``pack_patches`` on them against the
+   shard rows bit for bit, and the host read of 16 bags x 16 from shards
+   through the C++ batch assembler and through the thread pool it
+   replaced, ``HOST_READ_RUNS`` turns a side; (b) phase 15's cohort through
+   ``histo_savescore`` and ``histo_extractfeatures`` (K1 counted),
+   ``rna_savescore`` and ``rna_extractfeatures`` (phase 6's model),
+   ``concat_features`` (4,096 ``feature_`` columns), ``feature_train`` for
+   an epoch (K2a and K2b counted), ``merge_scores`` and ``late_fusion``,
+   every frame checked; (c) ``late_fusion`` on the card on seeded
+   combined-score frames of 600 / 150 rows (the fit's time, CUDA graph
+   launches and kernels), and the same fit on the CPU: lambda.min equal, beta
+   and the CV curve within ``COXNET_TOL`` of their scale; (d) phase 8's
+   ``histo_train`` with ``cache_patches_on_device`` (counted; its weights
+   against phase 8's within phase 12's tolerance), an epoch's bags/s from
+   the host loader and from the cache, the cache's bytes and upload
+   seconds, a cached train step's idle share at ``n_layers_to_train`` 2,
+   and ``joint_train`` for an epoch from the cache (K2a and K2b counted);
+   (e) the cached ``histo_train`` run also has ``profile_steps:
+   TRACE_STEPS``: its trace must hold the card's kernels.
 
 The last lines are the ``kernels`` JSON line, the nvidia-smi line and
 ``{"ok": true, "device": {...}}``. Without a card, or without the rest of
@@ -138,21 +159,27 @@ import contextlib
 import copy
 import csv
 import functools
+import itertools
 import json
 import math
 import os
 import re
+import shutil
 import signal
+import struct
 import subprocess
 import sys
 import tempfile
 import threading
 import time
+import zlib
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
 
 from multimodalbrainsurvival_torch.cli import (
+    concat_features,
     feature_savescore,
     feature_train,
     histo_extractfeatures,
@@ -160,6 +187,9 @@ from multimodalbrainsurvival_torch.cli import (
     histo_train,
     joint_savescore,
     joint_train,
+    late_fusion,
+    merge_scores,
+    pack_patches,
     rna_extractfeatures,
     rna_savescore,
     rna_train,
@@ -174,8 +204,16 @@ from multimodalbrainsurvival_torch.cli._common import (
 )
 from multimodalbrainsurvival_torch.cli.rna_train import build_rna_model, build_rna_optimizer
 from multimodalbrainsurvival_torch.config import Config
-from multimodalbrainsurvival_torch.data import FeatureTableDataset, RNATableDataset
+from multimodalbrainsurvival_torch.data import (
+    FeatureTableDataset,
+    PatchBagDataset,
+    RNATableDataset,
+    native,
+)
+from multimodalbrainsurvival_torch.data.device_cache import DeviceCachedPatchBags
+from multimodalbrainsurvival_torch.data.patches import read_csv_rows
 from multimodalbrainsurvival_torch.device import configure_precision
+from multimodalbrainsurvival_torch.frames import n_rows, read_frame, write_frame
 from multimodalbrainsurvival_torch.kernels import build
 from multimodalbrainsurvival_torch.kernels.attention_pool import (
     attention_pool,
@@ -214,6 +252,7 @@ from multimodalbrainsurvival_torch.kernels.qmm_requant import (
 from multimodalbrainsurvival_torch.models import quantize, serving
 from multimodalbrainsurvival_torch.models.resnet import Bottleneck
 from multimodalbrainsurvival_torch.models.rna import RNA_GENES
+from multimodalbrainsurvival_torch.ops.coxnet import CoxProblems, FistaSolver, fit_coxnet
 from multimodalbrainsurvival_torch.ops.metrics import concordance_index
 from multimodalbrainsurvival_torch.train import TrainSettings
 from multimodalbrainsurvival_torch.train.adapters import (
@@ -1533,14 +1572,15 @@ def _histo_train_keys(root: str, name: str) -> dict:
                 log_interval=1)
 
 
-def _run_counted(cli: str, main, cfg_path: str, expected: dict, smi: str) -> dict:
+def _run_counted(cli: str, main, cfg_path, expected: dict, smi: str) -> dict:
     """Run a CLI with every launch counter set to 0 just before and read
-    just after; the counts must be ``expected`` (0 where not named)."""
+    just after; the counts must be ``expected`` (0 where not named).
+    ``cfg_path``: the config's path, or the CLI's whole argv (a list)."""
     expected = {name: expected.get(name, 0) for name in COUNT_NAMES}
     reset_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    main(["--config", cfg_path])
+    main(cfg_path if isinstance(cfg_path, list) else ["--config", cfg_path])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = read_counts()
@@ -1627,11 +1667,13 @@ def drive_histo_train_path(root: str, device: torch.device, smi: str,
 
 
 def check_histo_train_step(config: Config, device: torch.device, smi: str, n: int,
-                           k1_ms: dict) -> dict:
+                           k1_ms: dict, cached=None) -> dict:
     """Device time of one histo train step at ``n_layers_to_train`` ``n`` on
     a batch already on the card (CUDA events, mean of 5 after 3 warm-up
     steps), its profile and the card's idle share; K1's share of the step
-    from K1's own forward and backward times (``k1_ms``)."""
+    from K1's own forward and backward times (``k1_ms``). With ``cached``
+    (a ``DeviceCachedPatchBags``) each step also takes its batch from the
+    cache, as the train loop does: the index upload and the gathers."""
     torch.manual_seed(SEED)
     model = build_mil_model(config).to(device, memory_format=torch.channels_last)
     adapter = MILAdapter(model=model, device=device, augment=True)
@@ -1642,16 +1684,24 @@ def check_histo_train_step(config: Config, device: torch.device, smi: str, n: in
         task=config.task, num_classes=config.num_classes,
         target_label=config.target_label))
     keys = adapter.array_keys + keys
-    train = build_datasets(config, False)["train"]
-    batches = train.batches(B, shuffle=True, seed=SEED, num_threads=8)
-    try:
-        arrays = adapter.to_device(next(batches), keys)
-    finally:
-        batches.close()
     generator = torch.Generator(device=device).manual_seed(SEED)
+    if cached is None:
+        train = build_datasets(config, False)["train"]
+        batches = train.batches(B, shuffle=True, seed=SEED, num_threads=8)
+        try:
+            arrays = adapter.to_device(next(batches), keys)
+        finally:
+            batches.close()
 
-    def step():
-        return train_step(adapter, optimizer, loss_fn, arrays, settings, generator)
+        def step():
+            return train_step(adapter, optimizer, loss_fn, arrays, settings, generator)
+    else:
+        source = itertools.chain.from_iterable(
+            cached.batches(B, shuffle=True, seed=r) for r in itertools.count())
+
+        def step():
+            return train_step(adapter, optimizer, loss_fn,
+                              adapter.to_device(next(source), keys), settings, generator)
 
     for _ in range(3):
         step()
@@ -1670,8 +1720,9 @@ def check_histo_train_step(config: Config, device: torch.device, smi: str, n: in
         raise AssertionError(f"histo train step loss {loss.item()}")
     launched = attention_pool.launches, attention_pool_backward.calls
     what = f"task {config.task}, aggregator {config.aggregator}"
+    origin = "" if cached is None else ", batches gathered from the device cache"
     profile = device_breakdown(step, step_ms,
-                               f"histo train step ({what}), n_layers_to_train {n}",
+                               f"histo train step ({what}), n_layers_to_train {n}{origin}",
                                {"k1_softmax_pool": "softmax_pool_kernel"})
     # the profile runs 4 steps: K1 and its backward once each with attention
     per_step = 1 if config.aggregator == "attention" else 0
@@ -1682,7 +1733,8 @@ def check_histo_train_step(config: Config, device: torch.device, smi: str, n: in
     k1 = per_step * (k1_ms["forward"] + k1_ms["backward"])
     idle = 1 - profile["device_busy_ms"] / step_ms
     print(f"histo train step (ResNet-50, {what} 2048, bf16, {B} bags x {BAG} "
-          f"patches at {IMG} px, augmentation on, n_layers_to_train {n}): {step_ms:.3f} "
+          f"patches at {IMG} px, augmentation on, n_layers_to_train {n}{origin}): "
+          f"{step_ms:.3f} "
           f"ms on the card, peak memory {peak_gb:.2f} GB, the card idle {100 * idle:.1f}% "
           f"of the step; K1 forward {k1_ms['forward']:.4f} + backward "
           f"{k1_ms['backward']:.4f} ms (their own timing), {100 * k1 / step_ms:.2f}% "
@@ -2488,6 +2540,418 @@ def check_fusion_against_cpu(root: str) -> dict:
     return diffs
 
 
+# --- phase 17: late fusion, the C++ batch assembler, the device cache, traces ---
+
+# the slides of phase 4 written as PNG directories (17a)
+PNG_SLIDES = ("S0", "S1")
+# host reads timed a side, alternating (17a)
+HOST_READ_RUNS = 12
+# the late-fusion cohort (17c): seeded combined-score frames, ties in time
+# (3-month grid), about 40% censored; its seed gives a CV curve whose two
+# lowest points lie 2.5e-6 of their value apart (printed), some twenty
+# float32 roundings, so card and CPU pick one lambda.min
+LATE_SPLITS, LATE_SEED = {"train": 600, "val": 150}, 3
+LATE_EFFECTS = {"path_score": 0.8, "rna_score": 0.4}
+# card vs CPU fit: β and the CV curve within this share of their scale;
+# float32 sums in another order (the card's scans)
+COXNET_TOL = 1e-4
+# train steps in the trace of the cached histo_train run (17d, 17e)
+TRACE_STEPS = 3
+# epochs timed a side, alternating, from the host loader and the cache (17d)
+EPOCH_RUNS = 4
+
+
+def write_png(path: str, rgb: np.ndarray) -> None:
+    """An 8-bit RGB PNG (one IDAT, no row filter) written with zlib and
+    struct alone: the machine with the card has no image encoder."""
+    h, w, _ = rgb.shape
+    raw = np.concatenate([np.zeros((h, 1), np.uint8), rgb.reshape(h, w * 3)], axis=1)
+
+    def chunk(tag: bytes, data: bytes) -> bytes:
+        return (struct.pack(">I", len(data)) + tag + data
+                + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
+
+    with open(path, "wb") as f:
+        f.write(b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+                + chunk(b"IDAT", zlib.compress(raw.tobytes(), 1)) + chunk(b"IEND", b""))
+
+
+def _ms(fn) -> float:
+    t0 = time.perf_counter()
+    fn()
+    return 1e3 * (time.perf_counter() - t0)
+
+
+def check_png_input(root: str, smi: str) -> dict:
+    """17a: two of phase 4's slides as PNG directories with their
+    ``loc.txt``; the C++ loader's decode of them against the shard rows (bit
+    for bit), ``pack_patches`` on them against the rows; the host read of a
+    batch of 16 bags x 16 from the shards through the assembler and through
+    the thread pool it replaced (batches equal), ``HOST_READ_RUNS`` turns a
+    side, and the assembler's decode of the PNG slides' batch."""
+    png_root = os.path.join(root, "png_patches")
+    for wsi in PNG_SLIDES:
+        d = os.path.join(png_root, wsi)
+        os.makedirs(d)
+        shutil.copy(os.path.join(root, "patches", wsi, "loc.txt"), d)
+        rows = np.load(os.path.join(root, "patches", wsi, "patches.npy"))
+        for j, rgb in enumerate(rows):
+            write_png(os.path.join(d, f"{wsi}_patch_{j}.png"), rgb)
+        paths = [os.path.join(d, f"{wsi}_patch_{j}.png") for j in range(N_PATCH)]
+        decoded = np.zeros_like(rows)
+        native.decode_patch_batch(paths, decoded, num_threads=8)
+        if not np.array_equal(decoded, rows):
+            raise AssertionError(f"{wsi}: the loader's PNG decode differs from the shard rows")
+    pack_patches.main(["--patch_path", png_root])
+    for wsi in PNG_SLIDES:
+        packed = np.load(os.path.join(png_root, wsi, "patches.npy"))
+        if not np.array_equal(packed, np.load(os.path.join(root, "patches", wsi, "patches.npy"))):
+            raise AssertionError(f"{wsi}: pack_patches differs from the shard rows")
+        os.remove(os.path.join(png_root, wsi, "patches.npy"))  # read the PNGs below
+
+    ds = PatchBagDataset(os.path.join(root, "patches"), os.path.join(root, "cohort.csv"),
+                         img_size=IMG, bag_size=BAG, max_patches_total=N_PATCH)
+    idx = np.arange(B)
+    with ThreadPoolExecutor(max_workers=8) as pool:
+        a, p = ds._load_batch(idx, B, 8), ds._load_batch_plain(idx, B, pool)
+        if not all(np.array_equal(a[k], p[k]) for k in ("patch_bag", "bag_mask", "sample_mask")):
+            raise AssertionError("the assembler's batch differs from the thread pool's")
+        times = {"assembler": [], "thread_pool": []}
+        for r in range(HOST_READ_RUNS):
+            order = ("assembler", "thread_pool") if r % 2 == 0 else ("thread_pool", "assembler")
+            for name in order:
+                times[name].append(_ms(
+                    (lambda: ds._load_batch(idx, B, 8)) if name == "assembler"
+                    else (lambda: ds._load_batch_plain(idx, B, pool))))
+    png_csv = os.path.join(root, "png_cohort.csv")
+    with open(os.path.join(root, "cohort.csv")) as f:
+        lines = f.read().splitlines()
+    with open(png_csv, "w") as f:
+        f.write("\n".join([lines[0]] + [ln for ln in lines[1:]
+                                         if ln.split(",")[-1].split(".")[0] in PNG_SLIDES])
+                + "\n")
+    png_ds = PatchBagDataset(png_root, png_csv, img_size=IMG, bag_size=BAG,
+                             max_patches_total=N_PATCH)
+    png_idx = np.arange(len(png_ds))
+    png_batch = png_ds._load_batch(png_idx, len(png_idx), 8)
+    if not np.array_equal(png_batch["patch_bag"], ds._load_batch(png_idx, len(png_idx), 8)[
+            "patch_bag"]):
+        raise AssertionError("the PNG slides' batch differs from the shards'")
+    png_ms = [_ms(lambda: png_ds._load_batch(png_idx, len(png_idx), 8))
+              for _ in range(HOST_READ_RUNS)]
+    med = {k: float(np.median(v)) for k, v in times.items()}
+    print(f"host read of {B} bags x {BAG} patches at {IMG} px from shards (warm page "
+          f"cache, {HOST_READ_RUNS} turns a side): the C++ assembler median "
+          f"{med['assembler']:.2f} ms (min {min(times['assembler']):.2f}), the thread pool "
+          f"median {med['thread_pool']:.2f} ms (min {min(times['thread_pool']):.2f}); "
+          f"{len(png_idx) * BAG} PNGs decoded by the assembler: median "
+          f"{np.median(png_ms):.2f} ms [{smi}]")
+    return {"host_read_ms_per_256": med, "host_read_runs_ms": times,
+            "png_decode_ms_per_batch": float(np.median(png_ms)),
+            "png_patches_per_batch": len(png_idx) * BAG}
+
+
+def _check_table(path: str, rows: int, header: list[str]) -> dict:
+    """A frame written by one of the late-fusion CLIs: its leading columns,
+    ``rows`` rows, every numeric column finite."""
+    frame = read_frame(path)
+    if list(frame)[:len(header)] != header or n_rows(frame) != rows:
+        raise AssertionError(f"{path}: columns {list(frame)[:6]}..., {n_rows(frame)} rows")
+    for c, v in frame.items():
+        if c != "case" and not np.isfinite(np.asarray(v, np.float64)).all():
+            raise AssertionError(f"{path}: column {c} is not finite")
+    return frame
+
+
+def drive_chained_pipeline(root: str, smi: str) -> tuple[dict, dict]:
+    """17b: phase 15's cohort (8 slides, a 12,778-gene vector per case)
+    through ``histo_savescore`` and ``histo_extractfeatures`` (phase 4's
+    model, K1 counted) and ``rna_savescore`` and ``rna_extractfeatures``
+    (phase 6's model); ``concat_features`` of their files into a table of
+    4,096 ``feature_`` columns a split; ``feature_train`` for an epoch on it
+    (K2a and K2b counted); ``merge_scores`` of the score frames into
+    ``late_fusion``. Every frame checked."""
+    joint_csv = os.path.join(root, "joint.csv")
+    out = os.path.join(root, "chain")
+    cases, info = [], {"case": [], "survival_months": [], "vital_status": []}
+    for row in read_csv_rows(os.path.join(root, "cohort.csv")):
+        if row["case"] not in cases:
+            cases.append(row["case"])
+            info["case"].append(row["case"])
+            info["survival_months"].append(float(row["survival_months"]))
+            info["vital_status"].append(int(row["vital_status"]))
+    info_csv = os.path.join(root, "patientinfo.csv")
+    write_frame(info_csv, info, index=False)
+    n_cases = len(cases)
+    split_batches = 3 * math.ceil(N_WSI * N_PATCH / BAG / B)
+    _, histo_path = _config(root, joint_csv, "chain_histo", output_path=out)
+    _, rna_path = _rna_config(root, {s: joint_csv for s in ("train", "val", "test")},
+                              "chain_rna", checkpoint_path=os.path.join(root, "rna_ckpt"),
+                              output_path=out)
+    by_cli = {}
+    for cli, main, path, expected in (
+        ("chain_histo_savescore", histo_savescore.main, histo_path,
+         {"attention_pool": split_batches}),
+        ("chain_histo_extractfeatures", histo_extractfeatures.main, histo_path,
+         {"attention_pool": split_batches}),
+        ("chain_rna_savescore", rna_savescore.main, rna_path, {}),
+        ("chain_rna_extractfeatures", rna_extractfeatures.main, rna_path, {}),
+    ):
+        by_cli[cli] = _run_counted(cli, main, path, expected, smi)
+    features = {}
+    for split in ("train", "val", "test"):
+        features[split] = os.path.join(out, f"features_{split}.csv")
+        concat_features.main([
+            "--rna_cases", os.path.join(out, f"rna_cases_{split}.csv"),
+            "--rna_features", os.path.join(out, f"rna_features_{split}.csv"),
+            "--pathology_cases", os.path.join(out, f"pathology_cases_{split}.csv"),
+            "--pathology_features", os.path.join(out, f"pathology_features_{split}.csv"),
+            "--patientinfo", info_csv, "--output", features[split]])
+        table = _check_table(features[split], n_cases,
+                             ["case", "survival_months", "vital_status", "feature_0_x"])
+        if sum(c.startswith("feature_") for c in table) != 2 * D or table["case"] != cases:
+            raise AssertionError(f"{features[split]}: not {2 * D} feature columns")
+    ckpt = os.path.join(root, "chain_early_ckpt")
+    early = {"batch_size": EARLY_BATCH, "num_epochs": 1, "dropout": 0.5, "lr": 1e-5,
+             "weight_decay": 1e-5, "flag": "chain_early", "checkpoint_path": ckpt,
+             **{f"{split}_csv_path": path for split, path in features.items()}}
+    early_path = os.path.join(root, "chain_early.json")
+    with open(early_path, "w") as f:
+        json.dump(early, f)
+    by_cli["chain_feature_train"] = _run_counted(
+        "chain_feature_train", feature_train.main, early_path,
+        {k: n * math.ceil(n_cases / EARLY_BATCH) for k, n in EARLY_K2.items()}, smi)
+    for split in ("train", "val", "test"):
+        for tag in ("last", "best"):
+            _check_frames(os.path.join(ckpt, "outputs", "chain_early",
+                                       f"{split}_output_{tag}.csv"), n_cases)
+    combined = {}
+    for split in ("train", "val"):
+        combined[split] = os.path.join(out, f"combined_score_{split}.csv")
+        merge_scores.main([
+            "--pathology_scores", os.path.join(out, f"model.pt_pathology_{split}_df.csv"),
+            "--rna_scores", os.path.join(out, f"rna_{split}_df.csv"),
+            "--output", combined[split]])
+        _check_table(combined[split], n_cases, LATE_HEADER)
+    late_dir = os.path.join(out, "late")
+    by_cli["chain_late_fusion"] = _run_counted(
+        "chain_late_fusion", late_fusion.main,
+        ["--train_csv", combined["train"], "--val_csv", combined["val"],
+         "--output_dir", late_dir], {}, smi)
+    for split in ("train", "val"):
+        _check_table(os.path.join(late_dir, f"model_late_{split}.csv"), n_cases,
+                     LATE_HEADER + ["score"])
+    print(f"chained pipeline: {n_cases} cases through the histo and RNA serving CLIs, "
+          f"concat_features ({2 * D} feature columns), feature_train, merge_scores and "
+          "late_fusion; every frame checked")
+    return by_cli, {"cases": n_cases}
+
+
+LATE_HEADER = ["case", "path_score", "survival_months", "vital_status", "rna_score"]
+
+
+def make_late_frames(root: str) -> dict:
+    """17c: seeded combined-score frames (``LATE_HEADER``): the two scores
+    carry the risk with ``LATE_EFFECTS``, times on a 3-month grid."""
+    rng = np.random.default_rng(LATE_SEED)
+    paths = {}
+    for split, n in LATE_SPLITS.items():
+        risk = rng.normal(size=n)
+        frame = {"case": [f"{split}{i}" for i in range(n)]}
+        scores = {c: w * risk + rng.normal(size=n) * 0.7 for c, w in LATE_EFFECTS.items()}
+        frame["path_score"] = scores["path_score"].tolist()
+        frame["survival_months"] = (np.ceil(rng.exponential(40 * np.exp(-risk)) / 3) * 3
+                                    ).tolist()
+        frame["vital_status"] = (rng.uniform(size=n) > 0.4).astype(int).tolist()
+        frame["rna_score"] = scores["rna_score"].tolist()
+        paths[split] = os.path.join(root, f"late_{split}.csv")
+        write_frame(paths[split], frame, index=False)
+    return paths
+
+
+def check_late_fusion_scale(root: str, device: torch.device, smi: str) -> dict:
+    """17c: ``late_fusion`` on the card on train 600 / val 150 rows; the
+    fit's time, its CUDA graph replays and its kernels (a profiler count of
+    a second fit); the same fit on the CPU: λ.min equal, β and the CV curve
+    within ``COXNET_TOL`` of their scale."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    paths = make_late_frames(root)
+    late_dir = os.path.join(root, "late_scale")
+    t0 = time.perf_counter()
+    res = late_fusion.main(["--train_csv", paths["train"], "--val_csv", paths["val"],
+                            "--output_dir", late_dir])
+    cli_s = time.perf_counter() - t0
+    for split, n in LATE_SPLITS.items():
+        _check_table(os.path.join(late_dir, f"model_late_{split}.csv"), n,
+                     LATE_HEADER + ["score"])
+    card = res["fit"]
+    frame = read_frame(paths["train"])
+    X = np.stack([frame[c] for c in LATE_EFFECTS], 1)
+    t, e = np.asarray(frame["survival_months"]), np.asarray(frame["vital_status"])
+    # the kernels of one graph replay (one λ's 500 steps over the fit's
+    # batch of problems), from a profile of that replay alone: a profile of
+    # the whole fit records ~5e5 kernels and takes minutes to read
+    Xs = ((X - X.mean(0)) / X.std(0)).astype(np.float32)
+    solver = FistaSolver(CoxProblems(Xs, t.astype(np.float32), e.astype(np.float32),
+                                     np.ones((card.stats["problems"], len(t)), bool), device),
+                         1.0, 500)
+    solver.run(card.lambda_min)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        solver.run(card.lambda_min)
+        torch.cuda.synchronize()
+    per_replay = sum(k.count for k in prof.key_averages() if k.device_type == DeviceType.CUDA
+                     and not getattr(k, "is_user_annotation", False))
+    kernels = card.stats["graph_replays"] * per_replay
+    cpu = fit_coxnet(X, t, e, seed=0, device="cpu")
+    best = [list(f.lambdas).index(f.lambda_min) for f in (card, cpu)]
+    lowest = np.sort(cpu.cv_mean)[:2]
+    beta_err = float(np.abs(card.betas_path - cpu.betas_path).max()
+                     / np.abs(cpu.betas_path).max())
+    cv_err = float(np.nanmax(np.abs(card.cv_mean - cpu.cv_mean)) / np.nanmax(cpu.cv_mean))
+    print(f"late fusion at {LATE_SPLITS['train']} / {LATE_SPLITS['val']} rows: the CLI "
+          f"{cli_s:.2f} s; the fit on the card {card.stats['seconds']:.3f} s "
+          f"({card.stats['problems']} problems x {len(card.lambdas)} lambdas x 500 FISTA "
+          f"steps, {card.stats['graph_replays']} CUDA graph launches of {per_replay} "
+          f"kernels each, {kernels} kernels), on the CPU {cpu.stats['seconds']:.3f} s; lambda.min "
+          f"index {best[0]} / {best[1]} (the CPU curve's two lowest points "
+          f"{(lowest[1] - lowest[0]) / lowest[0]:.2e} apart), beta {beta_err:.2e} and "
+          f"cv_mean {cv_err:.2e} of their scale apart; beta {card.beta} [{smi}]")
+    if best[0] != best[1] or beta_err > COXNET_TOL or cv_err > COXNET_TOL:
+        raise AssertionError("the coxnet fit on the card differs from the CPU's")
+    if device.type == "cuda" and card.stats["graph_replays"] != len(card.lambdas):
+        raise AssertionError(f"{card.stats['graph_replays']} graph replays")
+    return {"cli_s": cli_s, "fit_s_card": card.stats["seconds"],
+            "fit_s_cpu": cpu.stats["seconds"], "graph_replays": card.stats["graph_replays"],
+            "kernels_per_replay": per_replay, "kernels_per_fit": kernels,
+            "beta_err": beta_err, "cv_mean_err": cv_err,
+            "lambda_min_index": best[0], "cv_gap": float((lowest[1] - lowest[0]) / lowest[0]),
+            "beta": card.beta.tolist()}
+
+
+def _epoch_rates(config: Config, device: torch.device, cached, smi: str) -> dict:
+    """Phase 8's train epoch (its batches, its model at ``n_layers_to_train``
+    2) from the host loader and from the cache, ``EPOCH_RUNS`` turns a side,
+    each epoch timed from its first batch's read to its last step's end."""
+    torch.manual_seed(SEED)
+    model = build_mil_model(config).to(device, memory_format=torch.channels_last)
+    adapter = MILAdapter(model=model, device=device, augment=True)
+    optimizer = wrap_optimizer(build_grouped_optimizer(
+        model, [("train", mil_freeze_ladder(2), HISTO_LR)], 1e-4))
+    settings = TrainSettings(batch_size=B)
+    loss_fn, keys = make_loss_fn(TrainSettings())
+    keys = adapter.array_keys + keys
+    generator = torch.Generator(device=device).manual_seed(SEED)
+    host = build_datasets(config, False)["train"]
+
+    def epoch(ds, seed):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for batch in ds.batches(B, shuffle=True, seed=seed, num_threads=8):
+            train_step(adapter, optimizer, loss_fn, adapter.to_device(batch, keys), settings,
+                       generator)
+        torch.cuda.synchronize()
+        return len(ds) / (time.perf_counter() - t0)
+
+    epoch(host, 0)
+    epoch(cached, 0)
+    rates = {"host": [], "cache": []}
+    for r in range(EPOCH_RUNS):
+        for name in (("host", "cache") if r % 2 == 0 else ("cache", "host")):
+            rates[name].append(epoch(host if name == "host" else cached, r + 1))
+    med = {k: float(np.median(v)) for k, v in rates.items()}
+    print(f"histo train epoch ({len(host)} bags, {B} x {BAG} at {IMG} px, bf16, "
+          f"n_layers_to_train 2): host loader median {med['host']:.1f} bags/s, device "
+          f"cache median {med['cache']:.1f} bags/s ({EPOCH_RUNS} turns a side; the cache "
+          f"{cached.nbytes} bytes, read {cached.read_seconds:.3f} s, uploaded "
+          f"{cached.upload_seconds:.3f} s) [{smi}]")
+    return {"bags_per_s": med, "bags_per_s_runs": rates}
+
+
+def check_device_cache(root: str, device: torch.device, smi: str, k1_ms: dict
+                       ) -> tuple[dict, dict]:
+    """17d and 17e: phase 8's ``histo_train`` with ``cache_patches_on_device``
+    and ``profile_steps`` (counted as phase 8's run; its weights against
+    phase 8's within phase 12's tolerance; its trace holds the card's
+    kernels); an epoch's bags/s from the host loader and from the cache; a
+    cached train step's idle share at ``n_layers_to_train`` 2; ``joint_train``
+    for an epoch from the cache (K2a and K2b counted)."""
+    csv_path = os.path.join(root, "cohort.csv")
+    keys = _histo_train_keys(root, "histo_cached_ckpt")
+    cfg, cfg_path = _config(root, csv_path, "histo_cached", num_epochs=HISTO_EPOCHS,
+                            cache_patches_on_device=True, profile_steps=TRACE_STEPS, **keys)
+    by_cli = {"histo_train_cached": _run_counted(
+        "histo_train_cached", histo_train.main, cfg_path,
+        {"attention_pool": _k1_forwards(HISTO_EPOCHS),
+         "attention_pool_backward": HISTO_EPOCHS * HISTO_BATCHES}, smi)}
+    _check_train_outputs(cfg)
+    want = torch.load(os.path.join(root, "histo_train_ckpt", "models", "histo_smoke",
+                                   "model_last.pt"), weights_only=True)
+    got = torch.load(os.path.join(cfg["checkpoint_path"], "models", "histo_smoke",
+                                  "model_last.pt"), weights_only=True)
+    diff = 0.0
+    for k, v in want.items():
+        if not v.is_floating_point():
+            if not torch.equal(got[k], v):
+                raise AssertionError(f"cached run's {k}: {got[k]} != {v}")
+            continue
+        diff = max(diff, (got[k] - v).abs().max().item())
+        if not torch.allclose(got[k], v, rtol=1e-3, atol=1e-4):
+            raise AssertionError(f"cached run's {k} differs from phase 8's by "
+                                 f"{(got[k] - v).abs().max().item():.3e}")
+    trace_dir = os.path.join(cfg["checkpoint_path"], "models", "histo_smoke", "torch_trace")
+    traces = [os.path.join(trace_dir, f) for f in os.listdir(trace_dir)
+              if f.endswith(".pt.trace.json")]
+    if len(traces) != 1:
+        raise AssertionError(f"{trace_dir}: {os.listdir(trace_dir)}")
+    with open(traces[0]) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [ev for ev in events if ev.get("cat") == "kernel"]
+    if not kernels and device.type == "cuda":
+        raise AssertionError(f"{traces[0]} holds no CUDA kernel events")
+    trace = {"file": os.path.basename(traces[0]), "mb": os.path.getsize(traces[0]) / 1e6,
+             "kernel_events": len(kernels),
+             "kernel_ms": sum(ev.get("dur", 0) for ev in kernels) / 1e3}
+    print(f"cached histo_train: weights vs phase 8's host-loader run max_abs_diff "
+          f"{diff:.3e}; trace {trace['file']} ({trace['mb']:.1f} MB, "
+          f"{trace['kernel_events']} kernel events, {trace['kernel_ms']:.1f} ms of kernels "
+          f"over {TRACE_STEPS} steps) [{smi}]")
+    config = Config(cfg)
+    cached = DeviceCachedPatchBags(build_datasets(config, False)["train"], device)
+    e2e = {"histo_cached_max_abs_diff": diff, "trace": trace,
+           "cache_bytes": cached.nbytes, "cache_read_s": cached.read_seconds,
+           "cache_upload_s": cached.upload_seconds,
+           "epoch": _epoch_rates(config, device, cached, smi),
+           "cached_train_step": check_histo_train_step(config, device, smi, 2, k1_ms,
+                                                       cached=cached)}
+    del cached
+    jcfg, jcfg_path = _joint_config(root, os.path.join(root, "joint.csv"), "joint_cached",
+                                    num_epochs=1, cache_patches_on_device=True)
+    by_cli["joint_train_cached"] = _run_counted(
+        "joint_train_cached", joint_train.main, jcfg_path,
+        {k: n * JOINT_BATCHES for k, n in JOINT_K2.items()}, smi)
+    for split in ("train", "val", "test"):
+        for tag in ("last", "best"):
+            _check_frames(os.path.join(jcfg["checkpoint_path"], "outputs", "joint_smoke",
+                                       f"{split}_output_{tag}.csv"), N_WSI)
+    return by_cli, e2e
+
+
+def drive_phase17(root: str, device: torch.device, smi: str, k1_ms: dict
+                  ) -> tuple[dict, dict]:
+    """Phase 17 (a-e); returns its counted runs and its numbers."""
+    t0 = time.perf_counter()
+    e2e = {"png_input": check_png_input(root, smi)}
+    by_cli, e2e["chained"] = drive_chained_pipeline(root, smi)
+    e2e["late_fusion"] = check_late_fusion_scale(root, device, smi)
+    cached_runs, e2e["device_cache"] = check_device_cache(root, device, smi, k1_ms)
+    by_cli.update(cached_runs)
+    e2e["seconds"] = time.perf_counter() - t0
+    print(f"phase 17: {e2e['seconds']:.1f} s")
+    return by_cli, e2e
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -2537,6 +3001,7 @@ def main() -> int:
         early_launches, early_e2e = drive_early_fusion(root, device, smi, k2f)
         joint_launches, joint_e2e = drive_joint_path(root, device, smi, k2f)
         fusion_references = check_fusion_against_cpu(root)
+        p17_runs, p17 = drive_phase17(root, device, smi, k1_ms)
     e2e.update(rna_e2e)
     e2e.update(train_e2e)
     e2e.update(task_e2e)
@@ -2546,8 +3011,9 @@ def main() -> int:
     e2e.update(joint_e2e)
     e2e.update({k: v for k, v in rna_int8.items() if k != "launches"})
     e2e["fusion_references_max_abs_diff"] = fusion_references
+    e2e["phase17"] = p17
     train_launches.update(task_launches)
-    fusion_runs = {**rna_int8["launches"], **early_launches, **joint_launches}
+    fusion_runs = {**rna_int8["launches"], **early_launches, **joint_launches, **p17_runs}
     train_launches.update(fusion_runs)
     for cli, rec in train_launches.items():
         launches[cli] = rec["launches"]

@@ -34,6 +34,10 @@ import torch
 
 from multimodalbrainsurvival_torch.config import Config
 from multimodalbrainsurvival_torch.data import PatchBagDataset
+from multimodalbrainsurvival_torch.data.device_cache import (
+    DEFAULT_MAX_BYTES,
+    maybe_cache_datasets,
+)
 from multimodalbrainsurvival_torch.device import compute_dtype
 from multimodalbrainsurvival_torch.models import (
     RESNET_CONSTRUCTORS,
@@ -186,6 +190,21 @@ def tune_optimizer(optimizer: torch.optim.Optimizer, config: Config, n_train: in
                           grad_clip_norm=float(clip) if clip is not None else None)
 
 
+def observability_kwargs(config: Config, save_dir: str) -> dict:
+    """TrainSettings kwargs of the trace and step-checking keys (JAX
+    ``cli/_common.py:232-255``): ``profile_steps`` (a ``torch.profiler``
+    trace, CPU and CUDA, of that many train steps after warmup),
+    ``profile_dir`` (where it lands; ``<save_dir>/torch_trace`` by default)
+    and ``debug_checkify`` (each step under autograd's anomaly mode, its
+    loss checked: a NaN raises naming where it came from)."""
+    return {
+        "profile_steps": int(config.get("profile_steps", 0)),
+        "profile_dir": str(config.get("profile_dir", "")
+                           or os.path.join(save_dir, "torch_trace")),
+        "debug_checkify": bool(config.get("debug_checkify", False)),
+    }
+
+
 def early_stop_kwargs(config: Config) -> dict:
     """TrainSettings kwargs of the opt-in early stopping."""
     return {
@@ -246,10 +265,6 @@ def build_datasets(config, quick: bool, dataset_cls: type = PatchBagDataset
     """The three splits' patch-bag datasets (``dataset_cls``: the joint
     CLIs' ``PatchBagRNADataset`` adds each case's RNA vector); ``--quick``
     caps the patches per slide at 20."""
-    if config.get("cache_patches_on_device", False):
-        raise NotImplementedError(
-            "cache_patches_on_device is not ported yet (ROADMAP.md, queue 1, "
-            "item 11); the port reads every batch from the host")
     max_train = config.get("max_patch_per_wsi_train", 1000)
     max_val = config.get("max_patch_per_wsi_val", 1000)
     if quick:
@@ -276,6 +291,18 @@ def build_datasets(config, quick: bool, dataset_cls: type = PatchBagDataset
             max_patches_total=max_val, **common,
         ),
     }
+
+
+def cache_datasets(config: Config, datasets: dict, device: torch.device) -> dict:
+    """With ``cache_patches_on_device: true`` the train CLIs' splits held on
+    ``device`` under one budget of ``cache_max_bytes_per_device`` (12 GiB by
+    default; ``data/device_cache.py``), as the JAX ``cli/histo_train.py:
+    133-143`` and ``cli/joint_train.py:115-125`` hold them; else as they
+    are."""
+    return maybe_cache_datasets(
+        datasets, bool(config.get("cache_patches_on_device", False)), device=device,
+        max_bytes=int(config.get("cache_max_bytes_per_device", DEFAULT_MAX_BYTES)),
+        num_threads=int(config.get("num_workers", 8)) or 1)
 
 
 def load_mil_model(config: Config, device: torch.device,

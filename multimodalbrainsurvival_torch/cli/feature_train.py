@@ -32,6 +32,7 @@ from multimodalbrainsurvival_torch.cli._common import (
     make_parser,
     make_writer,
     maybe_restore,
+    observability_kwargs,
     run_train,
     tune_optimizer,
 )
@@ -88,6 +89,7 @@ def main(argv=None):
         pre_training_eval=config.reference_parity,
         running_loss_weight="events" if config.reference_parity else "samples",
         **early_stop_kwargs(config),
+        **observability_kwargs(config, save_dir),
     )
     optimizer = tune_optimizer(
         build_grouped_optimizer(model, [("all", "", float(config["lr"]))],

@@ -27,8 +27,10 @@ an ImageNet ResNet, read with ``pretrained: true``; nothing is downloaded),
 ``.pt``), ``remat`` and ``freeze_bn`` (``models/resnet.py``),
 ``quantize_trunk: "int8"`` (the frozen prefix through K3,
 ``cli/_common.py::quantize_trunk_training``), and the optimizer and early
-stopping knobs of ``rna_train``. ``cache_patches_on_device`` is not ported
-yet (ROADMAP.md, queue 1, item 11) and raises.
+stopping knobs of ``rna_train``. ``cache_patches_on_device: true`` holds
+the splits' patches on the card (``cli/_common.py::cache_datasets``), and
+``profile_steps`` / ``profile_dir`` / ``debug_checkify`` capture a trace or
+check each step (``cli/_common.py::observability_kwargs``).
 
 Usage: ``python -m multimodalbrainsurvival_torch.cli.histo_train --config
 cfg.json [--device cpu]``
@@ -41,12 +43,14 @@ import torch
 from multimodalbrainsurvival_torch.cli._common import (
     build_datasets,
     build_mil_model,
+    cache_datasets,
     early_stop_kwargs,
     experiment_dirs,
     load_config,
     make_parser,
     make_writer,
     maybe_restore,
+    observability_kwargs,
     quantize_trunk_training,
     run_train,
     tune_optimizer,
@@ -87,7 +91,7 @@ def main(argv=None):
     config, flag = load_config(args)
     save_dir, output_dir = experiment_dirs(config, flag)
 
-    datasets = build_datasets(config, bool(args.quick))
+    datasets = cache_datasets(config, build_datasets(config, bool(args.quick)), device)
     print("loaded datasets")
     torch.manual_seed(args.seed)
     model = build_mil_model(config)
@@ -119,6 +123,7 @@ def main(argv=None):
         # (2_HistoPath_train.py:378 `and epoch > 0`)
         best_from_epoch=1,
         **early_stop_kwargs(config),
+        **observability_kwargs(config, save_dir),
     )
     adapter = quantize_trunk_training(config, adapter, datasets, settings.batch_size,
                                       args.seed)

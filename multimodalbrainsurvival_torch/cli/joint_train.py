@@ -25,8 +25,10 @@ them: ``pretrained_path``, ``restore_path`` / ``model_path``, ``augment``,
 ``remat``, ``freeze_bn``, ``quantize_trunk: "int8"`` (the frozen ResNet
 prefix through K3), ``resume``, the optimizer and early-stopping knobs;
 a SIGTERM saves the full train state and exits with status 143.
-``cache_patches_on_device`` is not ported yet (ROADMAP.md, queue 1, item
-11) and raises.
+``cache_patches_on_device: true`` holds the splits' patches and RNA
+vectors on the card, and ``profile_steps`` / ``profile_dir`` /
+``debug_checkify`` capture a trace or check each step, as in
+``histo_train``.
 
 Usage: ``python -m multimodalbrainsurvival_torch.cli.joint_train --config
 cfg.json [--device cpu]``
@@ -38,12 +40,14 @@ import torch
 
 from multimodalbrainsurvival_torch.cli._common import (
     build_datasets,
+    cache_datasets,
     early_stop_kwargs,
     experiment_dirs,
     load_config,
     make_parser,
     make_writer,
     maybe_restore,
+    observability_kwargs,
     quantize_trunk_training,
     run_train,
     tune_optimizer,
@@ -114,7 +118,8 @@ def main(argv=None):
     config, flag = load_config(args)
     save_dir, output_dir = experiment_dirs(config, flag)
 
-    datasets = build_joint_datasets(config, bool(args.quick))
+    datasets = cache_datasets(config, build_joint_datasets(config, bool(args.quick)),
+                              device)
     print("loaded datasets")
     torch.manual_seed(args.seed)
     model = build_joint_model(config, in_features=datasets["train"].rna_dim)
@@ -140,6 +145,7 @@ def main(argv=None):
         emergency_checkpoint=bool(config.get("emergency_checkpoint", True)),
         accumulate_steps=int(config.get("accumulate_steps", 1)),
         **early_stop_kwargs(config),
+        **observability_kwargs(config, save_dir),
     )
     adapter = quantize_trunk_training(config, adapter, datasets, settings.batch_size,
                                       args.seed)

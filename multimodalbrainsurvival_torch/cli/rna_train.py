@@ -31,6 +31,7 @@ from multimodalbrainsurvival_torch.cli._common import (
     make_parser,
     make_writer,
     maybe_restore,
+    observability_kwargs,
     quantize_mode,
     quantize_rna_serving,
     run_train,
@@ -118,6 +119,7 @@ def main(argv=None):
         # batch's event count (1_GeneExpress_train.py:166-171)
         running_loss_weight="events" if config.reference_parity else "samples",
         **early_stop_kwargs(config),
+        **observability_kwargs(config, save_dir),
     )
     optimizer = tune_optimizer(
         build_rna_optimizer(model, config), config, len(datasets["train"]),

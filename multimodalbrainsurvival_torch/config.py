@@ -4,8 +4,8 @@ The port's own copy of ``multimodalbrainsurvival_tpu/config.py`` (stdlib
 only): the same known keys, and the typed accessors the ported paths read,
 with the same defaults.
 
-Keys of the JAX package that mean nothing here (XLA buffer donation,
-checkify, the JAX profiler, the compile cache) are reported as ignored, as
+Keys of the JAX package that mean nothing here (XLA buffer donation, the
+compile cache) are reported as ignored, as
 ``use_cuda`` is (the device comes from ``--device``), and so is
 ``preempt_sync_every``, the multi-host preemption consensus (ROADMAP.md,
 queue 1, item 7). Keys that change results but whose path is not ported
@@ -55,8 +55,7 @@ KNOWN_KEYS = {
 
 #: read by the JAX package only; no meaning in the port (or, for
 #: preempt_sync_every, no multi-host run to give it one yet)
-IGNORED_KEYS = ("use_cuda", "donate_state", "debug_checkify", "profile_steps",
-                "profile_dir", "preempt_sync_every", "compile_cache_dir")
+IGNORED_KEYS = ("use_cuda", "donate_state", "preempt_sync_every", "compile_cache_dir")
 
 
 @dataclass

@@ -271,7 +271,7 @@ def quantize_trunk_for_training(resnet: torch.nn.Module, patch_bags_u8, *,
     generator = torch.Generator(device=device).manual_seed(seed) if augment else None
     dicts = []
     for bag in patch_bags_u8:
-        u8 = torch.from_numpy(np.asarray(bag)).to(device)
+        u8 = torch.as_tensor(bag, device=device)
         x = preprocess_patches(u8.reshape((-1,) + tuple(u8.shape[-3:])),
                                dtype=torch.float32, train=augment,
                                generator=generator)
@@ -292,7 +292,7 @@ def quantize_mil_resnet(resnet: torch.nn.Module, patch_bags_u8, *,
     device = state["conv1.weight"].device
     dicts = []
     for bag in patch_bags_u8:
-        u8 = torch.from_numpy(np.asarray(bag)).to(device)
+        u8 = torch.as_tensor(bag, device=device)
         x = preprocess_patches(u8.reshape((-1,) + tuple(u8.shape[-3:])),
                                dtype=torch.float32)
         dicts.append(float_extract_amax(state, x, arch=arch)[1])

@@ -34,8 +34,10 @@ from multimodalbrainsurvival_torch.ops.image import preprocess_patches
 
 
 def to_device(batch: dict, keys: tuple, device: torch.device) -> dict:
-    """The batch's numpy arrays under ``keys`` as tensors on ``device``."""
-    return {k: torch.from_numpy(np.asarray(batch[k])).to(device) for k in keys}
+    """The batch's arrays under ``keys`` as tensors on ``device``: numpy
+    arrays are copied there, tensors already there (the device cache's) are
+    taken as they are."""
+    return {k: torch.as_tensor(batch[k], device=device) for k in keys}
 
 
 @dataclass

@@ -57,6 +57,7 @@ JAX loop's, under its tags and steps: ``train/loss`` and
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
 import os
@@ -132,6 +133,12 @@ class TrainSettings:
     # state, as of the last epoch boundary
     early_stop_patience: int = 0
     early_stop_min_delta: float = 0.0
+    # a torch.profiler trace (CPU and CUDA) of that many train steps after
+    # warmup, written under profile_dir (0 = none)
+    profile_steps: int = 0
+    profile_dir: str = "torch_trace"
+    # each step under autograd's anomaly mode, its loss checked
+    debug_checkify: bool = False
 
 
 def make_loss_fn(settings: TrainSettings):
@@ -170,6 +177,12 @@ def make_loss_fn(settings: TrainSettings):
     raise ValueError(f"Unknown task: {settings.task!r}")
 
 
+def host_array(batch: dict, key: str) -> np.ndarray:
+    """A batch's array on the host: the device cache's ``host_<key>``
+    mirror where the batch has one (its arrays are on the card)."""
+    return np.asarray(batch.get("host_" + key, batch[key]))
+
+
 def evaluate(adapter, dataset, settings: TrainSettings, *, split: str = "val",
              writer=None, epoch: int = 0):
     """Full-split eval → ``(loss, frames, metrics)``; the metrics go to
@@ -193,13 +206,13 @@ def evaluate(adapter, dataset, settings: TrainSettings, *, split: str = "val",
         out = adapter.apply(arrays)
         losses.append(loss_fn(out, arrays, arrays[adapter.sample_mask_key]))
         outputs.append(out)
-        mask = np.asarray(batch[adapter.sample_mask_key])
+        mask = host_array(batch, adapter.sample_mask_key)
         masks.append(mask)
         for k in adapter.id_keys:
             ids[k].extend(v for v, m in zip(batch[k], mask) if m)
         for k in label_keys:
             if k in batch:
-                labels.setdefault(k, []).extend(np.asarray(batch[k])[mask].tolist())
+                labels.setdefault(k, []).extend(host_array(batch, k)[mask].tolist())
 
     if not losses:
         print(f"{split}  | empty split, no evaluation")
@@ -252,7 +265,10 @@ def train_step(adapter, optimizer: TrainOptimizer, loss_fn, arrays: dict,
 
     With ``accumulate_steps = k`` microbatch i is rows ``i, i+k, i+2k, …``;
     each builds its own Cox risk set, the gradients are summed over the
-    microbatches and divided by k before the one update.
+    microbatches and divided by k before the one update. With
+    ``debug_checkify`` the step runs under autograd's anomaly mode (a
+    backward that makes a NaN raises, naming its function and the forward
+    op's traceback), and a non-finite loss raises before the backward.
     """
     k = settings.accumulate_steps
     if settings.batch_size % k:
@@ -262,17 +278,72 @@ def train_step(adapter, optimizer: TrainOptimizer, loss_fn, arrays: dict,
         {key: v[i::k].contiguous() for key, v in arrays.items()} for i in range(k)]
     optimizer.zero_grad()
     total = None
-    for mb in micro:
-        out = adapter.apply(mb, train=True, generator=generator)
-        loss = loss_fn(out, mb, mb[adapter.sample_mask_key])
-        loss.backward()
-        total = loss.detach() if total is None else total + loss.detach()
+    checking = (torch.autograd.detect_anomaly(check_nan=True) if settings.debug_checkify
+                else contextlib.nullcontext())
+    with checking:
+        for mb in micro:
+            out = adapter.apply(mb, train=True, generator=generator)
+            loss = loss_fn(out, mb, mb[adapter.sample_mask_key])
+            if settings.debug_checkify and not torch.isfinite(loss).item():
+                # anomaly mode checks the backward alone: a forward that
+                # made the loss non-finite is named here
+                raise FloatingPointError(
+                    f"debug_checkify: the forward made the loss {loss.item()} (a nan or "
+                    "inf in the step's inputs or activations)")
+            loss.backward()
+            total = loss.detach() if total is None else total + loss.detach()
     if k > 1:
         for p in optimizer.params:
             if p.grad is not None:
                 p.grad.div_(k)
     optimizer.step()
     return total / k
+
+
+class StepTrace:
+    """A ``torch.profiler`` trace (CPU, and CUDA on a card) of
+    ``settings.profile_steps`` train steps, JAX ``train/loop.py:640-646,
+    932-941,1004-1012``: it starts at global step ``warmup`` and stops after
+    ``profile_steps`` steps, or at ``stop()`` when the run ends first, so a
+    started trace is always written, as ``<profile_dir>/train_steps_<a>-<b>
+    .pt.trace.json`` (Chrome trace format)."""
+
+    def __init__(self, settings: TrainSettings, warmup: int, device: torch.device):
+        self.steps = settings.profile_steps
+        self.dir = settings.profile_dir
+        self.warmup = warmup
+        self.cuda = torch.device(device).type == "cuda"
+        self.profiler = None
+        self.done = False
+        self.first = self.last = 0
+
+    def before_step(self, step: int) -> None:
+        if self.steps and not self.done and self.profiler is None and step >= self.warmup:
+            activities = [torch.profiler.ProfilerActivity.CPU]
+            if self.cuda:
+                activities.append(torch.profiler.ProfilerActivity.CUDA)
+            self.profiler = torch.profiler.profile(activities=activities)
+            self.profiler.start()
+            self.first = self.last = step
+
+    def after_step(self, step: int) -> None:
+        """``step``: the global step just taken, counted from 1."""
+        if self.profiler is not None:
+            self.last = step
+            if step >= self.first + self.steps:
+                self.stop()
+
+    def stop(self) -> None:
+        if self.profiler is None:
+            return
+        if self.cuda:
+            torch.cuda.synchronize()
+        self.profiler.stop()
+        os.makedirs(self.dir, exist_ok=True)
+        self.profiler.export_chrome_trace(os.path.join(
+            self.dir, f"train_steps_{self.first}-{self.last}.pt.trace.json"))
+        self.profiler, self.done = None, True
+        print(f"wrote profiler trace to {self.dir}", flush=True)
 
 
 def _drain_losses(pending: list, running_loss: float, seen: float, epoch: int):
@@ -380,6 +451,15 @@ def train_model(adapter, datasets: dict, optimizer: TrainOptimizer,
             for _ in range(shuffles_done):
                 train_set.shuffle()
 
+    # the trace's warmup: 5 steps, fewer on a run too short for them and
+    # the trace (JAX loop.py:932-941); a resumed run is warm already
+    warmup = 5
+    if settings.profile_steps:
+        per_epoch = -(-len(train_set) // settings.batch_size)
+        total = step + per_epoch * (settings.num_epochs - start_epoch)
+        warmup = max(step, min(5, total - settings.profile_steps))
+    trace = StepTrace(settings, warmup, adapter.device)
+
     if settings.pre_training_eval and start_epoch == 0:
         for split in ("train", "val"):
             if split in datasets:
@@ -442,15 +522,17 @@ def train_model(adapter, datasets: dict, optimizer: TrainOptimizer,
                 for batch in batches:
                     maybe_preempt()
                     arrays = adapter.to_device(batch, keys)
-                    mask = np.asarray(batch[adapter.sample_mask_key])
+                    mask = host_array(batch, adapter.sample_mask_key)
                     if settings.running_loss_weight == "events" and "vital_status" in batch:
-                        weight = float((np.asarray(batch["vital_status"], np.float64)
+                        weight = float((host_array(batch, "vital_status").astype(np.float64)
                                         * mask).sum())
                     else:
                         weight = float(mask.sum())
+                    trace.before_step(step)
                     loss = train_step(adapter, optimizer, loss_fn, arrays, settings,
                                       generator)
                     step += 1
+                    trace.after_step(step)
                     epoch_step += 1
                     state_epoch = epoch
                     steps_since_log += 1
@@ -511,6 +593,7 @@ def train_model(adapter, datasets: dict, optimizer: TrainOptimizer,
                       f"(best {es_best:.4f})")
                 break
     finally:
+        trace.stop()
         if handler_installed:
             # None: the previous handler was not installed from Python
             signal.signal(signal.SIGTERM,

@@ -82,10 +82,10 @@ def test_abandoned_batches_stop_their_thread(cohort):  # noqa: F811
 def test_a_reading_error_reaches_the_consumer(cohort, monkeypatch):  # noqa: F811
     ds = PatchBagDataset(**_kw(cohort))
 
-    def broken(idx):
+    def broken(idx, batch_size, num_threads):
         raise OSError(f"unreadable bag {idx}")
 
-    monkeypatch.setattr(ds, "_load_bag", broken)
+    monkeypatch.setattr(ds, "_load_batch", broken)
     with pytest.raises(OSError, match="unreadable bag"):
         list(ds.batches(2, num_threads=1))
 

@@ -52,7 +52,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                  "train.checkpoint", "cli.rna_train", "cli.rna_savescore",
                  "cli.rna_extractfeatures", "kernels.fused_stage", "models.serving",
                  "models.fusion", "cli.feature_train", "cli.feature_savescore",
-                 "cli.joint_train", "cli.joint_savescore"):
+                 "cli.joint_train", "cli.joint_savescore", "ops.coxnet", "frames",
+                 "cli.merge_scores", "cli.concat_features", "cli.late_fusion",
+                 "cli.pack_patches", "data.native", "data.tiler", "data.device_cache"):
         assert f"multimodalbrainsurvival_torch.{name}" in modules
     code = (
         "import importlib, json, sys\n"
@@ -78,6 +80,44 @@ def test_cli_without_card_raises_unless_cpu_asked(main, tmp_path, monkeypatch):
     cfg.write_text(json.dumps({"model_path": "missing.pt"}))
     with pytest.raises(RuntimeError, match="--device cpu"):
         main(["--config", str(cfg)])
+
+
+def test_late_fusion_without_card_raises_unless_cpu_asked(tmp_path, monkeypatch):
+    from multimodalbrainsurvival_torch.cli import late_fusion
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    missing = str(tmp_path / "missing.csv")
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        late_fusion.main(["--train_csv", missing, "--val_csv", missing,
+                          "--output_dir", str(tmp_path)])
+    # on the CPU it gets as far as reading the frames
+    with pytest.raises(FileNotFoundError):
+        late_fusion.main(["--train_csv", missing, "--val_csv", missing,
+                          "--output_dir", str(tmp_path), "--device", "cpu"])
+
+
+def test_port_cli_modules_import_neither_pandas_nor_cv2():
+    """The machine with the card has neither: importing every CLI module of
+    the port, in a fresh interpreter, leaves no ``pandas`` and no ``cv2``
+    module behind."""
+    import multimodalbrainsurvival_torch.cli as cli_pkg
+
+    clis = [m.name for m in pkgutil.iter_modules(cli_pkg.__path__,
+                                                 "multimodalbrainsurvival_torch.cli.")]
+    for name in ("late_fusion", "merge_scores", "concat_features", "pack_patches",
+                 "histo_train", "joint_train"):
+        assert f"multimodalbrainsurvival_torch.cli.{name}" in clis
+    code = (
+        "import importlib, json, sys\n"
+        f"for m in {clis!r}:\n"
+        "    importlib.import_module(m)\n"
+        "print(json.dumps(sorted(k for k in sys.modules if k.split('.')[0] in "
+        "('pandas', 'cv2'))))\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []
 
 
 def test_resolve_device_sets_full_float32(monkeypatch):

@@ -912,3 +912,26 @@ def test_fused_stage_kernel_rejects_bad_inputs(cuda):
     with pytest.raises(ValueError, match="w1"):
         fused_bottleneck_stage(torch.zeros_like(x[:, :8]).contiguous(
             memory_format=torch.channels_last), blocks)
+
+
+@pytest.mark.gpu
+def test_coxnet_fit_on_the_card_matches_the_cpu(cuda):
+    """The late-fusion fit's CUDA graph (one λ's 500 FISTA iterations,
+    replayed for each λ) against the same batch of problems solved eagerly
+    on the CPU: λ.min equal, β and the CV curve within 1e-4 of scale."""
+    import numpy as np
+
+    from multimodalbrainsurvival_torch.ops.coxnet import fit_coxnet
+
+    rng = np.random.default_rng(0)
+    X = rng.normal(size=(300, 2)).astype(np.float32)
+    t = np.ceil(rng.exponential(np.exp(-X @ np.array([0.8, -0.4]))) * 8) / 8
+    e = (rng.uniform(size=300) > 0.4).astype(np.float32)
+    card = fit_coxnet(X, t, e, seed=1, device=cuda)
+    cpu = fit_coxnet(X, t, e, seed=1, device="cpu")
+    assert card.stats["graph_replays"] == 50 and cpu.stats["graph_replays"] == 0
+    np.testing.assert_allclose(card.lambdas, cpu.lambdas, rtol=1e-6)
+    assert list(card.lambdas).index(card.lambda_min) == list(cpu.lambdas).index(cpu.lambda_min)
+    scale = np.abs(cpu.betas_path).max()
+    assert np.abs(card.betas_path - cpu.betas_path).max() <= 1e-4 * scale
+    assert np.nanmax(np.abs(card.cv_mean - cpu.cv_mean)) <= 1e-4 * np.nanmax(cpu.cv_mean)
