@@ -146,7 +146,28 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    seconds, a cached train step's idle share at ``n_layers_to_train`` 2,
    and ``joint_train`` for an epoch from the cache (K2a and K2b counted);
    (e) the cached ``histo_train`` run also has ``profile_steps:
-   TRACE_STEPS``: its trace must hold the card's kernels.
+   TRACE_STEPS``: its trace must hold the card's kernels;
+18. whole-slide streaming: a 10,240 x 10,240 px slide (a noisy tissue
+   square on white, about 1,700 tissue tiles; a PNG, and a 2-level tiled
+   TIFF where libtiff builds) through ``slide_extractfeatures`` at
+   ResNet-50 / attention 2048 / bf16 / 224 px, batches of 128, folded
+   (K4) and int8 (K3) on the whole slide and in floating point cut to
+   ``STREAM_CUT_PATCHES`` tiles, and ``slide_joint_savescore`` (a 12,778-gene
+   row) folded and int8, cut likewise; each counted (K1 once a slide) and
+   its frames checked; one slide timed (host tiling, encoder, tail, tiles/s,
+   the card's idle share); the card against the CPU over the first 32 tiles
+   in float32; the streamed tiles and slide embedding against
+   ``wsi2patches`` → ``pack_patches`` → ``histo_extractfeatures``; K1 at
+   the slide tail's shape (1, 2048, 2048) bf16 against its plain version,
+   timed beside ``torch.matmul`` of its product;
+19. exported serving: ``export_model`` on the card (MIL attention bf16,
+   folded, int8; joint; RNA; no kernel launched while tracing), one
+   ``serve`` thread on 127.0.0.1 serving all five (``--buckets 1,8
+   --warmup 1``), ``SERVE_REQUESTS`` b64 requests a model (batches 1-8,
+   bags of 16), counted (K1, K3 and K4 through the programs' custom ops),
+   each response bit for bit a direct call of the loaded program and
+   within ``SERVE_TOL`` of the eager adapters; health, listing, a 400;
+   latency p50 / p95 and requests/s a model.
 
 The last lines are the ``kernels`` JSON line, the nvidia-smi line and
 ``{"ok": true, "device": {...}}``. Without a card, or without the rest of
@@ -178,8 +199,10 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
+from multimodalbrainsurvival_torch import artifact
 from multimodalbrainsurvival_torch.cli import (
     concat_features,
+    export_model,
     feature_savescore,
     feature_train,
     histo_extractfeatures,
@@ -193,6 +216,10 @@ from multimodalbrainsurvival_torch.cli import (
     rna_extractfeatures,
     rna_savescore,
     rna_train,
+    serve,
+    slide_extractfeatures,
+    slide_joint_savescore,
+    wsi2patches,
 )
 from multimodalbrainsurvival_torch.cli._common import (
     PREEMPTED_EXIT_CODE,
@@ -210,6 +237,7 @@ from multimodalbrainsurvival_torch.data import (
     RNATableDataset,
     native,
 )
+from multimodalbrainsurvival_torch.data import tiler
 from multimodalbrainsurvival_torch.data.device_cache import DeviceCachedPatchBags
 from multimodalbrainsurvival_torch.data.patches import read_csv_rows
 from multimodalbrainsurvival_torch.device import configure_precision
@@ -1572,11 +1600,12 @@ def _histo_train_keys(root: str, name: str) -> dict:
                 log_interval=1)
 
 
-def _run_counted(cli: str, main, cfg_path, expected: dict, smi: str) -> dict:
+def _run_counted(cli: str, main, cfg_path, expected, smi: str) -> dict:
     """Run a CLI with every launch counter set to 0 just before and read
-    just after; the counts must be ``expected`` (0 where not named).
-    ``cfg_path``: the config's path, or the CLI's whole argv (a list)."""
-    expected = {name: expected.get(name, 0) for name in COUNT_NAMES}
+    just after; the counts must be ``expected`` (0 where not named), or
+    what ``expected()`` returns when called after the run (once its
+    outputs say how many batches it ran). ``cfg_path``: the config's path,
+    or the CLI's whole argv (a list)."""
     reset_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1584,6 +1613,9 @@ def _run_counted(cli: str, main, cfg_path, expected: dict, smi: str) -> dict:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = read_counts()
+    if callable(expected):
+        expected = expected()
+    expected = {name: expected.get(name, 0) for name in COUNT_NAMES}
     print(f"{cli}: launches {counts} (expected {expected}); "
           f"{wall:.2f} s wall clock [{smi}]")
     if counts != expected:
@@ -2952,6 +2984,562 @@ def drive_phase17(root: str, device: torch.device, smi: str, k1_ms: dict
     return by_cli, e2e
 
 
+# --- phases 18-19: whole-slide streaming, exported serving ---------------------
+
+# the streaming slide (18): a white square with a noisy tissue square inside,
+# PNG (and a 2-level tiled TIFF where libtiff builds), about 1,700 tissue tiles
+STREAM_SLIDE_PX, STREAM_TISSUE = 10240, (512, 9728)
+STREAM_ARCH, STREAM_IMG, STREAM_BATCH = "resnet50", IMG, 128
+# the JAX default cap on tiles a slide, and the least the slide must give
+STREAM_MAX_PATCHES, STREAM_MIN_TILES = 2000, 1500
+# the float and joint runs are cut to these many tiles (the host's tiling,
+# about 6 ms a tile, would otherwise hold the phase past its time); the
+# folded and int8 runs and the timed breakdown take the whole slide
+STREAM_CUT_PATCHES = {"float": 256, "joint": 512}
+# card vs CPU and the two-step route (18c-d): the first tiles only
+STREAM_CHECK_PATCHES = 32
+# the histo card-vs-CPU tolerance (phases 5, 9): rtol, atol
+STREAM_TOL = (1e-3, 1e-4)
+# K1 at the slide tail's shape: one bag of 2,048 patches
+SLIDE_TAIL_SHAPE = (1, 2048, D)
+# exported serving (19): requests a model, their batch sizes 1-8, bags of
+SERVE_REQUESTS, SERVE_MAX_BATCH, SERVE_BAG = 20, 8, 16
+SERVE_BUCKETS = "1,8"
+# served program vs the eager model, err / max|eager|: bf16 paths round at
+# the same places (2**-6: the folded tolerance of phase 5); int8 and float32
+# paths run the same kernels on the same qtree (float32 sums in another order)
+SERVE_TOL = {"bfloat16": 2**-6, "int8": 1e-3, "float32": 1e-4}
+
+
+def _k3_per_batch(arch: str) -> dict:
+    """K3's launches for one batch through the int8 ``arch``: every conv
+    but the stem (each block's last in the residual form), one stem pass."""
+    blocks = sum(quantize.STAGE_SIZES[arch])
+    basic = arch in quantize.BASIC_ARCHS
+    convs = blocks * (2 if basic else 3) + (3 if basic else 4)
+    return {"qmm_requant": convs, "qconv_residual_requant": blocks, "stem_requant_pool": 1}
+
+
+def _k4_per_batch(arch: str) -> int:
+    """K4's launches for one batch through the folded ``arch``: layer1's
+    blocks and layer2's stride-1 tail (a BasicBlock ResNet: none)."""
+    if arch in quantize.BASIC_ARCHS:
+        return 0
+    return quantize.STAGE_SIZES[arch][0] + quantize.STAGE_SIZES[arch][1] - 1
+
+
+def _expected(attention: int = 0, k3_batches: int = 0, k4_batches: int = 0,
+              arch: str = STREAM_ARCH) -> dict:
+    want = {name: 0 for name in COUNT_NAMES}
+    want["attention_pool"] = attention
+    for name, n in _k3_per_batch(arch).items():
+        want[name] = n * k3_batches
+    want["fused_bottleneck_stage"] = _k4_per_batch(arch) * k4_batches
+    return want
+
+
+def write_stream_slide(path: str, seed: int = SEED) -> np.ndarray:
+    """The streaming slide as a PNG (zlib's stored blocks); returns its
+    pixels."""
+    rng = np.random.default_rng(seed)
+    lo, hi = STREAM_TISSUE
+    img = np.full((STREAM_SLIDE_PX, STREAM_SLIDE_PX, 3), 255, np.uint8)
+    noise = rng.integers(0, 60, size=(hi - lo, hi - lo, 3), dtype=np.uint8)
+    img[lo:hi, lo:hi] = np.array([200, 120, 160], np.uint8) - noise // 2
+    tiler.write_png(path, img, level=0)  # stored: quick to write and to read
+    return img
+
+
+def _stream_models(root: str) -> dict:
+    """Seeded weights of the streaming and serving models: the MIL model
+    (ResNet-50, attention 2048, bf16), the joint model (ResNet-50 and the
+    RNA encoder, 12,778 genes) and the RNA MLP, as ``.pt`` files."""
+    d = os.path.join(root, "stream")
+    os.makedirs(d, exist_ok=True)
+    base = {"model_name": STREAM_ARCH, "aggregator": "attention", "aggregator_hdim": D,
+            "compute_dtype": "bfloat16", "num_classes": 1}
+    paths = {k: os.path.join(d, f"{k}.pt") for k in ("mil", "joint", "rna")}
+    if not os.path.isfile(paths["mil"]):
+        torch.save(random_state_dict(build_mil_model(Config(base)), SEED + 18), paths["mil"])
+        torch.save(random_state_dict(joint_train.build_joint_model(Config(base)), SEED + 19),
+                   paths["joint"])
+        torch.save(random_state_dict(rna_train.build_rna_model(Config({})), SEED + 20),
+                   paths["rna"])
+    return paths
+
+
+def _stream_config(root: str, name: str, **overrides) -> tuple[dict, str]:
+    d = os.path.join(root, "stream")
+    cfg = {"model_name": STREAM_ARCH, "aggregator": "attention", "aggregator_hdim": D,
+           "compute_dtype": "bfloat16", "num_classes": 1, "img_size": STREAM_IMG,
+           "batch_size": STREAM_BATCH, "max_patches_per_slide": STREAM_MAX_PATCHES,
+           "slides": [os.path.join(d, "wsi", "slide.png")], "save_patch_features": True,
+           "model_path": os.path.join(d, "mil.pt"), "output_path": os.path.join(d, name),
+           "flag": "stream_smoke", "num_workers": 8}
+    cfg.update(overrides)
+    path = os.path.join(d, f"{name}.json")
+    with open(path, "w") as f:
+        json.dump(cfg, f)
+    return cfg, path
+
+
+def _check_slide_frames(cfg: dict, n: int | None = None) -> int:
+    """slide_extractfeatures' frames for one slide; returns its tiles."""
+    out = cfg["output_path"]
+    scores = read_frame(os.path.join(out, "slide_scores.csv"))
+    if list(scores) != ["slide", "case", "n_patches", "score"] or n_rows(scores) != 1:
+        raise AssertionError(f"{out}/slide_scores.csv: {list(scores)}")
+    tiles = scores["n_patches"][0]
+    if (n is not None and tiles != n) or not np.isfinite(scores["score"][0]):
+        raise AssertionError(f"{out}: {tiles} tiles (want {n}), score {scores['score']}")
+    feats = np.loadtxt(os.path.join(out, "pathology_features_slides.csv"), delimiter=",")
+    cases = read_frame(os.path.join(out, "pathology_cases_slides.csv"))
+    if feats.shape != (D,) or not np.isfinite(feats).all() or n_rows(cases) != 1:
+        raise AssertionError(f"{out}: features {feats.shape}, cases {cases}")
+    if cfg.get("save_patch_features"):
+        pf = np.load(os.path.join(out, "patch_features", "slide_features.npy"))
+        patches = read_frame(os.path.join(out, "patch_features", "slide_patches.csv"))
+        att = np.asarray(patches["attention"])
+        if (pf.shape != (tiles, D) or list(patches) != ["id", "x", "y", "attention"]
+                or n_rows(patches) != tiles or not np.isfinite(pf).all()
+                or abs(att.sum() - 1) > 1e-3):
+            raise AssertionError(f"{out}: patch features {pf.shape}, "
+                                 f"patches {list(patches)} x {n_rows(patches)}")
+    return tiles
+
+
+def _check_joint_slide_frame(cfg: dict, n: int) -> None:
+    path = os.path.join(cfg["output_path"], "joint_slide_scores.csv")
+    frame = read_frame(path)
+    if (list(frame) != ["slide", "case", "n_patches", "score", "survival_months",
+                        "vital_status"] or n_rows(frame) != 1 or frame["n_patches"][0] != n
+            or not np.isfinite(frame["score"][0])):
+        raise AssertionError(f"{path}: {frame}")
+
+
+def _tiff_slide(root: str, img: np.ndarray) -> str | None:
+    """The slide also as a 2-level tiled TIFF (256-px tiles, the lower
+    level 8x smaller) where libtiff builds here; else None, said why."""
+    from multimodalbrainsurvival_torch.utils import native_tiff
+
+    try:
+        native_tiff.build()
+    except RuntimeError as e:
+        print(f"libtiff: the TIFF reader does not build on this machine; TIFF slides "
+              f"are not streamed ({str(e).splitlines()[-1][:200]})")
+        return None
+    path = os.path.join(root, "stream", "slide.tif")
+    native_tiff.write_test_pyramid(path, [img, img[::8, ::8]], tile=256)
+    return path
+
+
+def check_slide_tail_k1(device: torch.device, smi: str) -> dict:
+    """K1 at the slide tail's shape (one bag of 2,048 patches, bf16) against
+    its plain version (``KERNEL_TOL``), timed beside the plain version and
+    ``torch.matmul`` of the (2048 x 2048) · (2048 x 2048) product."""
+    n_b, bag, d = SLIDE_TAIL_SHAPE
+    g = torch.Generator(device="cpu").manual_seed(SEED + 18)
+    x = torch.randn(n_b, bag, d, generator=g).relu().to(device, torch.bfloat16)
+    weight = (torch.randn(d, d, generator=g) / math.sqrt(d)).to(device, torch.bfloat16)
+    v = (torch.randn(d, generator=g) * 0.05).to(device)
+    mask = torch.ones(n_b, bag, dtype=torch.bool, device=device)
+    pooled, w = attention_pool(x, weight, v, mask)
+    want_pooled, want_w = attention_pool_plain(x, weight, v, mask)
+    err = max((pooled - want_pooled).abs().max().item(), (w - want_w).abs().max().item())
+    if not err <= KERNEL_TOL:
+        raise AssertionError(f"K1 at {SLIDE_TAIL_SHAPE} disagrees with its plain version: "
+                             f"{err} > {KERNEL_TOL}")
+    scrub = torch.empty(64 << 20, dtype=torch.uint8, device=device)
+    x2d = x.view(-1, d)
+    fns = {"kernel": lambda: attention_pool(x, weight, v, mask),
+           "plain": lambda: attention_pool_plain(x, weight, v, mask),
+           "library": lambda: torch.matmul(x2d, weight.t())}
+    times = {k: [] for k in fns}
+    for name in ("plain", "kernel", "library", "library", "kernel", "plain"):
+        times[name].append(_time_ms(fns[name], 25, scrub))
+    bound_ms, bound_by = _bound(x, weight, v, mask)
+    out = {"shape": list(SLIDE_TAIL_SHAPE), "dtype": "bfloat16", "max_abs_err": err,
+           "ms": sum(times["kernel"]) / 2, "plain_ms": sum(times["plain"]) / 2,
+           "library_ms": sum(times["library"]) / 2, "bound_ms": bound_ms,
+           "bound_by": bound_by}
+    print(f"K1 at the slide tail {SLIDE_TAIL_SHAPE} bf16: {json.dumps(out)} [{smi}]")
+    return out
+
+
+def _stream_breakdown(cfg: dict, device: torch.device, smi: str) -> dict:
+    """One slide through the streaming functions, timed: host tiling, the
+    encoder's device time (CUDA events), the tail's, the wall clock, tiles/s
+    and the card's idle share (1 - device time / wall)."""
+    from multimodalbrainsurvival_torch.cli import slide_extractfeatures as sx
+    from multimodalbrainsurvival_torch.data.tiler import open_slide
+
+    config = Config(cfg)
+    slides = sx.resolve_slides(config)
+    tcfg = sx.tile_config(config)
+    model, extract, masks = sx.serving_encoder(config, device, slides, tcfg)
+    tail = sx.make_slide_tail(model)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    slide = open_slide(slides[0][0])
+    t_open = time.perf_counter() - t0
+    timing: dict = {}
+    feats, _ = sx.stream_slide_features(extract, slide, tcfg, config.batch_size, device,
+                                        timing=timing)
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    tail(feats)
+    end.record()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    tail_ms = start.elapsed_time(end)
+    n = feats.shape[0]
+    out = {"tiles": n, "wall_s": wall, "tiles_per_s": n / wall, "open_s": t_open,
+           "host_tiling_s": timing["tile_s"], "host_wait_s": timing["wait_s"],
+           "encoder_s": timing.get("encode_ms", 0.0) / 1e3, "tail_s": tail_ms / 1e3,
+           "batches": timing["batches"]}
+    out["idle_share"] = 1 - (out["encoder_s"] + out["tail_s"]) / wall
+    print(f"streaming breakdown (bf16, {n} tiles, batch {config.batch_size}): "
+          f"{json.dumps(out)} [{smi}]")
+    return out
+
+
+def drive_streaming(root: str, device: torch.device, smi: str) -> tuple[dict, dict]:
+    """Phase 18: whole-slide streaming at full width (ResNet-50, attention
+    2048, bf16, 224 px, up to 2,000 tiles): ``slide_extractfeatures`` in
+    float, folded and int8, ``slide_joint_savescore`` folded and int8, each
+    counted and its frames checked; a timed breakdown; the card against the
+    CPU over the first 32 tiles (float32), and the streamed tiles and
+    features against the two-step route (``wsi2patches`` → ``pack_patches``
+    → ``histo_extractfeatures``); K1 at the slide tail's shape."""
+    t_phase = time.perf_counter()
+    d = os.path.join(root, "stream")
+    os.makedirs(os.path.join(d, "wsi"), exist_ok=True)
+    t0 = time.perf_counter()
+    img = write_stream_slide(os.path.join(d, "wsi", "slide.png"))
+    print(f"streaming slide: {STREAM_SLIDE_PX}x{STREAM_SLIDE_PX} px PNG in "
+          f"{time.perf_counter() - t0:.1f} s")
+    tiff = _tiff_slide(root, img)
+    del img
+    models = _stream_models(root)
+    runs, e2e = {}, {"tiff": tiff is not None}
+
+    def batches(n):
+        return math.ceil(n / STREAM_BATCH)
+
+    tiles = {}
+    modes = {"folded": {"fold_bn": True}, "int8": {"quantize": "int8"},
+             "float": {"max_patches_per_slide": STREAM_CUT_PATCHES["float"]}}
+    for mode, keys in modes.items():
+        cfg, path = _stream_config(root, f"slide_{mode}", **keys)
+
+        def expect(cfg=cfg, mode=mode):
+            n = tiles[mode] = _check_slide_frames(cfg)
+            return _expected(attention=1, k3_batches=batches(n) if mode == "int8" else 0,
+                             k4_batches=batches(n) if mode == "folded" else 0)
+
+        runs[f"slide_extractfeatures_{mode}"] = _run_counted(
+            f"slide_extractfeatures {mode}", slide_extractfeatures.main,
+            path, expect, smi)
+    n = tiles["folded"]
+    if (tiles["int8"] != n or n < STREAM_MIN_TILES
+            or tiles["float"] != min(n, STREAM_CUT_PATCHES["float"])):
+        raise AssertionError(f"tiles a run: {tiles} (the same tiler: one count, "
+                             f">= {STREAM_MIN_TILES}, the float run cut)")
+    e2e["tiles"] = n
+    if tiff is not None:
+        cfg, path = _stream_config(root, "slide_tiff", slides=[tiff])
+
+        def expect_tiff(cfg=cfg):
+            _check_slide_frames(cfg, n)
+            return _expected(attention=1)
+
+        runs["slide_extractfeatures_tiff"] = _run_counted(
+            "slide_extractfeatures tiff", slide_extractfeatures.main, path, expect_tiff, smi)
+    # the joint model on the same slide with a 12,778-gene RNA row
+    rng = np.random.default_rng(SEED + 21)
+    joint_csv = os.path.join(d, "joint_slides.csv")
+    with open(joint_csv, "w") as f:
+        f.write("case,survival_months,vital_status,wsi_file_name,"
+                + ",".join(f"rna_{i}" for i in range(RNA_GENES)) + "\n")
+        f.write("c0,37.5,1,slide.png," + ",".join(
+            "%.5g" % v for v in rng.standard_normal(RNA_GENES, dtype=np.float32)) + "\n")
+    for mode, keys in (("folded", {"fold_bn": True}), ("int8", {"quantize": "int8"})):
+        cut = min(n, STREAM_CUT_PATCHES["joint"])
+        cfg, path = _stream_config(root, f"joint_slide_{mode}", slide_csv_path=joint_csv,
+                                   slide_path=os.path.join(d, "wsi"),
+                                   model_path=models["joint"], max_patches_per_slide=cut,
+                                   **keys)
+
+        def expect(cfg=cfg, mode=mode, cut=cut):
+            _check_joint_slide_frame(cfg, cut)
+            return _expected(k3_batches=batches(cut) if mode == "int8" else 0,
+                             k4_batches=batches(cut) if mode == "folded" else 0)
+
+        runs[f"slide_joint_savescore_{mode}"] = _run_counted(
+            f"slide_joint_savescore {mode}", slide_joint_savescore.main, path, expect, smi)
+    cfg, _ = _stream_config(root, "slide_breakdown")
+    e2e["breakdown"] = _stream_breakdown(cfg, device, smi)
+
+    # 18c: the card against the CPU over the first tiles, float32
+    small = {"compute_dtype": "float32", "max_patches_per_slide": STREAM_CHECK_PATCHES,
+             "batch_size": STREAM_CHECK_PATCHES}
+    cfg_card, card_path = _stream_config(root, "slide_f32_card", **small)
+    cfg_cpu, cpu_path = _stream_config(root, "slide_f32_cpu", **small)
+    slide_extractfeatures.main(["--config", card_path])
+    slide_extractfeatures.main(["--config", cpu_path, "--device", "cpu"])
+    diffs = {}
+    for name, load in (("features", lambda c: np.load(os.path.join(
+                           c["output_path"], "patch_features", "slide_features.npy"))),
+                       ("score", lambda c: np.asarray(read_frame(os.path.join(
+                           c["output_path"], "slide_scores.csv"))["score"]))):
+        got, want = load(cfg_card), load(cfg_cpu)
+        diffs[name] = float(np.abs(got - want).max())
+        if not np.allclose(got, want, rtol=STREAM_TOL[0], atol=STREAM_TOL[1]):
+            raise AssertionError(f"streamed {name}: card vs CPU max_abs_diff {diffs[name]}")
+    print(f"streaming card vs CPU ({STREAM_CHECK_PATCHES} tiles, float32): max_abs_diff "
+          f"{diffs} (rtol {STREAM_TOL[0]}, atol {STREAM_TOL[1]})")
+    e2e["card_vs_cpu_max_abs_diff"] = diffs
+
+    # 18d: the two-step route on the same slide and tiles
+    patch_root, mask_root = os.path.join(d, "patches"), os.path.join(d, "masks")
+    wsi2patches.main(["--wsi_path", os.path.join(d, "wsi"), "--patch_path", patch_root,
+                      "--mask_path", mask_root, "--patch_size", str(STREAM_IMG),
+                      "--max_patches_per_slide", str(STREAM_CHECK_PATCHES),
+                      "--num_process", "1", "--ext", "png"])
+    pack_patches.main(["--patch_path", patch_root])
+    with open(os.path.join(patch_root, "slide", "loc.txt")) as f:
+        loc = [tuple(int(v) for v in line.split()[1:3]) for line in f.read().splitlines()[2:]]
+    streamed = read_frame(os.path.join(cfg_card["output_path"], "patch_features",
+                                       "slide_patches.csv"))
+    if loc != list(zip(streamed["x"], streamed["y"])):
+        raise AssertionError("the streamed tiles are not wsi2patches' tiles")
+    cohort = os.path.join(d, "two_step.csv")
+    with open(cohort, "w") as f:
+        f.write("case,survival_months,vital_status,wsi_file_name\nslide,37.5,1,slide.svs\n")
+    cfg2, path2 = _stream_config(
+        root, "two_step", compute_dtype="float32", data_path=patch_root,
+        train_csv_path=cohort, val_csv_path=cohort, test_csv_path=cohort, batch_size=1,
+        train_bag_size=STREAM_CHECK_PATCHES, val_bag_size=STREAM_CHECK_PATCHES,
+        max_patch_per_wsi_train=STREAM_CHECK_PATCHES,
+        max_patch_per_wsi_val=STREAM_CHECK_PATCHES)
+    histo_extractfeatures.main(["--config", path2])
+    two_step = np.loadtxt(os.path.join(cfg2["output_path"], "pathology_features_test.csv"),
+                          delimiter=",")
+    streamed_emb = np.loadtxt(os.path.join(cfg_card["output_path"],
+                                           "pathology_features_slides.csv"), delimiter=",")
+    diff = float(np.abs(two_step - streamed_emb).max())
+    if not np.allclose(two_step, streamed_emb, rtol=STREAM_TOL[0], atol=STREAM_TOL[1]):
+        raise AssertionError(f"streamed vs two-step slide embedding: max_abs_diff {diff}")
+    print(f"streaming vs two-step route ({len(loc)} tiles): positions equal, slide "
+          f"embedding max_abs_diff {diff:.3e}")
+    e2e["two_step_max_abs_diff"] = diff
+    e2e["slide_tail_k1"] = check_slide_tail_k1(device, smi)
+    e2e["seconds"] = time.perf_counter() - t_phase
+    print(f"phase 18: {e2e['seconds']:.1f} s")
+    return runs, e2e
+
+
+def _post(port: int, path: str, body: dict) -> tuple[int, dict, float]:
+    import http.client
+
+    data = json.dumps(body).encode()
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=300)
+    t0 = time.perf_counter()
+    conn.request("POST", path, data, {"Content-Type": "application/json"})
+    resp = conn.getresponse()
+    payload = json.loads(resp.read())
+    ms = (time.perf_counter() - t0) * 1e3
+    conn.close()
+    return resp.status, payload, ms
+
+
+def _get(port: int, path: str) -> dict:
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+    conn.request("GET", path)
+    resp = conn.getresponse()
+    payload = json.loads(resp.read())
+    conn.close()
+    if resp.status != 200:
+        raise AssertionError(f"GET {path}: {resp.status} {payload}")
+    return payload
+
+
+def _b64(a: np.ndarray) -> dict:
+    import base64
+
+    return {"b64": base64.b64encode(np.ascontiguousarray(a).tobytes()).decode("ascii"),
+            "shape": list(a.shape), "dtype": str(a.dtype)}
+
+
+def _unb64(spec: dict) -> np.ndarray:
+    import base64
+
+    return np.frombuffer(base64.b64decode(spec["b64"]),
+                         dtype=np.dtype(spec["dtype"])).reshape(spec["shape"])
+
+
+def _serve_configs(root: str, models: dict) -> dict:
+    """export_model's configs: three MIL artifacts (attention bf16, folded,
+    int8 calibrated on phase 4's first train batch), the joint model (bf16)
+    and the RNA MLP (float32)."""
+    csv_path = os.path.join(root, "cohort.csv")
+    if not os.path.isfile(csv_path):
+        make_cohort(root)
+    joint_csv = os.path.join(root, "joint.csv")
+    if not os.path.isfile(joint_csv):
+        make_joint_csv(root)
+    rna_paths = make_rna_cohort(os.path.join(root, "stream", "rna"), {"train": 4}, SEED + 22)
+    exports = os.path.join(root, "stream", "exports")
+    mil = {"model_path": models["mil"]}
+    out = {}
+    for name, keys in (("mil_bf16", mil), ("mil_folded", {**mil, "fold_bn": True}),
+                       ("mil_int8", {**mil, "quantize": "int8"}),
+                       ("joint", {"model_path": models["joint"], "export_kind": "joint",
+                                  "train_csv_path": joint_csv, "val_csv_path": joint_csv,
+                                  "test_csv_path": joint_csv, "batch_size": JOINT_BATCH,
+                                  "train_bag_size": 1, "val_bag_size": 1}),
+                       ("rna", {"model_path": models["rna"], "export_kind": "rna",
+                                "train_csv_path": rna_paths["train"]})):
+        cfg, path = _config(root, csv_path, f"export_{name}",
+                            export_path=os.path.join(exports, name), **keys)
+        out[name] = (cfg, path)
+    return out
+
+
+def _serve_inputs(meta: dict, rng: np.random.Generator, b: int) -> dict:
+    """A request's arrays: uint8 bags of ``SERVE_BAG`` patches (the last
+    patch of the first bag padded), ones elsewhere in the mask, normal RNA
+    vectors."""
+    arrays = {}
+    for name, dtype, dims in serve.parse_convention(meta):
+        shape = [b] + [SERVE_BAG if d is None else d for d in dims[1:]]
+        if name == "patch_bag":
+            arrays[name] = rng.integers(0, 256, shape, dtype=np.uint8)
+        elif name == "bag_mask":
+            arrays[name] = np.ones(shape, np.float32)
+            arrays[name][0, -1] = 0.0
+        else:
+            arrays[name] = rng.standard_normal(shape).astype(dtype)
+    return arrays
+
+
+def _eager_adapter(name: str, cfg: dict, device: torch.device):
+    """The port's eager serving adapter of an exported model, built as the
+    savescore / extract CLIs build it (int8: calibrated on the same first
+    train batch as the export)."""
+    config = Config(cfg)
+    if name == "rna":
+        return rna_train.rna_serving_adapter(config, device, RNA_GENES)
+    if name == "joint":
+        datasets = joint_train.build_joint_datasets(config, False)
+        build = functools.partial(joint_train.build_joint_model, in_features=RNA_GENES)
+        return serving_adapter(config, device, datasets, build, JointAdapter)
+    return serving_adapter(config, device, build_datasets(config, False))
+
+
+def drive_export_serve(root: str, device: torch.device, smi: str) -> tuple[dict, dict]:
+    """Phase 19: ``export_model`` on the card (MIL attention bf16, folded,
+    int8; joint; RNA), no kernel launched while tracing; one ``serve``
+    thread on 127.0.0.1 (a free port, ``--buckets 1,8 --warmup 1``) serving
+    them all; ``SERVE_REQUESTS`` b64 requests a model (batches 1-8, bags of
+    16 at 224 px), counted (K1, K3, K4 through the programs' custom ops);
+    each response bit for bit a direct call of the loaded program on the
+    same padded input, and within ``SERVE_TOL`` of the eager model; health,
+    listing, and 400s for malformed requests; latency p50 / p95 and
+    requests/s a model."""
+    t_phase = time.perf_counter()
+    models = _stream_models(root)
+    configs = _serve_configs(root, models)
+    runs, e2e = {}, {"export_s": {}, "models": {}}
+    for name, (cfg, path) in configs.items():
+        t0 = time.perf_counter()
+        runs[f"export_model_{name}"] = _run_counted(f"export_model {name}", export_model.main,
+                                                    path, {}, smi)
+        e2e["export_s"][name] = time.perf_counter() - t0
+    argv = [arg for name, (cfg, _) in configs.items()
+            for arg in ("--artifact", f"{name}={cfg['export_path']}")]
+    server = serve.build_server(argv + ["--port", "0", "--buckets", SERVE_BUCKETS,
+                                        "--warmup", "1", "--quiet", "1"])
+    port = server.server_address[1]
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    try:
+        health = _get(port, "/healthz")
+        listing = _get(port, "/v1/models")
+        if sorted(health["models"]) != sorted(configs) or sorted(listing) != sorted(configs):
+            raise AssertionError(f"health {health}, listing {sorted(listing)}")
+        rng = np.random.default_rng(SEED + 23)
+        requests = {name: [] for name in configs}
+        reset_counts()
+        for name in configs:
+            meta = listing[name]
+            lat = []
+            t0 = time.perf_counter()
+            for _ in range(SERVE_REQUESTS):
+                b = int(rng.integers(1, SERVE_MAX_BATCH + 1))
+                arrays = _serve_inputs(meta, rng, b)
+                body = {k: _b64(v) for k, v in arrays.items()}
+                body["encoding"] = "b64"
+                status, payload, ms = _post(port, f"/v1/models/{name}/score", body)
+                if status != 200:
+                    raise AssertionError(f"{name}: {status} {payload}")
+                lat.append(ms)
+                requests[name].append((arrays, {k: _unb64(v) for k, v in payload.items()
+                                                if k != "latency_ms"}))
+            total = time.perf_counter() - t0
+            e2e["models"][name] = {"p50_ms": float(np.percentile(lat, 50)),
+                                   "p95_ms": float(np.percentile(lat, 95)),
+                                   "requests_per_s": SERVE_REQUESTS / total}
+        torch.cuda.synchronize()
+        counts = read_counts()
+        n = SERVE_REQUESTS
+        want = _expected(attention=3 * n, k3_batches=n, k4_batches=n)
+        print(f"served programs: launches {counts} (expected {want}) [{smi}]")
+        if counts != want:
+            raise AssertionError(f"the served programs launched {counts}, expected {want}")
+        runs["serve"] = {"launches": counts, "wall_s": sum(
+            SERVE_REQUESTS / m["requests_per_s"] for m in e2e["models"].values())}
+        for body, want_msg in (({"data": [[0.0]]}, "missing argument"),
+                               ({"patch_bag": [[1, 2]], "bag_mask": [[1.0]]}, "dims")):
+            status, payload, _ = _post(port, "/v1/models/mil_bf16/score", body)
+            if status != 400 or want_msg not in payload.get("error", ""):
+                raise AssertionError(f"malformed request: {status} {payload}")
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=30)
+    buckets = [int(b) for b in SERVE_BUCKETS.split(",")]
+    for name, (cfg, _) in configs.items():
+        program = artifact.load_artifact(cfg["export_path"])
+        adapter = _eager_adapter(name, cfg, device)
+        meta = program.meta
+        kind = ("int8" if meta["quantize"] else
+                "float32" if name == "rna" else "bfloat16")
+        worst, exact = 0.0, True
+        for arrays, got in requests[name]:
+            b = next(iter(arrays.values())).shape[0]
+            pad = serve.next_bucket(b, buckets) - b
+            direct = program.call(*[torch.as_tensor(np.concatenate(
+                [a, np.repeat(a[-1:], pad, axis=0)])).to(device) for a in arrays.values()])
+            for k, v in direct.items():
+                exact &= np.array_equal(v.cpu().numpy()[:b], got[k])
+            batch = {k: torch.as_tensor(v, device=device) for k, v in arrays.items()}
+            eager = {"embedding": adapter.extract(batch), "scores": adapter.apply(batch)}
+            for k in ("embedding", "scores"):
+                e = eager[k].float().cpu().numpy()
+                worst = max(worst, float(np.abs(got[k] - e).max() / max(np.abs(e).max(), 1e-6)))
+        e2e["models"][name].update(bit_exact_vs_program=exact, eager_rel_err=worst,
+                                   tolerance=SERVE_TOL[kind])
+        print(f"serve {name}: {json.dumps(e2e['models'][name])} [{smi}]")
+        if not exact or worst > SERVE_TOL[kind]:
+            raise AssertionError(f"serve {name}: bit for bit {exact}, eager rel err {worst}")
+    e2e["seconds"] = time.perf_counter() - t_phase
+    print(f"phase 19: {e2e['seconds']:.1f} s")
+    return runs, e2e
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -3002,6 +3590,8 @@ def main() -> int:
         joint_launches, joint_e2e = drive_joint_path(root, device, smi, k2f)
         fusion_references = check_fusion_against_cpu(root)
         p17_runs, p17 = drive_phase17(root, device, smi, k1_ms)
+        stream_runs, stream = drive_streaming(root, device, smi)
+        serve_runs, served = drive_export_serve(root, device, smi)
     e2e.update(rna_e2e)
     e2e.update(train_e2e)
     e2e.update(task_e2e)
@@ -3012,8 +3602,11 @@ def main() -> int:
     e2e.update({k: v for k, v in rna_int8.items() if k != "launches"})
     e2e["fusion_references_max_abs_diff"] = fusion_references
     e2e["phase17"] = p17
+    e2e["phase18_streaming"] = stream
+    e2e["phase19_serving"] = served
     train_launches.update(task_launches)
-    fusion_runs = {**rna_int8["launches"], **early_launches, **joint_launches, **p17_runs}
+    fusion_runs = {**rna_int8["launches"], **early_launches, **joint_launches, **p17_runs,
+                   **stream_runs, **serve_runs}
     train_launches.update(fusion_runs)
     for cli, rec in train_launches.items():
         launches[cli] = rec["launches"]
@@ -3186,6 +3779,22 @@ def main() -> int:
         "tolerance": "%g of max(1, max|plain|)" % K4_TOL[torch.bfloat16],
         "stages": k4["bfloat16"]["stages"],
         "float32": k4["float32"],
+    }, {
+        # K1 at the streaming slide tail's shape: one bag of up to 2,048
+        # patches, one launch a slide (phase 18)
+        "name": "attention_pool_slide_tail",
+        "route": "cuda",
+        "source": "multimodalbrainsurvival_torch/kernels/csrc/attention_pool.cu",
+        "replaces": "multimodalbrainsurvival_tpu/ops/pallas/tanh_attention.py:111",
+        "launches": sum(rec["launches"]["attention_pool"] for cli, rec in stream_runs.items()
+                        if cli.startswith("slide_extractfeatures")),
+        "launches_by_path": {cli: rec["launches"]["attention_pool"]
+                             for cli, rec in stream_runs.items()
+                             if cli.startswith("slide_extractfeatures")},
+        **{key: stream["slide_tail_k1"][key] for key in (
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape",
+            "dtype")},
+        "tolerance": KERNEL_TOL,
     }], "rna_cli_wall_s": {cli: rec["wall_s"] for cli, rec in rna_launches.items()},
         "histo_train_cli_wall_s": {cli: rec["wall_s"] for cli, rec in train_launches.items()},
         **e2e}))

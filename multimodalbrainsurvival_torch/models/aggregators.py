@@ -21,6 +21,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from multimodalbrainsurvival_torch.kernels import ops
 from multimodalbrainsurvival_torch.kernels.attention_pool import pool
 from multimodalbrainsurvival_torch.models.mil import masked_bag_mean
 
@@ -60,7 +61,9 @@ class TanhAttention(nn.Module):
         B, bag, _ = x.shape
         if mask is None:
             mask = torch.ones((B, bag), dtype=torch.bool, device=x.device)
-        return pool(
+        # an exported program reaches K1 through its custom op
+        fn = ops.attention_pool if ops.is_exporting() else pool
+        return fn(
             x.to(self.dtype).contiguous(),
             self.linear.weight.to(self.dtype).contiguous(),
             self.vector,

@@ -32,16 +32,19 @@ def masked_bag_mean(x: torch.Tensor, mask: torch.Tensor | None) -> torch.Tensor:
     return (x * m).sum(dim=1) / n
 
 
+def patch_embeddings(resnet: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    """(N, C, H, W) → (N, D) float32 embeddings of ``resnet``; a folded
+    Bottleneck ResNet through the fused stages."""
+    if takes_fused_stages(resnet):
+        return fused_folded_extract(resnet, x)
+    return resnet.extract(x)
+
+
 def bag_patch_features(resnet: nn.Module, x: torch.Tensor) -> torch.Tensor:
     """(B, bag, C, H, W) → (B, bag, D) float32 per-patch embeddings of
-    ``resnet``; a folded Bottleneck ResNet through the fused stages."""
+    ``resnet`` (``patch_embeddings``)."""
     B, bag = x.shape[:2]
-    flat = x.reshape((B * bag,) + x.shape[2:])
-    if takes_fused_stages(resnet):
-        feats = fused_folded_extract(resnet, flat)
-    else:
-        feats = resnet.extract(flat)
-    return feats.reshape(B, bag, -1)
+    return patch_embeddings(resnet, x.reshape((B * bag,) + x.shape[2:])).reshape(B, bag, -1)
 
 
 class AggregationModel(nn.Module):

@@ -44,6 +44,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from multimodalbrainsurvival_torch.kernels import ops
 from multimodalbrainsurvival_torch.kernels.qmm_requant import (
     qconv_requant,
     qconv_residual_requant,
@@ -168,6 +169,8 @@ def qconv_q(x_q, s_in, cp: dict, s_out, *, stride: int = 1, padding: int = 0,
     scale ``s_out`` (K3 on the card)."""
     scale = (s_in * cp["ws"]) / s_out
     bias = cp["b"] / s_out
+    if ops.is_exporting():
+        return ops.qconv_requant(x_q, cp["k"], scale, bias, stride, padding, relu)
     return qconv_requant(x_q, cp["k"], scale, bias, stride=stride,
                          padding=padding, relu=relu)
 
@@ -178,6 +181,9 @@ def qconv_residual_q(x_q, s_in, cp: dict, s_t, r_q, s_r, s_out, *,
     s_r, s_out)`` in one launch of K3's residual form."""
     scale = (s_in * cp["ws"]) / s_t
     bias = cp["b"] / s_t
+    if ops.is_exporting():
+        return ops.qconv_residual_requant(x_q, cp["k"], scale, bias, r_q, s_t, s_r,
+                                          s_out, stride, padding)
     return qconv_residual_requant(x_q, cp["k"], scale, bias, r_q, s_t, s_r,
                                   s_out, stride=stride, padding=padding)
 
@@ -196,7 +202,8 @@ def quantized_stages(qtree: dict, x: torch.Tensor, *, stages: int,
                  stride=2, padding=3)
     # bias, relu, requant to the stem site, then the max-pool on the int8
     # values, NHWC out
-    y_q = stem_requant_pool(y, cp["b"], s["stem"])
+    stem = ops.stem_requant_pool if ops.is_exporting() else stem_requant_pool
+    y_q = stem(y, cp["b"], s["stem"])
     s_in = s["stem"]
     for ln, _, stride, i in _blocks(arch):
         if i >= stages:
@@ -378,7 +385,10 @@ def int8_matmul(x_q: torch.Tensor, k: torch.Tensor, n: int) -> torch.Tensor:
     transposed → the (M, n) int32 product, through ``torch._int_mm`` with
     ``x_q`` padded to K' columns and past ``INT_MM_MIN_M`` rows."""
     M = x_q.shape[0]
-    a = F.pad(x_q, (0, k.shape[1] - x_q.shape[1], 0, max(0, INT_MM_MIN_M + 1 - M)))
+    # an exported program pads every batch (its M is symbolic: a branch on
+    # it would fix the batch size)
+    rows = INT_MM_MIN_M + 1 if ops.is_exporting() else max(0, INT_MM_MIN_M + 1 - M)
+    a = F.pad(x_q, (0, k.shape[1] - x_q.shape[1], 0, rows))
     return torch._int_mm(a.contiguous(), k.t())[:M, :n]
 
 

@@ -27,7 +27,9 @@ dispatch on the architecture: ``AggregationModel.patch_features`` sends a
 folded Bottleneck encoder here, and everything else to ``extract``.
 
 The kernel's weights are packed once per model, dtype and device, and
-packed again only when a parameter is replaced or changed in place.
+packed again only when a parameter is replaced or changed in place. Within
+``kernels/ops.py::exporting()`` (an exported serving program) they are
+packed inside the program and K4 is reached through its custom op.
 """
 
 from __future__ import annotations
@@ -35,10 +37,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from multimodalbrainsurvival_torch.kernels.fused_stage import (
-    fused_bottleneck_stage,
-    pack_bottleneck,
-)
+from multimodalbrainsurvival_torch.kernels import ops
+from multimodalbrainsurvival_torch.kernels.fused_stage import pack_bottleneck
 from multimodalbrainsurvival_torch.models.resnet import Bottleneck, ResNet
 
 #: the stages whose stride-1 chains go through K4: the 56×56 and 28×28
@@ -53,6 +53,8 @@ def takes_fused_stages(resnet: ResNet) -> bool:
 
 def _packed_chain(resnet: ResNet, blocks, stage: str, start: int,
                   dtype: torch.dtype) -> list:
+    if ops.is_exporting():  # packed inside the program, no cache
+        return [pack_bottleneck(blk, dtype) for blk in blocks[start:]]
     params = [p for blk in blocks[start:] for p in blk.parameters()]
     key = (stage, start, dtype, params[0].device)
     stamp = tuple((p.data_ptr(), p._version) for p in params)
@@ -68,6 +70,9 @@ def _cudnn_weights(resnet: ResNet, dtype: torch.dtype) -> dict:
     """The folded convs' weights and biases in ``dtype``, channels_last,
     cached like the packed chains: {conv module: (weight, bias)}."""
     convs = [m for m in resnet.modules() if isinstance(m, torch.nn.Conv2d)]
+    if ops.is_exporting():
+        return {c: (c.weight.to(dtype).contiguous(memory_format=torch.channels_last),
+                    c.bias.to(dtype)) for c in convs}
     params = [p for c in convs for p in c.parameters()]
     key = ("cudnn", dtype, params[0].device)
     stamp = tuple((p.data_ptr(), p._version) for p in params)
@@ -139,7 +144,7 @@ def fused_folded_extract(resnet: ResNet, x: torch.Tensor,
             start = 0 if blocks[0].conv2.stride == (1, 1) else 1
             for blk in blocks[:start]:
                 y = block(blk, y)
-            y = fused_bottleneck_stage(
+            y = ops.fused_bottleneck_stage(
                 y.contiguous(memory_format=torch.channels_last),
                 _packed_chain(resnet, blocks, stage, start, y.dtype))
         y = y.mean(dim=(2, 3))

@@ -54,7 +54,11 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                  "models.fusion", "cli.feature_train", "cli.feature_savescore",
                  "cli.joint_train", "cli.joint_savescore", "ops.coxnet", "frames",
                  "cli.merge_scores", "cli.concat_features", "cli.late_fusion",
-                 "cli.pack_patches", "data.native", "data.tiler", "data.device_cache"):
+                 "cli.pack_patches", "data.native", "data.tiler", "data.device_cache",
+                 "data.opencv_compat", "utils.native_tiff", "cli.wsi2patches",
+                 "cli.slide_extractfeatures", "cli.slide_joint_savescore",
+                 "cli.attention_heatmap", "kernels.ops", "artifact", "cli.export_model",
+                 "cli.serve", "cli.convert_checkpoint"):
         assert f"multimodalbrainsurvival_torch.{name}" in modules
     code = (
         "import importlib, json, sys\n"
@@ -82,6 +86,35 @@ def test_cli_without_card_raises_unless_cpu_asked(main, tmp_path, monkeypatch):
         main(["--config", str(cfg)])
 
 
+@pytest.mark.parametrize("name, argv", [
+    ("slide_extractfeatures", ["--config", "{cfg}"]),
+    ("slide_joint_savescore", ["--config", "{cfg}"]),
+    ("export_model", ["--config", "{cfg}"]),
+    ("wsi2patches", ["--wsi_path", "{tmp}", "--patch_path", "{tmp}", "--mask_path", "{tmp}"]),
+    ("attention_heatmap", ["--patches_csv", "{tmp}/missing.csv"]),
+    ("serve", ["--artifact", "{tmp}/missing", "--port", "0"]),
+    ("convert_checkpoint", ["--torch_path", "{tmp}/missing.pt", "--arch", "histo",
+                            "--output", "{tmp}/out.pt"]),
+])
+def test_streaming_and_serving_clis_without_card_raise_unless_cpu_asked(
+        name, argv, tmp_path, monkeypatch):
+    import importlib
+
+    module = importlib.import_module(f"multimodalbrainsurvival_torch.cli.{name}")
+    main = getattr(module, "main")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = tmp_path / "cfg.json"
+    cfg.write_text(json.dumps({"model_path": "missing.pt",
+                               "slide_csv_path": str(tmp_path / "missing.csv"),
+                               "export_path": str(tmp_path / "art")}))
+    argv = [a.format(cfg=cfg, tmp=tmp_path) for a in argv]
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        main(argv)
+    # on the CPU it gets past the device to the missing input
+    with pytest.raises((FileNotFoundError, SystemExit, OSError)):
+        main(argv + ["--device", "cpu"])
+
+
 def test_late_fusion_without_card_raises_unless_cpu_asked(tmp_path, monkeypatch):
     from multimodalbrainsurvival_torch.cli import late_fusion
 
@@ -97,22 +130,26 @@ def test_late_fusion_without_card_raises_unless_cpu_asked(tmp_path, monkeypatch)
 
 
 def test_port_cli_modules_import_neither_pandas_nor_cv2():
-    """The machine with the card has neither: importing every CLI module of
-    the port, in a fresh interpreter, leaves no ``pandas`` and no ``cv2``
-    module behind."""
+    """The machine with the card has none of them: importing every module
+    of the port (every CLI among them), in a fresh interpreter, leaves no
+    ``pandas``, ``cv2``, ``PIL`` and ``openslide`` module behind."""
     import multimodalbrainsurvival_torch.cli as cli_pkg
 
     clis = [m.name for m in pkgutil.iter_modules(cli_pkg.__path__,
                                                  "multimodalbrainsurvival_torch.cli.")]
     for name in ("late_fusion", "merge_scores", "concat_features", "pack_patches",
-                 "histo_train", "joint_train"):
+                 "histo_train", "joint_train", "wsi2patches", "slide_extractfeatures",
+                 "slide_joint_savescore", "attention_heatmap", "export_model", "serve",
+                 "convert_checkpoint"):
         assert f"multimodalbrainsurvival_torch.cli.{name}" in clis
+    modules = clis + [m.name for m in pkgutil.walk_packages(
+        multimodalbrainsurvival_torch.__path__, "multimodalbrainsurvival_torch.")]
     code = (
         "import importlib, json, sys\n"
-        f"for m in {clis!r}:\n"
+        f"for m in {modules!r}:\n"
         "    importlib.import_module(m)\n"
         "print(json.dumps(sorted(k for k in sys.modules if k.split('.')[0] in "
-        "('pandas', 'cv2'))))\n"
+        "('pandas', 'cv2', 'PIL', 'openslide'))))\n"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                          text=True, timeout=120)

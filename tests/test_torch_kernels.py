@@ -935,3 +935,75 @@ def test_coxnet_fit_on_the_card_matches_the_cpu(cuda):
     scale = np.abs(cpu.betas_path).max()
     assert np.abs(card.betas_path - cpu.betas_path).max() <= 1e-4 * scale
     assert np.nanmax(np.abs(card.cv_mean - cpu.cv_mean)) <= 1e-4 * np.nanmax(cpu.cv_mean)
+
+
+# --- the kernels as custom ops (kernels/ops.py) in exported programs -----------
+
+
+@pytest.mark.gpu
+def test_custom_ops_launch_the_kernels_on_the_card(cuda):
+    """Each op's implementation is the wrapper: on CUDA tensors it launches
+    the kernel (the counters rise) and equals the wrapper's result."""
+    from multimodalbrainsurvival_torch.kernels import ops
+
+    x, weight, v, mask = _inputs("serving_16x16x2048", cuda)
+    x, weight = x.to(torch.bfloat16), weight.to(torch.bfloat16)
+    before = attention_pool.launches
+    pooled, attn = ops.attention_pool(x, weight, v, mask)
+    want_pooled, want_attn = attention_pool(x, weight, v, mask)
+    assert attention_pool.launches == before + 2
+    assert torch.equal(pooled, want_pooled) and torch.equal(attn, want_attn)
+
+    g = torch.Generator(device="cpu").manual_seed(1)
+    xq = torch.randint(-127, 128, (4, 14, 14, 64), dtype=torch.int8, generator=g).to(cuda)
+    wq = torch.randint(-127, 128, (128, 3, 3, 64), dtype=torch.int8, generator=g).to(cuda)
+    scale = (torch.rand(128, generator=g) * 1e-3).to(cuda)
+    bias = torch.randn(128, generator=g).to(cuda)
+    before = qmm_requant.launches
+    got = ops.qconv_requant(xq, wq, scale, bias, 2, 1, True)
+    assert qmm_requant.launches == before + 1
+    assert torch.equal(got, qconv_requant(xq, wq, scale, bias, stride=2, padding=1))
+
+    blk = Bottleneck(64, 16, 1, fold_bn=True).to(cuda).eval()
+    for p in blk.parameters():
+        p.data = torch.randn(p.shape, generator=g).to(cuda) * 0.1
+    packed = pack_bottleneck(blk, torch.bfloat16)
+    xs = torch.randn(2, 64, 14, 14, generator=g).to(cuda, torch.bfloat16).contiguous(
+        memory_format=torch.channels_last)
+    before = fused_bottleneck_stage.launches
+    got = ops.fused_bottleneck_block(xs, *packed)
+    assert fused_bottleneck_stage.launches == before + 1
+    assert torch.equal(got, fused_bottleneck_stage(xs, [packed]))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fold_bn", [False, True], ids=["bf16", "folded"])
+def test_exported_mil_program_launches_k1_and_k4_on_the_card(cuda, tmp_path, fold_bn):
+    """A ResNet-50 / attention MIL program exported on the card calls K1
+    (and, folded, K4 six times) once per call at any batch and bag, and
+    matches the eager serving module."""
+    from multimodalbrainsurvival_torch import artifact
+    from multimodalbrainsurvival_torch.cli.histo_train import build_mil_model
+    from multimodalbrainsurvival_torch.config import Config
+
+    config = Config({"model_name": "resnet50", "aggregator": "attention",
+                     "aggregator_hdim": 2048, "compute_dtype": "bfloat16"})
+    model = build_mil_model(config, fold_bn=fold_bn).to(
+        cuda, memory_format=torch.channels_last).eval()
+    artifact.export_mil_artifact(model, str(tmp_path / "art"), img_size=64)
+    program = artifact.load_artifact(str(tmp_path / "art"))
+    assert program.meta["platforms"] == ["cuda"]
+    g = torch.Generator(device="cpu").manual_seed(2)
+    for b, bag in ((1, 1), (3, 5)):
+        x = torch.randint(0, 256, (b, bag, 64, 64, 3), dtype=torch.uint8, generator=g).to(cuda)
+        mask = torch.ones(b, bag, device=cuda)
+        k1, k4 = attention_pool.launches, fused_bottleneck_stage.launches
+        got = program.call(x, mask)
+        torch.cuda.synchronize()
+        assert attention_pool.launches == k1 + 1
+        assert fused_bottleneck_stage.launches == k4 + (6 if fold_bn else 0)
+        with torch.inference_mode():
+            want = artifact.MILServing(model)(x, mask)
+        for k in want:
+            err = (got[k] - want[k]).abs().max().item()
+            assert err <= 2**-6 * max(1.0, want[k].abs().max().item()), (k, err)
