@@ -167,7 +167,25 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    bags of 16), counted (K1, K3 and K4 through the programs' custom ops),
    each response bit for bit a direct call of the loaded program and
    within ``SERVE_TOL`` of the eager adapters; health, listing, a 400;
-   latency p50 / p95 and requests/s a model.
+   latency p50 / p95 and requests/s a model;
+20. evaluation and orchestration: (a) ``validate_data`` on phase 4's slides
+   in case-disjoint splits and on phase 6's RNA cohort (exit 0), and with
+   a train case leaked into val (exit 1); (b) ``cv_run --task rna``, two
+   folds of one epoch over phase 6's train and val rows at 12,778 genes
+   (its test split fixed), and (c) ``cv_run --task histo`` over phase 4's
+   slides at ResNet-50 / attention 2048 / bf16 / 224 px, each counted (K2a
+   and K2b, K1 and its backward) with its fold frames, ``cv_summary.csv``,
+   out-of-fold and ensemble frames checked; (d) ``sweep --task rna
+   --halving 2`` over four ``lr_rna`` values, counted, its ranking and
+   each combination's train state (the steps of its epochs) checked;
+   (e) ``evaluate_scores`` over (b)'s out-of-fold and ensemble frames on
+   the card and with ``--device cpu`` (the C-index and its bounds bit for
+   bit, the rest within 1e-12), and the bootstrap at ``BOOT_CASES`` x
+   ``BOOT_RESAMPLES`` timed on the card beside the host's numpy loop over
+   ``HOST_BOOT_RESAMPLES`` of the same resamples (equal C-indices);
+   (f) ``convert_checkpoint --arch resnet --in_channels 4`` on a seeded
+   ResNet-50 and the ``rnfour`` encoder's forward on the card against the
+   CPU in float32.
 
 The last lines are the ``kernels`` JSON line, the nvidia-smi line and
 ``{"ok": true, "device": {...}}``. Without a card, or without the rest of
@@ -202,6 +220,9 @@ import torch
 from multimodalbrainsurvival_torch import artifact
 from multimodalbrainsurvival_torch.cli import (
     concat_features,
+    convert_checkpoint,
+    cv_run,
+    evaluate_scores,
     export_model,
     feature_savescore,
     feature_train,
@@ -219,6 +240,8 @@ from multimodalbrainsurvival_torch.cli import (
     serve,
     slide_extractfeatures,
     slide_joint_savescore,
+    sweep,
+    validate_data,
     wsi2patches,
 )
 from multimodalbrainsurvival_torch.cli._common import (
@@ -278,10 +301,17 @@ from multimodalbrainsurvival_torch.kernels.qmm_requant import (
     stem_requant_pool_plain,
 )
 from multimodalbrainsurvival_torch.models import quantize, serving
-from multimodalbrainsurvival_torch.models.resnet import Bottleneck
+from multimodalbrainsurvival_torch.models.convert import adapt_conv1_channels
+from multimodalbrainsurvival_torch.models.resnet import RESNET_CONSTRUCTORS, Bottleneck, rnfour
 from multimodalbrainsurvival_torch.models.rna import RNA_GENES
 from multimodalbrainsurvival_torch.ops.coxnet import CoxProblems, FistaSolver, fit_coxnet
 from multimodalbrainsurvival_torch.ops.metrics import concordance_index
+from multimodalbrainsurvival_torch.ops.survival import (
+    bootstrap_concordance,
+    bootstrap_pair_counts,
+    resample_indices,
+)
+from multimodalbrainsurvival_torch.train import checkpoint as train_checkpoint
 from multimodalbrainsurvival_torch.train import TrainSettings
 from multimodalbrainsurvival_torch.train.adapters import (
     JointAdapter,
@@ -3540,6 +3570,335 @@ def drive_export_serve(root: str, device: torch.device, smi: str) -> tuple[dict,
     return runs, e2e
 
 
+# --- phase 20: evaluation and orchestration -------------------------------------
+
+# (b)-(d): two folds, one epoch each; the sweep's four learning rates of the
+# RNA encoder under successive halving by 2 over SWEEP_EPOCHS (rungs of 1
+# and 2 epochs), on a smaller cohort at the reference width
+CV_FOLDS = 2
+SWEEP_LRS = [1e-3, 1e-4, 1e-5, 1e-6]
+SWEEP_EPOCHS, SWEEP_SPLITS = 2, {"train": 512, "val": 128, "test": 128}
+# (e) resamples of the evaluated frames; the bootstrap timed at BOOT_CASES
+# seeded cases x BOOT_RESAMPLES on the card, and the host's numpy loop (the
+# JAX package's) over the first HOST_BOOT_RESAMPLES of the same draws
+EVAL_BOOT = 1000
+BOOT_CASES, BOOT_RESAMPLES, HOST_BOOT_RESAMPLES = 2000, 1000, 100
+# (f) the rnfour encoder on the card vs the CPU, float32: rtol, atol
+SURGERY_TOL = (1e-3, 1e-4)
+SURGERY_BATCH = 4
+
+
+def _histo_splits(root: str, name: str, leak: bool = False) -> str:
+    """Phase 4's cohort as three case-disjoint splits (c0-c3 train, c4 val,
+    c5 test; or with ``leak``, c0's row in val too) and a histo config on
+    them; returns the config's path."""
+    with open(os.path.join(root, "cohort.csv")) as f:
+        header, *rows = f.read().splitlines()
+    split_of = {"c4": "val", "c5": "test"}
+    paths = {}
+    for split in ("train", "val", "test"):
+        keep = [r for r in rows if split_of.get(r.split(",")[0], "train") == split]
+        if leak and split == "val":
+            keep.append(rows[0])
+        paths[split] = os.path.join(root, f"{name}_{split}.csv")
+        with open(paths[split], "w") as f:
+            f.write("\n".join([header] + keep) + "\n")
+    return _config(root, paths["train"], name, val_csv_path=paths["val"],
+                   test_csv_path=paths["test"])[1]
+
+
+def check_validate_data(root: str, smi: str) -> dict:
+    """20a: ``validate_data`` on phase 4's slides in case-disjoint splits
+    and on phase 6's RNA cohort (exit 0), then on the slides with a train
+    case leaked into val (exit 1)."""
+    rna_cfg = os.path.join(root, "rna.json")
+    out = {}
+    for name, argv, want in (
+        ("histo", ["--config", _histo_splits(root, "validate_histo"), "--task", "histo"], 0),
+        ("rna", ["--config", rna_cfg, "--task", "rna"], 0),
+        ("histo_leaked", ["--config", _histo_splits(root, "validate_leak", leak=True),
+                          "--task", "histo"], 1),
+    ):
+        t0 = time.perf_counter()
+        rc = validate_data.main(argv)
+        out[name] = {"rc": rc, "wall_s": time.perf_counter() - t0}
+        print(f"validate_data {name}: exit {rc} (expected {want}); "
+              f"{out[name]['wall_s']:.2f} s [{smi}]")
+        if rc != want:
+            raise AssertionError(f"validate_data {name} exited {rc}, expected {want}")
+    return out
+
+
+def _n_csv_rows(path: str) -> int:
+    with open(path) as f:
+        return sum(1 for _ in f) - 1
+
+
+def _check_cv_outputs(ckpt: str, flag: str, n_cases: int, n_test: int) -> dict:
+    """The fold frames, ``cv_summary.csv`` (a finite val and test C-index
+    a fold), the out-of-fold frame (every case once) and the ensemble frame
+    (the test split's cases) of a ``cv_run``."""
+    for k in range(1, CV_FOLDS + 1):
+        for split in ("val", "test"):
+            found = [p for p in os.listdir(os.path.join(ckpt, "outputs", f"{flag}_cv{k}"))
+                     if p.endswith(f"_{split}_{flag}_cv{k}_df.csv")]
+            if len(found) != 1:
+                raise AssertionError(f"fold {k}: no single {split} frame: {found}")
+    summary = read_frame(os.path.join(ckpt, "cv_summary.csv"))
+    if summary["fold"] != list(range(1, CV_FOLDS + 1)) or not all(
+            np.isfinite(summary[c]).all() for c in ("val_CI", "test_CI")):
+        raise AssertionError(f"{ckpt}: bad cv_summary {summary}")
+    oof = read_frame(os.path.join(ckpt, "cv_oof_val_df.csv"))
+    ens = read_frame(os.path.join(ckpt, "cv_ensemble_test_df.csv"))
+    if (len(set(oof["id"])) != n_cases or n_rows(oof) != n_cases
+            or not np.isfinite(oof["score"]).all()):
+        raise AssertionError(f"{ckpt}: bad out-of-fold frame ({n_rows(oof)} rows)")
+    if list(ens) != ["id", "score", "survival_months", "vital_status"] \
+            or n_rows(ens) != n_test or not np.isfinite(ens["score"]).all():
+        raise AssertionError(f"{ckpt}: bad ensemble frame {list(ens)} ({n_rows(ens)} rows)")
+    return {"val_CI": summary["val_CI"], "test_CI": summary["test_CI"]}
+
+
+def drive_cv_runs(root: str, smi: str) -> tuple[dict, dict]:
+    """20b, 20c: ``cv_run --task rna`` on phase 6's train and val rows
+    (12,778 genes, the test split fixed) and ``cv_run --task histo`` on
+    phase 4's slides (ResNet-50 / attention 2048 / bf16 / 224 px, the
+    cohort its own fixed test split), two folds of one epoch, counted:
+    K2a and K2b a train step, K1 a train step and an eval batch, its
+    backward a train step. The histo training CLI keeps a best model from its
+    second epoch on under ``reference_parity``, so its one-epoch folds run
+    without it, as the savescore step needs their ``model_dict_best.pt``."""
+    paths = {s: os.path.join(root, "rna", f"rna_{s}.csv") for s in RNA_SPLITS}
+    rna_ckpt = os.path.join(root, "cv_rna_ckpt")
+    _, rna_cfg = _rna_config(root, paths, "cv_rna", num_epochs=1, flag="rna_cv",
+                             checkpoint_path=rna_ckpt)
+    csv_path = os.path.join(root, "cohort.csv")
+    histo_keys = dict(_histo_train_keys(root, "cv_histo_ckpt"), flag="histo_cv")
+    histo, histo_cfg = _config(root, csv_path, "cv_histo", num_epochs=1,
+                               cv_csv_path=csv_path, reference_parity=False, **histo_keys)
+
+    def fold_rows(ckpt):
+        return [(_n_csv_rows(os.path.join(ckpt, "cv", f"fold{k}", "train.csv")),
+                 _n_csv_rows(os.path.join(ckpt, "cv", f"fold{k}", "val.csv")))
+                for k in range(1, CV_FOLDS + 1)]
+
+    def rna_expected():
+        steps = sum(math.ceil(n_train / RNA_BATCH) for n_train, _ in fold_rows(rna_ckpt))
+        return {"dropout_matmul": K2A_PER_STEP * steps, "seeded_dropout": K2B_PER_STEP * steps,
+                "seeded_dropout_pair": K2B_PAIR_PER_STEP * steps}
+
+    def histo_expected():
+        slides_per_batch = B * BAG // N_PATCH  # a slide's patches in bags of BAG
+        k1 = bwd = 0
+        for n_train, n_val in fold_rows(histo["checkpoint_path"]):
+            train, val, test = (math.ceil(n / slides_per_batch) for n in (n_train, n_val, N_WSI))
+            # one epoch: the steps and the train and val evals; the last and
+            # the best model on the three splits; savescore on the three
+            k1 += (train + train + val) + 2 * (train + val + test) + (train + val + test)
+            bwd += train
+        return {"attention_pool": k1, "attention_pool_backward": bwd}
+
+    args = ["--folds", str(CV_FOLDS), "--seed", str(SEED)]
+    runs = {
+        "cv_run_rna": _run_counted("cv_run --task rna", cv_run.main,
+                                   ["--config", rna_cfg, "--task", "rna"] + args,
+                                   rna_expected, smi),
+        "cv_run_histo": _run_counted("cv_run --task histo", cv_run.main,
+                                     ["--config", histo_cfg, "--task", "histo"] + args,
+                                     histo_expected, smi),
+    }
+    n_cases = len(set(read_frame(csv_path)["case"]))
+    e2e = {"rna": _check_cv_outputs(rna_ckpt, "rna_cv", RNA_SPLITS["train"] + RNA_SPLITS["val"],
+                                    RNA_SPLITS["test"]),
+           "histo": _check_cv_outputs(histo["checkpoint_path"], "histo_cv", n_cases, n_cases)}
+    print(f"cv_run folds: {e2e} [{smi}]")
+    return runs, e2e
+
+
+def drive_sweep(root: str, smi: str) -> tuple[dict, dict]:
+    """20d: ``sweep --task rna --halving 2`` over ``SWEEP_LRS`` (``lr_rna``)
+    on a seeded cohort at the reference width, counted (K2a and K2b a train
+    step: every combination's first rung, the survivors' resumed one); the
+    summary ranks the two survivors (2 epochs) first, each group by val
+    C-index, and every combination's train state holds the steps of the
+    epochs the summary says it trained."""
+    paths = make_rna_cohort(os.path.join(root, "rna_sweep"), SWEEP_SPLITS, SEED + 20)
+    ckpt = os.path.join(root, "sweep_ckpt")
+    _, cfg_path = _rna_config(root, paths, "sweep_rna", num_epochs=SWEEP_EPOCHS,
+                              flag="rna_sweep", checkpoint_path=ckpt)
+    steps_per_epoch = math.ceil(SWEEP_SPLITS["train"] / RNA_BATCH)
+    # rung 1: every combination 1 epoch; rung 2: the top half 1 more
+    steps = (len(SWEEP_LRS) + len(SWEEP_LRS) // 2) * steps_per_epoch
+    run = _run_counted(
+        "sweep --task rna --halving 2", sweep.main,
+        ["--config", cfg_path, "--task", "rna", "--halving", "2", "--seed", str(SEED),
+         "--grid", json.dumps({"lr_rna": SWEEP_LRS})],
+        {"dropout_matmul": K2A_PER_STEP * steps, "seeded_dropout": K2B_PER_STEP * steps,
+         "seeded_dropout_pair": K2B_PAIR_PER_STEP * steps}, smi)
+    summary = read_frame(os.path.join(ckpt, "sweep_summary.csv"))
+    epochs, ci = summary["epochs_trained"], summary["val_CI"]
+    if epochs != [2, 2, 1, 1] or ci[:2] != sorted(ci[:2], reverse=True) \
+            or ci[2:] != sorted(ci[2:], reverse=True):
+        raise AssertionError(f"sweep ranking: epochs {epochs}, val_CI {ci}")
+    for combo, n_epochs in zip(summary["combo"], epochs):
+        meta = train_checkpoint.load(os.path.join(
+            ckpt, "models", f"rna_sweep_hp{combo}", "train_state.pt"))["meta"]
+        if meta["step"] != n_epochs * steps_per_epoch:
+            raise AssertionError(f"combo {combo}: {meta['step']} steps in its state, "
+                                 f"expected {n_epochs * steps_per_epoch}")
+    with open(os.path.join(ckpt, "sweep_best_config.json")) as f:
+        best = json.load(f)
+    if best["lr_rna"] != SWEEP_LRS[summary["combo"][0] - 1]:
+        raise AssertionError(f"sweep best config {best['lr_rna']} is not the top row's")
+    print(f"sweep: combos {summary['combo']}, epochs {epochs}, val_CI {ci}; "
+          f"best lr_rna {best['lr_rna']} [{smi}]")
+    return {"sweep_rna_halving": run}, {"combo": summary["combo"], "epochs_trained": epochs,
+                                        "val_CI": ci}
+
+
+def _same_report(got, want, path: str = "") -> None:
+    """Card and CPU reports: the C-index and its bounds bit for bit, every
+    other number within 1e-12 of its size."""
+    if isinstance(want, dict):
+        if list(got) != list(want):
+            raise AssertionError(f"{path}: keys {list(got)} != {list(want)}")
+        for k in want:
+            _same_report(got[k], want[k], f"{path}.{k}")
+    elif isinstance(want, list):
+        if len(got) != len(want):
+            raise AssertionError(f"{path}: {len(got)} != {len(want)} items")
+        for i, (g, w) in enumerate(zip(got, want)):
+            _same_report(g, w, f"{path}[{i}]")
+    elif isinstance(want, float) and path.rsplit(".", 1)[-1] in ("c_index", "ci_lower",
+                                                                 "ci_upper"):
+        if not (got == want or (math.isnan(got) and math.isnan(want))):
+            raise AssertionError(f"{path}: card {got!r} != CPU {want!r}")
+    elif isinstance(want, float):
+        if not (abs(got - want) <= 1e-12 * abs(want) or (math.isnan(got) and math.isnan(want))):
+            raise AssertionError(f"{path}: card {got!r} != CPU {want!r}")
+    elif got != want:
+        raise AssertionError(f"{path}: card {got!r} != CPU {want!r}")
+
+
+def check_evaluate_scores(root: str, device: torch.device, smi: str) -> tuple[dict, dict]:
+    """20e: ``evaluate_scores`` over 20b's out-of-fold and ensemble frames
+    on the card (counted: no kernel of the port) and with ``--device cpu``:
+    equal reports. Then the bootstrap alone at ``BOOT_CASES`` seeded cases
+    x ``BOOT_RESAMPLES`` on the card (the call's wall clock, and the pair
+    counting's CUDA-event time) beside the same counts on the CPU and the
+    host's numpy loop (the JAX package's) over the first
+    ``HOST_BOOT_RESAMPLES`` resamples: equal counts, and C-indices equal
+    bit for bit."""
+    ckpt = os.path.join(root, "cv_rna_ckpt")
+    frames = [os.path.join(ckpt, f) for f in ("cv_oof_val_df.csv", "cv_ensemble_test_df.csv")]
+    argv = ["--scores", *frames, "--n_boot", str(EVAL_BOOT)]
+    card, cpu = os.path.join(root, "eval_card"), os.path.join(root, "eval_cpu")
+    run = _run_counted("evaluate_scores", evaluate_scores.main,
+                       argv + ["--output_dir", card], {}, smi)
+    t0 = time.perf_counter()
+    evaluate_scores.main(argv + ["--output_dir", cpu, "--device", "cpu"])
+    cpu_s = time.perf_counter() - t0
+    reports = {}
+    for path in frames:
+        name = os.path.splitext(os.path.basename(path))[0]
+        with open(os.path.join(card, f"evaluation_{name}.json")) as f:
+            got = json.load(f)
+        with open(os.path.join(cpu, f"evaluation_{name}.json")) as f:
+            want = json.load(f)
+        _same_report(got, want, name)
+        reports[name] = {k: got[k] for k in ("n_cases", "c_index", "ci_lower", "ci_upper",
+                                             "n_boot", "logrank_p")}
+    print(f"evaluate_scores: card report == CPU report for {sorted(reports)} "
+          f"({reports}); the CPU run {cpu_s:.2f} s, the card's {run['wall_s']:.2f} s [{smi}]")
+
+    rng = np.random.default_rng(SEED)
+    t = np.round(rng.exponential(30.0, BOOT_CASES) / 3.0) * 3.0 + 1.0
+    e = rng.random(BOOT_CASES) > 0.4
+    s = rng.normal(size=BOOT_CASES)
+    bootstrap_concordance(t, s, e, n_boot=8, device=device)  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    boot = bootstrap_concordance(t, s, e, n_boot=BOOT_RESAMPLES, seed=SEED, device=device)
+    card_wall = time.perf_counter() - t0
+    idx = resample_indices(BOOT_CASES, BOOT_RESAMPLES, SEED)
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    counts = bootstrap_pair_counts(t, s, e, idx, device)
+    end.record()
+    torch.cuda.synchronize()
+    count_ms = start.elapsed_time(end)
+    t0 = time.perf_counter()
+    cpu_counts = bootstrap_pair_counts(t, s, e, idx, "cpu")
+    cpu_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    host = [concordance_index(t[i], -s[i], e[i]) for i in idx[:HOST_BOOT_RESAMPLES]]
+    host_s = time.perf_counter() - t0
+    card_c = (counts[:, 1] + 0.5 * counts[:, 2]) / counts[:, 0]
+    if not (np.array_equal(counts, cpu_counts)
+            and np.array_equal(card_c[:HOST_BOOT_RESAMPLES], np.asarray(host))):
+        raise AssertionError("bootstrap: the card's counts differ from the CPU's or the "
+                             "host loop's")
+    timing = {"cases": BOOT_CASES, "resamples": BOOT_RESAMPLES, "card_wall_s": card_wall,
+              "card_pair_counts_ms": count_ms, "cpu_pair_counts_s": cpu_s,
+              "host_resamples": HOST_BOOT_RESAMPLES, "host_loop_s": host_s,
+              "host_ms_per_resample": 1e3 * host_s / HOST_BOOT_RESAMPLES,
+              "c_index": boot["c_index"], "ci": [boot["ci_lower"], boot["ci_upper"]]}
+    print(f"bootstrap C-index, {BOOT_CASES} cases x {BOOT_RESAMPLES} resamples: card "
+          f"{card_wall:.3f} s wall (pair counts {count_ms:.2f} ms of card time); the same "
+          f"counts on the CPU (torch) {cpu_s:.3f} s; host numpy loop {host_s:.2f} s for "
+          f"the first {HOST_BOOT_RESAMPLES} resamples ({timing['host_ms_per_resample']:.2f} "
+          f"ms a resample); all equal bit for bit [{smi}]")
+    return {"evaluate_scores": run}, {"reports": reports, "cpu_run_s": cpu_s,
+                                      "bootstrap": timing}
+
+
+def check_conv1_surgery(root: str, device: torch.device, smi: str) -> dict:
+    """20f: ``convert_checkpoint --arch resnet --in_channels 4`` on a seeded
+    ResNet-50 state (conv1: RGB kept, the 4th channel the JAX package's
+    ``default_rng(0)`` draw, bit for bit), then the ``rnfour`` encoder's
+    forward on the card against the CPU in float32 (``SURGERY_TOL``)."""
+    rgb = os.path.join(root, "resnet50_rgb.pt")
+    state = random_state_dict(RESNET_CONSTRUCTORS["resnet50"](), SEED)
+    torch.save(state, rgb)
+    out = os.path.join(root, "resnet50_rgbx.pt")
+    convert_checkpoint.main(["--torch_path", rgb, "--arch", "resnet", "--output", out,
+                             "--in_channels", "4"])
+    got = torch.load(out, weights_only=True)
+    w = state["conv1.weight"].numpy()
+    extra = np.random.default_rng(0).normal(0.0, 0.001, size=(7, 7, 1, 64)).astype(np.float32)
+    want = np.concatenate([w, extra.transpose(3, 2, 0, 1)], axis=1)
+    if not (np.array_equal(got["conv1.weight"].numpy(), want)
+            and np.array_equal(adapt_conv1_channels(w, 4), want)):
+        raise AssertionError("conv1 surgery: the 4-channel kernel is not the expected one")
+    model = rnfour("resnet50", num_classes=None)
+    model.load_state_dict(got)
+    x = torch.randn(SURGERY_BATCH, 4, IMG, IMG, generator=torch.Generator().manual_seed(SEED))
+    with torch.no_grad():
+        cpu = model.eval().extract(x)
+        card = model.to(device).extract(x.to(device)).cpu()
+    err = (card - cpu).abs().max().item()
+    if not torch.allclose(card, cpu, rtol=SURGERY_TOL[0], atol=SURGERY_TOL[1]):
+        raise AssertionError(f"rnfour card vs CPU: max_abs_diff {err}")
+    print(f"rnfour (ResNet-50, 4 channels, conv1 surgery): card vs CPU max_abs_diff {err:.3g} "
+          f"over {SURGERY_BATCH} x {IMG} px, float32 [{smi}]")
+    return {"max_abs_diff": err}
+
+
+def drive_phase20(root: str, device: torch.device, smi: str) -> tuple[dict, dict]:
+    """Phase 20 (a-f); returns its counted runs and its numbers."""
+    t0 = time.perf_counter()
+    e2e = {"validate_data": check_validate_data(root, smi)}
+    runs, e2e["cv_run"] = drive_cv_runs(root, smi)
+    sweep_runs, e2e["sweep"] = drive_sweep(root, smi)
+    runs.update(sweep_runs)
+    eval_runs, e2e["evaluate_scores"] = check_evaluate_scores(root, device, smi)
+    runs.update(eval_runs)
+    e2e["conv1_surgery"] = check_conv1_surgery(root, device, smi)
+    e2e["seconds"] = time.perf_counter() - t0
+    print(f"phase 20: {e2e['seconds']:.1f} s")
+    return runs, e2e
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -3592,6 +3951,7 @@ def main() -> int:
         p17_runs, p17 = drive_phase17(root, device, smi, k1_ms)
         stream_runs, stream = drive_streaming(root, device, smi)
         serve_runs, served = drive_export_serve(root, device, smi)
+        p20_runs, p20 = drive_phase20(root, device, smi)
     e2e.update(rna_e2e)
     e2e.update(train_e2e)
     e2e.update(task_e2e)
@@ -3604,9 +3964,10 @@ def main() -> int:
     e2e["phase17"] = p17
     e2e["phase18_streaming"] = stream
     e2e["phase19_serving"] = served
+    e2e["phase20"] = p20
     train_launches.update(task_launches)
     fusion_runs = {**rna_int8["launches"], **early_launches, **joint_launches, **p17_runs,
-                   **stream_runs, **serve_runs}
+                   **stream_runs, **serve_runs, **p20_runs}
     train_launches.update(fusion_runs)
     for cli, rec in train_launches.items():
         launches[cli] = rec["launches"]

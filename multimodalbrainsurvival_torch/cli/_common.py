@@ -70,7 +70,9 @@ from multimodalbrainsurvival_torch.train.optim import (
 from multimodalbrainsurvival_torch.utils.logging import MetricWriter
 
 
-def make_parser(description: str) -> argparse.ArgumentParser:
+def make_parser(description: str, device: bool = True) -> argparse.ArgumentParser:
+    """The reference scripts' flags; ``device=False`` for a CLI that does no
+    device work (``validate_data``), which then takes no ``--device``."""
     p = argparse.ArgumentParser(description=description)
     p.add_argument("--config", type=str, default="config.json",
                    help="configuration json file")
@@ -83,8 +85,9 @@ def make_parser(description: str) -> argparse.ArgumentParser:
                         "(serving draws no random numbers)")
     p.add_argument("--save_images", type=int, default=0,
                    help="accepted for reference CLI parity (unused)")
-    p.add_argument("--device", type=str, default="cuda",
-                   help="cuda (default; raises without a card) or cpu")
+    if device:
+        p.add_argument("--device", type=str, default="cuda",
+                       help="cuda (default; raises without a card) or cpu")
     return p
 
 

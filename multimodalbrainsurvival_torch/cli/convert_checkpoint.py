@@ -14,7 +14,9 @@ what the keys say (the ResNet's depth, the aggregator, the widths):
 - ``rna``: ``RNAOnlyModel`` (``2_GeneExpression``);
 - ``joint``: ``BagHistopathologyRNAModel`` (``5_JointFusion``);
 - ``resnet``: a bare encoder (for ``pretrained_path``); its ``fc.*`` is
-  dropped.
+  dropped, and ``--in_channels 1`` or ``4`` adapts its conv1 to a
+  1- or 4-channel input (``models/convert.py::adapt_conv1_channels``,
+  the ``rnone`` / ``rnfour`` encoders).
 
 The checked state_dict is written to ``--output`` with ``torch.save``. No
 device work; ``--device`` follows every entry point's rule (``cuda`` by
@@ -31,6 +33,7 @@ import os
 import re
 from collections.abc import Mapping
 
+import numpy as np
 import torch
 
 from multimodalbrainsurvival_torch.models import (
@@ -43,6 +46,7 @@ from multimodalbrainsurvival_torch.models import (
     make_aggregator,
 )
 from multimodalbrainsurvival_torch.device import resolve_device
+from multimodalbrainsurvival_torch.models.convert import adapt_conv1_channels
 
 #: layer3's block count → the ResNet (Bottleneck ones have a conv3)
 _DEPTHS = {(False, 2): "resnet18", (False, 6): "resnet34", (True, 6): "resnet50",
@@ -100,12 +104,18 @@ def build_for(arch: str, state: dict) -> torch.nn.Module:
     return AggregationModel(resnet, aggregator, out)
 
 
-def convert(torch_path: str, arch: str, output: str) -> dict[str, torch.Tensor]:
-    """Check ``torch_path`` against ``arch`` and write the port's ``.pt``;
-    returns the state_dict written."""
+def convert(torch_path: str, arch: str, output: str,
+            in_channels: int = 3) -> dict[str, torch.Tensor]:
+    """Check ``torch_path`` against ``arch`` and write the port's ``.pt``
+    (for ``resnet``, its conv1 adapted to ``in_channels``); returns the
+    state_dict written."""
     state = load_state(torch_path)
     drop = "fc." if arch == "resnet" else "resnet.fc."
     state = {k: v for k, v in state.items() if not k.startswith(drop)}
+    if arch == "resnet" and "conv1.weight" in state:
+        w = state["conv1.weight"]
+        state["conv1.weight"] = torch.from_numpy(np.ascontiguousarray(
+            adapt_conv1_channels(w.numpy(), in_channels))).to(w.dtype)
     try:
         model = build_for(arch, state)
     except (KeyError, ValueError) as e:
@@ -129,11 +139,13 @@ def main(argv=None):
     p.add_argument("--torch_path", required=True, help=".pt/.pth state_dict")
     p.add_argument("--arch", choices=ARCHS, required=True)
     p.add_argument("--output", required=True, help="the port's .pt to write")
+    p.add_argument("--in_channels", type=int, default=3,
+                   help="conv1 surgery target for arch=resnet (1/3/4)")
     p.add_argument("--device", type=str, default="cuda",
                    help="cuda (default; raises without a card) or cpu")
     a = p.parse_args(argv)
     resolve_device(a.device)
-    convert(a.torch_path, a.arch, a.output)
+    convert(a.torch_path, a.arch, a.output, a.in_channels)
 
 
 if __name__ == "__main__":

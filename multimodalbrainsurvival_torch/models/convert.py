@@ -228,6 +228,32 @@ def flax_qtree_to_torch(qtree: Mapping) -> dict:
     return out
 
 
+def adapt_conv1_channels(weight_oihw: np.ndarray, in_channels: int, *,
+                         rng: np.random.Generator | None = None) -> np.ndarray:
+    """The reference's conv1 surgery for non-RGB inputs on an OIHW weight
+    (JAX ``models/convert.py:46-78`` on HWIO; reference
+    ``resnet.py:378-428``):
+
+    - 1 channel (``RNone``): the mean over the RGB kernels;
+    - 4 channels (``RNfour``): RGB kept and a 4th channel from N(0, 0.001),
+      the JAX package's draw: ``rng.normal(0, 0.001, size=(h, w, 1, o))``
+      from ``default_rng(0)`` unless ``rng`` is given, transposed to
+      ``(o, 1, h, w)``, so both stacks' conv1 are equal;
+    - the weight's own channel count: unchanged.
+    """
+    o, c, h, w = weight_oihw.shape
+    if in_channels == c:
+        return weight_oihw
+    if in_channels == 1:
+        return weight_oihw.mean(axis=1, keepdims=True)
+    if in_channels == 4:
+        if rng is None:
+            rng = np.random.default_rng(0)
+        extra = rng.normal(0.0, 0.001, size=(h, w, 1, o)).astype(weight_oihw.dtype)
+        return np.concatenate([weight_oihw, extra.transpose(3, 2, 0, 1)], axis=1)
+    raise ValueError(f"Cannot adapt conv1 from {c} to {in_channels} channels")
+
+
 def load_reference_state_dict(path: str) -> dict[str, torch.Tensor]:
     """A reference (or port) MIL ``.pt`` → the port's ``state_dict``.
 

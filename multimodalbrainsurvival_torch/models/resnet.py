@@ -282,6 +282,19 @@ def resnet152(**kw) -> ResNet:
     return ResNet((3, 8, 36, 3), Bottleneck, **kw)
 
 
+def rnfour(depth: str = "resnet50", **kw) -> ResNet:
+    """4-channel input variant (reference ``RNfour``, ``resnet.py:167-240``;
+    JAX ``models/resnet.py:456-459``); the pretrained conv1 surgery is
+    ``convert.adapt_conv1_channels``."""
+    return RESNET_CONSTRUCTORS[depth](in_channels=4, **kw)
+
+
+def rnone(depth: str = "resnet50", **kw) -> ResNet:
+    """1-channel input variant (reference ``RNone``, ``resnet.py:242-315``;
+    JAX ``models/resnet.py:462-464``)."""
+    return RESNET_CONSTRUCTORS[depth](in_channels=1, **kw)
+
+
 RESNET_CONSTRUCTORS = {
     "resnet18": resnet18,
     "resnet34": resnet34,

@@ -58,7 +58,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                  "data.opencv_compat", "utils.native_tiff", "cli.wsi2patches",
                  "cli.slide_extractfeatures", "cli.slide_joint_savescore",
                  "cli.attention_heatmap", "kernels.ops", "artifact", "cli.export_model",
-                 "cli.serve", "cli.convert_checkpoint"):
+                 "cli.serve", "cli.convert_checkpoint", "ops.survival", "data.genes",
+                 "cli.evaluate_scores", "cli.validate_data", "cli.cv_run", "cli.sweep"):
         assert f"multimodalbrainsurvival_torch.{name}" in modules
     code = (
         "import importlib, json, sys\n"
@@ -115,6 +116,45 @@ def test_streaming_and_serving_clis_without_card_raise_unless_cpu_asked(
         main(argv + ["--device", "cpu"])
 
 
+@pytest.mark.parametrize("name, argv", [
+    ("evaluate_scores", ["--scores", "{tmp}/missing.csv"]),
+    ("cv_run", ["--config", "{cfg}", "--task", "rna"]),
+    ("sweep", ["--config", "{cfg}", "--task", "rna", "--grid", '{{"lr_rna": [1e-4]}}']),
+])
+def test_evaluation_and_orchestration_clis_without_card_raise_unless_cpu_asked(
+        name, argv, tmp_path, monkeypatch):
+    """``cv_run`` and ``sweep`` pass ``--device`` to every child CLI, and
+    raise before the first without a card."""
+    import importlib
+
+    main = importlib.import_module(f"multimodalbrainsurvival_torch.cli.{name}").main
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    missing = str(tmp_path / "missing.csv")
+    cfg = tmp_path / "cfg.json"
+    cfg.write_text(json.dumps({"cv_csv_path": missing, "train_csv_path": missing,
+                               "val_csv_path": missing, "test_csv_path": missing,
+                               "checkpoint_path": str(tmp_path / "ckpt")}))
+    argv = [a.format(cfg=cfg, tmp=tmp_path) for a in argv]
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        main(argv)
+    # on the CPU it gets past the device to the missing input
+    with pytest.raises(FileNotFoundError):
+        main(argv + ["--device", "cpu"])
+
+
+def test_validate_data_takes_no_device(tmp_path, monkeypatch):
+    """No device work: it runs without a card, and ``--device`` is not a
+    flag of it."""
+    from multimodalbrainsurvival_torch.cli import validate_data
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = tmp_path / "cfg.json"
+    cfg.write_text(json.dumps({"train_csv_path": str(tmp_path / "missing.csv")}))
+    assert validate_data.main(["--config", str(cfg), "--task", "feature"]) == 1
+    with pytest.raises(SystemExit):
+        validate_data.main(["--config", str(cfg), "--task", "feature", "--device", "cpu"])
+
+
 def test_late_fusion_without_card_raises_unless_cpu_asked(tmp_path, monkeypatch):
     from multimodalbrainsurvival_torch.cli import late_fusion
 
@@ -140,7 +180,7 @@ def test_port_cli_modules_import_neither_pandas_nor_cv2():
     for name in ("late_fusion", "merge_scores", "concat_features", "pack_patches",
                  "histo_train", "joint_train", "wsi2patches", "slide_extractfeatures",
                  "slide_joint_savescore", "attention_heatmap", "export_model", "serve",
-                 "convert_checkpoint"):
+                 "convert_checkpoint", "evaluate_scores", "validate_data", "cv_run", "sweep"):
         assert f"multimodalbrainsurvival_torch.cli.{name}" in clis
     modules = clis + [m.name for m in pkgutil.walk_packages(
         multimodalbrainsurvival_torch.__path__, "multimodalbrainsurvival_torch.")]

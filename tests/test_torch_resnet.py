@@ -8,6 +8,8 @@ same numbers. ``rtol=1e-4``, ``atol=1e-5``: float32 convolutions in two
 libraries sum in different orders through up to 50 layers.
 """
 
+import shutil
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -203,3 +205,57 @@ def test_architecture_matches_jax_tree(arch, in_channels):
     assert set(state) == set(want)
     assert all(state[k].shape == want[k].shape for k in want)
     model.load_state_dict(state)
+
+
+@pytest.mark.parametrize("in_channels", [1, 4])
+def test_rnone_rnfour_and_conv1_surgery_match_jax(tmp_path, in_channels):
+    """A seeded 3-channel encoder through ``convert_checkpoint --arch resnet
+    --in_channels`` in both stacks: conv1 equal bit for bit (the mean over
+    RGB, or RGB and the JAX draw for the 4th channel), every other tensor
+    unchanged; then the ``rnone`` / ``rnfour`` encoders on those weights
+    match."""
+    from multimodalbrainsurvival_torch.cli import convert_checkpoint
+    from multimodalbrainsurvival_torch.models.convert import adapt_conv1_channels
+    from multimodalbrainsurvival_torch.models.resnet import rnfour, rnone
+    from multimodalbrainsurvival_tpu.cli import convert_checkpoint as jax_convert
+    from multimodalbrainsurvival_tpu.models.convert import (
+        adapt_conv1_channels as jax_adapt,
+        torch_resnet_to_flax,
+    )
+
+    from tests.test_torch_histo_cli import _random_state
+
+    state = _random_state(RESNET_CONSTRUCTORS["resnet18"](), seed=in_channels)
+    w = state["conv1.weight"].numpy()
+    torch.save(state, str(tmp_path / "rgb.pt"))
+    convert_checkpoint.main(["--torch_path", str(tmp_path / "rgb.pt"), "--arch", "resnet",
+                             "--output", str(tmp_path / "port.pt"), "--in_channels",
+                             str(in_channels), "--device", "cpu"])
+    got = torch.load(str(tmp_path / "port.pt"), weights_only=True)
+    want = jax_convert.convert(str(tmp_path / "rgb.pt"), "resnet", str(tmp_path / "jax"),
+                               in_channels)
+    want_conv1 = np.asarray(want["params"]["conv1"]["kernel"]).transpose(3, 2, 0, 1)
+    assert got["conv1.weight"].shape == (64, in_channels, 7, 7)
+    np.testing.assert_array_equal(got["conv1.weight"].numpy(), want_conv1)
+    np.testing.assert_array_equal(
+        adapt_conv1_channels(w, in_channels),
+        jax_adapt(w.transpose(2, 3, 1, 0), in_channels).transpose(3, 2, 0, 1))
+    assert all(torch.equal(got[k], v) for k, v in state.items()
+               if k != "conv1.weight" and not k.startswith("fc."))
+
+    port = (rnone if in_channels == 1 else rnfour)("resnet18", num_classes=None)
+    port.load_state_dict(got)
+    assert port.in_channels == in_channels
+    flax = (jax_resnet.rnone if in_channels == 1 else jax_resnet.rnfour)("resnet18")
+    variables = jax.tree.map(jnp.asarray, torch_resnet_to_flax(
+        {k: v.numpy() for k, v in state.items()}, in_channels=in_channels))
+    x = np.random.default_rng(9).normal(size=(2, 32, 32, in_channels)).astype(np.float32)
+    with torch.no_grad():
+        feats = port.eval().extract(torch.from_numpy(x).permute(0, 3, 1, 2))
+    want_feats = flax.apply(variables, jnp.asarray(x), method="extract")
+    np.testing.assert_allclose(feats.numpy(), np.asarray(want_feats), **TOL)
+    with pytest.raises(ValueError, match="Cannot adapt"):
+        adapt_conv1_channels(w, 2)
+    for path in ("rgb.pt", "port.pt"):  # the suite's disk is shared
+        (tmp_path / path).unlink()
+    shutil.rmtree(tmp_path / "jax")
