@@ -171,8 +171,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
 20. evaluation and orchestration: (a) ``validate_data`` on phase 4's slides
    in case-disjoint splits and on phase 6's RNA cohort (exit 0), and with
    a train case leaked into val (exit 1); (b) ``cv_run --task rna``, two
-   folds of one epoch over phase 6's train and val rows at 12,778 genes
-   (its test split fixed), and (c) ``cv_run --task histo`` over phase 4's
+   folds of one epoch over the first ``CV_RNA_ROWS`` of phase 6's train
+   rows at 12,778 genes (its test split fixed), and (c) ``cv_run --task histo`` over phase 4's
    slides at ResNet-50 / attention 2048 / bf16 / 224 px, each counted (K2a
    and K2b, K1 and its backward) with its fold frames, ``cv_summary.csv``,
    out-of-fold and ensemble frames checked; (d) ``sweep --task rna
@@ -186,6 +186,25 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    (f) ``convert_checkpoint --arch resnet --in_channels 4`` on a seeded
    ResNet-50 and the ``rnfour`` encoder's forward on the card against the
    CPU in float32.
+
+21. data, bag and tensor parallelism on the one card: (a) K2a and K2b
+   with a rank's offsets in the global mask (``row0``, ``col0``) against
+   their plain versions, a TP and a dp emulation against the unsharded
+   calls, each form timed beside the offset-free call; (b) a world of
+   ``P21_WORLD`` ranks sharing the card over gloo (this script in a
+   process a rank, ``--phase21-worker``) runs ``rna_train`` under ``{"dp":
+   2}``, ``histo_train`` under ``{"dp": 2}`` and ``{"dp": 1, "mp": 2,
+   "shard_bag": true}``, ``joint_train`` and ``histo_extractfeatures``
+   under ``{"dp": 2}``, the RNA encoder sharded over ``mp = 2`` at the
+   reference width (float32 and bf16) and the dry run, each counted per
+   rank and held against the same run at world 1, which this process runs
+   meanwhile with BatchNorm in the synced arithmetic (and once with
+   ``nn.BatchNorm2d``'s, the witness of how far rounding alone moves a
+   bf16 ResNet-50's first step); (c) a world of one over NCCL through the
+   collective helpers (``--phase21-nccl``); (d) ``rna_train`` preempted by a
+   SIGTERM to rank 1 alone, resumed at world 2 (the uninterrupted run's
+   weights) and at world 1; (e) the TP step's time at world 2 and 1 with
+   its collectives' share (through the host: no NVLink figure).
 
 The last lines are the ``kernels`` JSON line, the nvidia-smi line and
 ``{"ok": true, "device": {...}}``. Without a card, or without the rest of
@@ -302,7 +321,12 @@ from multimodalbrainsurvival_torch.kernels.qmm_requant import (
 )
 from multimodalbrainsurvival_torch.models import quantize, serving
 from multimodalbrainsurvival_torch.models.convert import adapt_conv1_channels
-from multimodalbrainsurvival_torch.models.resnet import RESNET_CONSTRUCTORS, Bottleneck, rnfour
+from multimodalbrainsurvival_torch.models.resnet import (
+    RESNET_CONSTRUCTORS,
+    Bottleneck,
+    SyncedBatchNorm2d,
+    rnfour,
+)
 from multimodalbrainsurvival_torch.models.rna import RNA_GENES
 from multimodalbrainsurvival_torch.ops.coxnet import CoxProblems, FistaSolver, fit_coxnet
 from multimodalbrainsurvival_torch.ops.metrics import concordance_index
@@ -311,6 +335,7 @@ from multimodalbrainsurvival_torch.ops.survival import (
     bootstrap_pair_counts,
     resample_indices,
 )
+from multimodalbrainsurvival_torch.parallel import launch
 from multimodalbrainsurvival_torch.train import checkpoint as train_checkpoint
 from multimodalbrainsurvival_torch.train import TrainSettings
 from multimodalbrainsurvival_torch.train.adapters import (
@@ -3576,6 +3601,10 @@ def drive_export_serve(root: str, device: torch.device, smi: str) -> tuple[dict,
 # RNA encoder under successive halving by 2 over SWEEP_EPOCHS (rungs of 1
 # and 2 epochs), on a smaller cohort at the reference width
 CV_FOLDS = 2
+# cv_run --task rna folds the first rows of phase 6's train split (its
+# host CSV work, not the card, set phase 20's time: cut from 1,280 rows in
+# PR 15 to keep the smoke under 900 s with phase 21)
+CV_RNA_ROWS = 384
 SWEEP_LRS = [1e-3, 1e-4, 1e-5, 1e-6]
 SWEEP_EPOCHS, SWEEP_SPLITS = 2, {"train": 512, "val": 128, "test": 128}
 # (e) resamples of the evaluated frames; the bootstrap timed at BOOT_CASES
@@ -3660,8 +3689,8 @@ def _check_cv_outputs(ckpt: str, flag: str, n_cases: int, n_test: int) -> dict:
 
 
 def drive_cv_runs(root: str, smi: str) -> tuple[dict, dict]:
-    """20b, 20c: ``cv_run --task rna`` on phase 6's train and val rows
-    (12,778 genes, the test split fixed) and ``cv_run --task histo`` on
+    """20b, 20c: ``cv_run --task rna`` on the first ``CV_RNA_ROWS`` of
+    phase 6's train rows (12,778 genes, the test split fixed) and ``cv_run --task histo`` on
     phase 4's slides (ResNet-50 / attention 2048 / bf16 / 224 px, the
     cohort its own fixed test split), two folds of one epoch, counted:
     K2a and K2b a train step, K1 a train step and an eval batch, its
@@ -3670,8 +3699,11 @@ def drive_cv_runs(root: str, smi: str) -> tuple[dict, dict]:
     without it, as the savescore step needs their ``model_dict_best.pt``."""
     paths = {s: os.path.join(root, "rna", f"rna_{s}.csv") for s in RNA_SPLITS}
     rna_ckpt = os.path.join(root, "cv_rna_ckpt")
+    cv_rows = os.path.join(root, "cv_rna.csv")
+    with open(paths["train"]) as f, open(cv_rows, "w") as out:
+        out.writelines(itertools.islice(f, 1 + CV_RNA_ROWS))
     _, rna_cfg = _rna_config(root, paths, "cv_rna", num_epochs=1, flag="rna_cv",
-                             checkpoint_path=rna_ckpt)
+                             checkpoint_path=rna_ckpt, cv_csv_path=cv_rows)
     csv_path = os.path.join(root, "cohort.csv")
     histo_keys = dict(_histo_train_keys(root, "cv_histo_ckpt"), flag="histo_cv")
     histo, histo_cfg = _config(root, csv_path, "cv_histo", num_epochs=1,
@@ -3708,8 +3740,7 @@ def drive_cv_runs(root: str, smi: str) -> tuple[dict, dict]:
                                      histo_expected, smi),
     }
     n_cases = len(set(read_frame(csv_path)["case"]))
-    e2e = {"rna": _check_cv_outputs(rna_ckpt, "rna_cv", RNA_SPLITS["train"] + RNA_SPLITS["val"],
-                                    RNA_SPLITS["test"]),
+    e2e = {"rna": _check_cv_outputs(rna_ckpt, "rna_cv", CV_RNA_ROWS, RNA_SPLITS["test"]),
            "histo": _check_cv_outputs(histo["checkpoint_path"], "histo_cv", n_cases, n_cases)}
     print(f"cv_run folds: {e2e} [{smi}]")
     return runs, e2e
@@ -3899,11 +3930,789 @@ def drive_phase20(root: str, device: torch.device, smi: str) -> tuple[dict, dict
     return runs, e2e
 
 
-def main() -> int:
+# --- phase 21: data, bag and tensor parallelism on the one card --------------------
+
+# the worlds of phase 21: P21_WORLD ranks sharing the one card over gloo (NCCL
+# refuses two ranks on one device), each rank this script in a process of
+# its own (``--phase21-worker``), started by ``parallel/launch.py``
+P21_WORLD = 2
+# the RNA runs: 12,778 genes -> 4,096 -> 2,048, float32, dropout 0.5, batches
+# of 256 (128 rows a rank), 2 epochs of 2 steps; val and test a padded batch
+P21_RNA_SPLITS = {"train": 512, "val": 128, "test": 128}
+P21_EPOCHS = 2
+# the joint run: phase 15's configuration on 32 patches a slide (2 steps of 128)
+P21_JOINT_PATCHES = 32
+# the histo and joint runs evaluate on the first two slides of phase 4's cohort
+P21_EVAL_SLIDES = 2
+# first-step gradients of a world against the same run at world 1: relative
+# Frobenius error per tensor (float32: K2a's split-K and the ranks' partial
+# sums in another order; bf16: products rounded to bf16 in other places)
+P21_GRAD_TOL = {"float32": 1e-4, "bfloat16": 5e-2}
+# weights after the steps: ||(w - w0) - (w1 - w0)|| / ||w1 - w0|| per tensor;
+# Adam steps an element whose gradient is rounding noise by its LR either
+# way, and in bf16 many are (a wrong reduction parts the two runs' updates
+# by more than the update itself)
+P21_UPDATE_TOL = {"float32": 0.25, "bfloat16": 1.0}
+# the first-step loss of a world against world 1 (relative)
+P21_LOSS_TOL = {"float32": 1e-4, "bfloat16": 1e-2}
+# the norm below which a gradient tensor's error counts against this share
+# of the largest gradient's norm, not its own: the Cox loss is blind to a
+# shift of the scores, so what only shifts them (the head's bias, the last
+# encoder layer's) gets a gradient of rounding noise, of the dtype's size
+P21_GRAD_FLOOR = {"float32": 1e-4, "bfloat16": 1e-2}
+# the TP encoder's steps (12,778 -> 4,096 -> 2,048 over mp = 2, batch 256)
+P21_TP_STEPS, P21_TP_LR = 3, 1e-4
+P21_TIMEOUT_S = 600
+# the device of phase 21's ranks
+P21_DEVICE = "cuda"
+
+
+@contextlib.contextmanager
+def _synced_statistics():
+    """Train-mode BatchNorm of a world of one in the synced arithmetic
+    (``SyncedBatchNorm2d.synced_forward`` over this process alone), in
+    place of ``nn.BatchNorm2d``'s: the world-1 runs that phase 21's worlds
+    are held against."""
+    original = SyncedBatchNorm2d.forward
+
+    def forward(self, x):
+        return self.synced_forward(x, None) if self.training else original(self, x)
+
+    SyncedBatchNorm2d.forward = forward
+    try:
+        yield
+    finally:
+        SyncedBatchNorm2d.forward = original
+
+
+@contextlib.contextmanager
+def _first_step(record: dict, sigterm_step: int = 0):
+    """While a train CLI runs: ``record`` gets its first step's global loss
+    and every parameter's gradient (on the host) as the optimizer sees
+    them; with ``sigterm_step`` this process sends itself SIGTERM before
+    that step (1-based)."""
+    from multimodalbrainsurvival_torch.train import loop
+
+    original, calls = loop.train_step, [0]
+
+    def train_step(adapter, optimizer, loss_fn, arrays, settings, generator):
+        calls[0] += 1
+        if calls[0] == sigterm_step:
+            os.kill(os.getpid(), signal.SIGTERM)
+        if "grads" in record:
+            return original(adapter, optimizer, loss_fn, arrays, settings, generator)
+        step = optimizer.step
+
+        def take():
+            record["grads"] = {n: p.grad.detach().float().cpu().clone()
+                               for n, p in adapter.model.named_parameters()
+                               if p.grad is not None}
+            record["weights0"] = {n: p.detach().float().cpu().clone()
+                                  for n, p in adapter.model.named_parameters()
+                                  if p.grad is not None}
+            step()
+
+        optimizer.step = take
+        try:
+            loss = original(adapter, optimizer, loss_fn, arrays, settings, generator)
+        finally:
+            del optimizer.step
+        record["loss"] = float(loss)
+        return loss
+
+    loop.train_step = train_step
+    try:
+        yield record
+    finally:
+        loop.train_step = original
+
+
+P21_CLIS = {"rna_train": rna_train, "histo_train": histo_train, "joint_train": joint_train,
+            "histo_extractfeatures": histo_extractfeatures}
+
+
+def _p21_cli(job: dict, rank: int) -> dict:
+    """A CLI job of a phase-21 rank: counted from 0, its first step
+    captured (rank 0 saves it to ``job["grads"]``)."""
+    for src, dst in job.get("copy", []):
+        if rank == 0:
+            shutil.copytree(src, dst)
+        torch.distributed.barrier()
+    record: dict = {}
+    sigterm = job.get("sigterm_step", 0) if rank == job.get("sigterm_rank", -1) else 0
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with _first_step(record, sigterm):
+        try:
+            P21_CLIS[job["cli"]].main(job["argv"])
+            code = 0
+        except SystemExit as e:
+            code = int(e.code or 0)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if rank == 0 and job.get("grads") and "grads" in record:
+        torch.save(record, job["grads"])
+    return {"name": job["name"], "code": code, "launches": read_counts(), "wall_s": wall}
+
+
+def _rel(got: torch.Tensor, want: torch.Tensor, floor: float = 0.0) -> float:
+    """||got - want|| / max(||want||, floor) (0 where both are 0)."""
+    num = (got.double() - want.double()).norm().item()
+    den = max(want.double().norm().item(), floor)
+    return num / den if den else num
+
+
+def _grad_rel(got: dict, want: dict, dtype: str) -> tuple[float, str]:
+    """The largest ``_rel`` over the tensors of ``want`` and its tensor's
+    name, each against at least ``P21_GRAD_FLOOR`` of the largest
+    gradient's norm."""
+    floor = P21_GRAD_FLOOR[dtype] * max(v.double().norm().item() for v in want.values())
+    return max((_rel(got[k], v, floor), k) for k, v in want.items())
+
+
+def _p21_tp(job: dict, rank: int) -> dict:
+    """The RNA encoder at the reference width (12,778 -> 4,096 -> 2,048,
+    dropout 0.5, ``job["dtype"]``) sharded over ``mp = P21_WORLD`` by
+    ``parallel/sharding.py``: ``P21_TP_STEPS`` Cox steps (Adam) timed, its
+    first gradients (gathered) and the steps' update of the whole parameter
+    vector (relative distance) against the unsharded encoder at world 1,
+    which rank 0 runs after the sharded steps on the same batch; the time
+    the steps spend in collectives recorded."""
+    from multimodalbrainsurvival_torch.models import RNAEncoder, RNAOnlyModel
+    from multimodalbrainsurvival_torch.ops.cox import cox_partial_likelihood_loss
+    from multimodalbrainsurvival_torch.parallel import mesh as parallel
+    from multimodalbrainsurvival_torch.parallel.sharding import (
+        gathered_state_dict,
+        joint_param_shardings,
+        shard_model,
+    )
+
+    device = torch.device(P21_DEVICE)
+    dtype = getattr(torch, job["dtype"])
+    mesh = parallel.make_mesh(1, P21_WORLD, device=device)
+    torch.manual_seed(SEED + 21)
+    model = RNAOnlyModel(RNAEncoder(RNA_GENES, (4096, 2048), dropout=RNA_DROPOUT,
+                                    dtype=dtype)).to(device)
+    reference = copy.deepcopy(model).cpu() if rank == 0 else None
+    w0 = ({k: v.float().clone() for k, v in reference.state_dict().items()}
+          if rank == 0 else None)
+    plan = joint_param_shardings(model)
+    g = torch.Generator(device="cpu").manual_seed(SEED + 22)
+    x = torch.randn(RNA_BATCH, RNA_GENES, generator=g).to(device)
+    t = (torch.rand(RNA_BATCH, generator=g) * 100 + 1).to(device)
+    e = (torch.rand(RNA_BATCH, generator=g) < 0.6).float().to(device)
+    shard_model(model, mesh)
+    collective_s = [0.0]
+    timed = {name: getattr(parallel, name) for name in ("all_reduce", "all_gather")}
+
+    def timer(fn):
+        def wrapped(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            collective_s[0] += time.perf_counter() - t0
+            return out
+        return wrapped
+
+    def steps(m, sharded):
+        optimizer = torch.optim.Adam(m.parameters(), lr=P21_TP_LR)
+        first, times, in_collectives = None, [], []
+        for i in range(P21_TP_STEPS):
+            before = collective_s[0]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            optimizer.zero_grad(set_to_none=True)
+            m.train()
+            with parallel.activate(parallel.BatchPut(mesh) if sharded else None):
+                out = m.final_mlp(m.rna_mlp(x, seed=1000 + i))
+                loss = cox_partial_likelihood_loss(out[:, 0], t, e)
+                loss.backward()
+            if first is None:
+                grads = {n: p.grad for n, p in m.named_parameters()}
+                if sharded:
+                    grads = {n: parallel.all_gather(v, mesh.mp_group, plan[n])
+                             if plan[n] is not None else v for n, v in grads.items()}
+                first = (float(loss), {n: v.float().cpu().clone() for n, v in grads.items()})
+            optimizer.step()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            in_collectives.append(collective_s[0] - before)
+        return first, times, in_collectives
+
+    for name, fn in timed.items():
+        setattr(parallel, name, timer(fn))
+    try:
+        sharded_first, tp_times, tp_collective_s = steps(model, True)
+    finally:
+        for name, fn in timed.items():
+            setattr(parallel, name, fn)
+    state = {k: v.float().cpu() for k, v in gathered_state_dict(model).items()}
+    rec = {"name": job["name"], "code": 0, "dtype": job["dtype"],
+           "tp_step_s": tp_times, "collective_s": tp_collective_s}
+    if rank == 0:
+        model.cpu()
+        reference.to(device)
+        want_first, ref_times, _ = steps(reference, False)
+        rec["world1_step_s"] = ref_times
+        rec["loss_rel"] = abs(sharded_first[0] - want_first[0]) / max(abs(want_first[0]), 1e-6)
+        rec["grad_rel"], rec["grad_rel_at"] = _grad_rel(sharded_first[1], want_first[1],
+                                                        job["dtype"])
+        ref_state = {k: v.float().cpu() for k, v in reference.state_dict().items()}
+        got_update = {k: state[k] - w0[k] for k in ref_state}
+        want_update = {k: v - w0[k] for k, v in ref_state.items()}
+        # the whole parameter vector's update, judged; the largest tensor's,
+        # recorded: the last layer's bias gets a gradient of rounding noise
+        # (the Cox loss is blind to a shift of the scores), which Adam turns
+        # into steps of its LR in directions the rounding picks
+        rec["update_rel"] = _rel(torch.cat([v.flatten() for v in got_update.values()]),
+                                 torch.cat([v.flatten() for v in want_update.values()]))
+        rec["update_rel_max"], rec["update_rel_max_at"] = _grad_rel(
+            got_update, want_update, job["dtype"])
+        rec["ok"] = (rec["loss_rel"] <= P21_LOSS_TOL[job["dtype"]]
+                     and rec["grad_rel"] <= P21_GRAD_TOL[job["dtype"]]
+                     and rec["update_rel"] <= P21_UPDATE_TOL[job["dtype"]])
+    torch.distributed.barrier()
+    return rec
+
+
+def phase21_worker(jobs_path: str, out_dir: str) -> int:
+    """A rank of phase 21's world: the jobs of ``jobs_path`` in order, each
+    one's record (exit status, launches per kernel, seconds) written to
+    ``out_dir/rank<r>.json`` as it ends. The dry run, which closes the
+    process group, comes last."""
+    from multimodalbrainsurvival_torch.parallel import dryrun
+    from multimodalbrainsurvival_torch.parallel import mesh as parallel
+
+    configure_precision()
+    build.build()
+    parallel.initialize_from_env(torch.device(P21_DEVICE))
+    rank = torch.distributed.get_rank()
+    with open(jobs_path) as f:
+        jobs = json.load(f)
+    records = []
+    for job in jobs:
+        if job["kind"] == "cli":
+            rec = _p21_cli(job, rank)
+        elif job["kind"] == "tp":
+            reset_counts()
+            t0 = time.perf_counter()
+            rec = _p21_tp(job, rank)
+            rec.update(launches=read_counts(), wall_s=time.perf_counter() - t0)
+        else:
+            reset_counts()
+            t0 = time.perf_counter()
+            dryrun.worker(P21_DEVICE, job["dir"])
+            torch.cuda.synchronize()
+            rec = {"name": job["name"], "code": 0, "launches": read_counts(),
+                   "wall_s": time.perf_counter() - t0}
+        print(f"phase 21 rank {rank}: {json.dumps(rec)}", flush=True)
+        records.append(rec)
+        with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+            json.dump(records, f)
+    return 0
+
+
+def phase21_nccl() -> int:
+    """A world of one over NCCL through the port's collective helpers: each
+    collective the parallel path uses, called once over the world group,
+    its result checked."""
+    import torch.distributed as dist
+
+    from multimodalbrainsurvival_torch.parallel import mesh as parallel
+
+    device = torch.device("cuda")
+    backend = parallel.initialize_from_env(device)
+    if backend != "nccl":
+        raise AssertionError(f"a world of one on a card chose {backend}, not nccl")
+    world = dist.group.WORLD
+    x = torch.arange(6.0, device=device).reshape(2, 3).requires_grad_()
+    checks = {
+        "all_reduce": torch.equal(parallel.all_reduce(x.detach().clone(), world), x.detach()),
+        "all_gather": torch.equal(parallel.all_gather(x.detach(), world, 1), x.detach()),
+        "any_rank": parallel.all_reduce(torch.ones(1, device=device), world,
+                                        dist.ReduceOp.MAX).item() == 1.0,
+    }
+    for name, fn in (("gather", lambda t: parallel.gather(t, world, 0)),
+                     ("sum_partials", lambda t: parallel.sum_partials(t, world)),
+                     ("reduce_from", lambda t: parallel.reduce_from(t, world)),
+                     ("copy_to", lambda t: parallel.copy_to(t, world))):
+        x.grad = None
+        fn(x).sum().backward()
+        checks[name] = torch.equal(x.grad, torch.ones_like(x))
+    box = [{"flag": "rank 0"}]
+    dist.broadcast_object_list(box, src=0, group=world, device=device)
+    checks["broadcast_object"] = box[0] == {"flag": "rank 0"}
+    dist.barrier()
+    print(f"phase 21 nccl: backend {backend}, checks {json.dumps(checks)}", flush=True)
+    dist.destroy_process_group()
+    return 0 if all(checks.values()) else 1
+
+
+def check_k2_offsets(device: torch.device, smi: str) -> dict:
+    """21a: K2a (float32 and bf16) and K2b (single and paired, both dtypes)
+    at the RNA shapes with nonzero ``(row0, col0)`` against their plain
+    versions (K2a within ``K2A_TOL`` / ``K2A_BF16_TOL`` of the scale, K2b
+    bit for bit); a TP emulation in this process (dense_0 split by output
+    rows, dense_1 by input columns with ``col0``: the concatenation or the
+    sum against the unsharded call) and a dp emulation (row halves with
+    ``row0`` against the rows of the whole call); each form timed beside
+    the offset-free call, as phase 3 times (L2 scrubbed, behind the sleep
+    kernel), in turns."""
+    g = torch.Generator(device="cpu").manual_seed(SEED + 21)
+    scrub = torch.empty(64 << 20, dtype=torch.uint8, device=device)
+    seed, p = 20240609, RNA_DROPOUT
+    half = RNA_BATCH // 2
+    recs = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        dn = str(dtype).removeprefix("torch.")
+        x = torch.randn(RNA_BATCH, RNA_GENES, generator=g).to(device, dtype)
+        w0 = (torch.randn(4096, RNA_GENES, generator=g) / math.sqrt(RNA_GENES)).to(
+            device, dtype)
+        h = torch.randn(RNA_BATCH, 4096, generator=g).to(device, dtype)
+        w1 = (torch.randn(2048, 4096, generator=g) / math.sqrt(4096)).to(device, dtype)
+
+        def k2a_err(got, want):
+            scale = want.abs().max().item()
+            tol = K2A_TOL if dtype == torch.float32 else K2A_BF16_TOL * scale
+            err = (got - want).abs().max().item()
+            return err, tol
+
+        checks = {}
+        # the offset forms against their plain versions: a dp rank's rows of
+        # dense_0 (row0 = 128), a TP rank's hidden columns of dense_1 (col0)
+        xr = x[half:].contiguous()
+        hc = h[:, 2048:].contiguous()
+        w1c = w1[:, 2048:].contiguous()
+        for label, a, b, w, r0, c0 in (("dense_0 rows 128-255", xr, None, w0, half, 0),
+                                       ("dense_1 cols 2048-4095", hc, None, w1c, 0, 2048)):
+            checks[f"k2a {label}"] = k2a_err(dropout_matmul(a, w, seed, p, r0, c0),
+                                             dropout_matmul_plain(a, w, seed, p, r0, c0))
+            single = seeded_dropout(a, seed, p, r0, c0)
+            pair = seeded_dropout_pair(a, 2 * a, seed, p, r0, c0)
+            want = seeded_dropout_plain(a, seed, p, r0, c0)
+            checks[f"k2b {label}"] = (int((single != want).sum()), 0)
+            checks[f"k2b pair {label}"] = (
+                int((pair[0] != want).sum())
+                + int((pair[1] != seeded_dropout_plain(2 * a, seed, p, r0, c0)).sum()), 0)
+        # dp emulation: row halves at row0 against the whole call's rows
+        whole0 = dropout_matmul(x, w0, seed, p)
+        checks["dp k2a dense_0"] = k2a_err(torch.cat(
+            [dropout_matmul(x[r * half:(r + 1) * half].contiguous(), w0, seed, p, r * half)
+             for r in range(2)]), whole0)
+        checks["dp k2b dense_0"] = (int((torch.cat(
+            [seeded_dropout(x[r * half:(r + 1) * half].contiguous(), seed, p, r * half)
+             for r in range(2)]) != seeded_dropout(x, seed, p)).sum()), 0)
+        # TP emulation: dense_0's output rows, dense_1's input columns
+        checks["tp k2a dense_0 (column-parallel)"] = k2a_err(torch.cat(
+            [dropout_matmul(x, w0[m * 2048:(m + 1) * 2048].contiguous(), seed, p)
+             for m in range(2)], 1), whole0)
+        checks["tp k2a dense_1 (row-parallel)"] = k2a_err(sum(
+            dropout_matmul(h[:, m * 2048:(m + 1) * 2048].contiguous(),
+                           w1[:, m * 2048:(m + 1) * 2048].contiguous(), seed, p, 0, m * 2048)
+            for m in range(2)), dropout_matmul(h, w1, seed, p))
+        checks["tp k2b dense_1 pair"] = (sum(int((torch.cat(
+            [seeded_dropout_pair(h[:, m * 2048:(m + 1) * 2048].contiguous(),
+                                 h[:, m * 2048:(m + 1) * 2048].contiguous(), seed, p, 0,
+                                 m * 2048)[i] for m in range(2)], 1)
+            != seeded_dropout(h, seed, p)).sum()) for i in range(2)), 0)
+        torch.cuda.synchronize()
+        bad = {k: v for k, v in checks.items() if not v[0] <= v[1]}
+        print(f"K2 offsets {dn}: {json.dumps({k: v[0] for k, v in checks.items()})} [{smi}]")
+        if bad:
+            raise AssertionError(f"K2 offset forms ({dn}) disagree: {bad}")
+        fns = {
+            "k2a": lambda: dropout_matmul(xr, w0, seed, p),
+            "k2a_offset": lambda: dropout_matmul(xr, w0, seed, p, half, 0),
+            "k2a_offset_plain": lambda: dropout_matmul_plain(xr, w0, seed, p, half, 0),
+            # yardstick only: the port never calls it
+            "k2a_offset_library": lambda: torch.matmul(xm, w0.t()),
+            "k2b": lambda: seeded_dropout_pair(hc, hc, seed, p),
+            "k2b_offset": lambda: seeded_dropout_pair(hc, hc, seed, p, 0, 2048),
+            "k2b_offset_plain": lambda: seeded_dropout_pair_plain(hc, hc, seed, p, 0, 2048),
+            "k2b_offset_library": lambda: (torch.mul(hc, mask), torch.mul(hc, mask)),
+        }
+        mask = (keep_mask(RNA_BATCH, 2048, seed, p, device, 0, 2048).float()
+                * float(keep_scale(p))).to(dtype)
+        xm = seeded_dropout_plain(xr, seed, p, half, 0)
+        times = {name: [] for name in fns}
+        for kind in ("k2a", "k2b"):
+            for suffix in ("", "_offset", "_offset_plain", "_offset_library",
+                           "_offset_library", "_offset_plain", "_offset", ""):
+                times[kind + suffix].append(_time_ms(fns[kind + suffix], 25, scrub))
+        ms = {name: sum(t) / len(t) for name, t in times.items()}
+        size = x.element_size()
+        # K2b's pair at dense_1's TP shard: two inputs read, two outputs written
+        b_bytes = 4 * size * RNA_BATCH * 2048 / HBM_BYTES_PER_S * 1e3
+        b_ops = 2 * RNA_BATCH * 2048 / PEAK_FLOPS[torch.float32] * 1e3
+        recs[f"dropout_matmul_offset_{dn}"] = {
+            "where": "dense_0, a dp rank's 128 rows at row0 = 128", "dtype": dn,
+            "max_abs_err": checks["k2a dense_0 rows 128-255"][0],
+            "ms": ms["k2a_offset"], "offset_free_ms": ms["k2a"],
+            "plain_ms": ms["k2a_offset_plain"], "library_ms": ms["k2a_offset_library"],
+            **_k2_bounds(half, RNA_GENES, 4096, dtype)}
+        recs[f"seeded_dropout_pair_offset_{dn}"] = {
+            "where": "dense_1's backward pair, a TP rank's 2,048 columns at col0 = 2048",
+            "dtype": dn, "max_abs_err": 0.0, "ms": ms["k2b_offset"],
+            "offset_free_ms": ms["k2b"], "plain_ms": ms["k2b_offset_plain"],
+            "library_ms": ms["k2b_offset_library"], "bound_ms": max(b_bytes, b_ops),
+            "bound_by": "bytes" if b_bytes >= b_ops else "operations"}
+        for name in (f"dropout_matmul_offset_{dn}", f"seeded_dropout_pair_offset_{dn}"):
+            print(f"{name} {json.dumps(recs[name])} [{smi}]")
+        del x, w0, h, w1, xr, hc, w1c, whole0, mask, xm
+    return recs
+
+
+def _p21_histo_csv(root: str) -> str:
+    """Phase 4's cohort restricted to its first ``P21_EVAL_SLIDES`` slides
+    (the phase-21 runs' val and test splits)."""
+    with open(os.path.join(root, "cohort.csv")) as f:
+        lines = f.read().splitlines()
+    path = os.path.join(root, "p21_eval.csv")
+    with open(path, "w") as f:
+        f.write("\n".join(lines[:1 + P21_EVAL_SLIDES]) + "\n")
+    return path
+
+
+def _distances(got: dict, want: dict, names, dtype: str) -> dict:
+    """First-step gradients and the steps' updates of ``got`` against
+    ``want`` over the tensors ``names``: the largest ``_grad_rel`` of each
+    and where."""
+    w0 = want["weights0"]
+    grad, grad_at = _grad_rel({k: got["grads"][k] for k in names},
+                              {k: want["grads"][k] for k in names}, dtype)
+    update, update_at = _grad_rel({k: got["final"][k] - w0[k] for k in names},
+                                  {k: want["final"][k] - w0[k] for k in names}, dtype)
+    return {"grad_rel_max": grad, "grad_rel_max_at": grad_at,
+            "update_rel_max": update, "update_rel_max_at": update_at}
+
+
+def _p21_compare(name: str, got: dict, want: dict, dtype: str, failures: list,
+                 witness: dict | None = None) -> dict:
+    """A world's first step and its weights after the steps against the
+    world-1 run's; a disagreement goes to ``failures``. With a ``witness``
+    (the world-1 run with ``nn.BatchNorm2d``'s statistics), each group of
+    tensors (the ResNet's; the rest: aggregator, heads, RNA encoder) is
+    held to twice the witness's distance from the world-1 run where that
+    is larger than the fixed tolerance: a train-mode ResNet-50's first
+    bf16 step moves its ResNet gradients by about their whole norm, and
+    the others by ~10%, when only the order of BatchNorm's sums changes,
+    so no fixed tolerance tells a wrong reduction from it (a gradient
+    summed over the ranks twice, or not at all, parts the heads by 50-100%
+    too)."""
+    loss_rel = abs(got["loss"] - want["loss"]) / max(abs(want["loss"]), 1e-6)
+    names = list(want["grads"])
+    groups = {"rest": names}
+    if witness is not None:
+        groups = {"resnet": [k for k in names if k.startswith("resnet.")],
+                  "rest": [k for k in names if not k.startswith("resnet.")]}
+    rec = {"loss": got["loss"], "world1_loss": want["loss"], "loss_rel": loss_rel}
+    ok = loss_rel <= P21_LOSS_TOL[dtype]
+    for group, keys in groups.items():
+        if not keys:
+            continue
+        rec[group] = _distances(got, want, keys, dtype)
+        allowed = {"grad_rel_max": P21_GRAD_TOL[dtype],
+                   "update_rel_max": P21_UPDATE_TOL[dtype]}
+        if witness is not None:
+            rec[f"{group}_witness"] = _distances(witness, want, keys, dtype)
+            allowed = {k: max(v, 2 * rec[f"{group}_witness"][k]) for k, v in allowed.items()}
+        ok = ok and all(rec[group][k] <= v for k, v in allowed.items())
+    if not (want["loss"] and any(v.abs().max().item() for v in want["grads"].values())):
+        failures.append(f"{name}: the first step's loss or gradients are 0 at world 1 (a "
+                        "batch without an event): nothing to compare")
+    print(f"phase 21 {name} ({dtype}) vs world 1: {json.dumps(rec)}")
+    if not ok:
+        failures.append(f"{name} disagrees with its world-1 run: {rec}")
+    return rec
+
+
+def _final_weights(cfg: dict, flag: str, names) -> dict:
+    state = torch.load(os.path.join(cfg["checkpoint_path"], "models", flag, "model_last.pt"),
+                       weights_only=True)
+    return {k: state[k].float() for k in names}
+
+
+def drive_phase21(root: str, device: torch.device, smi: str) -> tuple[dict, dict]:
+    """Phase 21: (a) K2's offset forms on the card; (b) worlds of
+    ``P21_WORLD`` ranks sharing the card over gloo (``rna_train``,
+    ``histo_train`` under ``{"dp": 2}`` and ``{"dp": 1, "mp": 2,
+    "shard_bag": true}`` in bf16 and float32, ``joint_train``,
+    ``histo_extractfeatures``, the TP
+    RNA encoder in float32 and bf16, the dry run), each counted per rank and
+    held against the same run at world 1, which this process runs while
+    the world works; (c) a world of one over NCCL; (d) ``rna_train``
+    preempted on rank 1 alone and resumed at world 2 and at world 1; (e)
+    the TP step's time at world 2 and 1 with its collectives' share."""
+    t_phase = time.perf_counter()
+    e2e = {"k2_offsets": check_k2_offsets(device, smi)}
+    here = os.path.dirname(os.path.abspath(__file__))
+    work = os.path.join(root, "p21")
+    os.makedirs(work)
+    paths = make_rna_cohort(os.path.join(work, "rna"), P21_RNA_SPLITS, SEED + 21)
+    histo_csv = os.path.join(root, "cohort.csv")
+    eval_csv = _p21_histo_csv(root)
+    joint_csv = os.path.join(root, "joint.csv")
+    dp2, bag = {"dp": P21_WORLD}, {"dp": 1, "mp": P21_WORLD, "shard_bag": True}
+
+    def rna_cfg(name, **kw):
+        return _rna_config(work, paths, name, num_epochs=P21_EPOCHS, **kw)
+
+    patches = os.path.join(root, "patches")
+
+    def histo_cfg(name, **kw):
+        return _config(work, histo_csv, name, num_epochs=1, val_csv_path=eval_csv,
+                       test_csv_path=eval_csv, model_path="", data_path=patches,
+                       **_histo_train_keys(work, f"{name}_ckpt"), **kw)
+
+    def joint_cfg(name, **kw):
+        eval_joint = os.path.join(work, "p21_joint_eval.csv")
+        if not os.path.exists(eval_joint):
+            with open(joint_csv) as f:
+                head = [next(f) for _ in range(1 + P21_EVAL_SLIDES)]
+            with open(eval_joint, "w") as f:
+                f.writelines(head)
+        return _joint_config(work, joint_csv, name, num_epochs=1,
+                             max_patch_per_wsi_train=P21_JOINT_PATCHES,
+                             max_patch_per_wsi_val=P21_JOINT_PATCHES,
+                             val_csv_path=eval_joint, test_csv_path=eval_joint,
+                             data_path=patches, **kw)
+
+    def extract_cfg(name, **kw):
+        return _config(work, histo_csv, name, val_csv_path=eval_csv, test_csv_path=eval_csv,
+                       model_path=os.path.join(root, "model.pt"), data_path=patches,
+                       output_path=os.path.join(work, name), **kw)
+
+    f32 = {"compute_dtype": "float32"}
+    # name -> (cli, config and path at world 2, at world 1, dtype)
+    runs = {
+        "rna_train_dp2": ("rna_train", rna_cfg("rna_dp2", mesh=dp2), rna_cfg("rna_w1"),
+                          "float32"),
+        "histo_train_dp2": ("histo_train", histo_cfg("histo_dp2", mesh=dp2),
+                            histo_cfg("histo_w1"), "bfloat16"),
+        "histo_train_bag": ("histo_train", histo_cfg("histo_bag", mesh=bag), None,
+                            "bfloat16"),
+        # float32, where the ResNet's first step is reproducible under
+        # rounding (a ~1% witness): what holds the patch encoder's reduction
+        "histo_train_dp2_f32": ("histo_train", histo_cfg("histo_dp2_f32", mesh=dp2, **f32),
+                                histo_cfg("histo_w1_f32", **f32), "float32"),
+        "histo_train_bag_f32": ("histo_train", histo_cfg("histo_bag_f32", mesh=bag, **f32),
+                                None, "float32"),
+        "joint_train_dp2": ("joint_train", joint_cfg("joint_dp2", mesh=dp2),
+                            joint_cfg("joint_w1"), "bfloat16"),
+        "histo_extractfeatures_dp2": ("histo_extractfeatures",
+                                      extract_cfg("extract_dp2", mesh=dp2),
+                                      extract_cfg("extract_w1"), "bfloat16"),
+    }
+    preempt, preempt_path = rna_cfg("rna_preempt", mesh=dp2, preempt_sync_every=1)
+    resume2, resume2_path = rna_cfg("rna_resume2", mesh=dp2, resume=True)
+    resume1, resume1_path = rna_cfg("rna_resume1", resume=True)
+    jobs = [{"kind": "cli", "name": name, "cli": cli, "argv": ["--config", c[1]],
+             "grads": os.path.join(work, f"{name}.grads.pt")}
+            for name, (cli, c, _, _) in runs.items()]
+    jobs += [
+        {"kind": "cli", "name": "rna_train_preempted", "cli": "rna_train",
+         "argv": ["--config", preempt_path], "sigterm_rank": 1, "sigterm_step": 2},
+        {"kind": "cli", "name": "rna_train_resumed_dp2", "cli": "rna_train",
+         "argv": ["--config", resume2_path],
+         "copy": [(preempt["checkpoint_path"], resume2["checkpoint_path"]),
+                  (preempt["checkpoint_path"], resume1["checkpoint_path"])]},
+        {"kind": "tp", "name": "tp_rna_float32", "dtype": "float32"},
+        {"kind": "tp", "name": "tp_rna_bfloat16", "dtype": "bfloat16"},
+        {"kind": "dryrun", "name": "dryrun_multichip", "dir": os.path.join(work, "dryrun")},
+    ]
+    os.makedirs(os.path.join(work, "dryrun"))
+    jobs_path = os.path.join(work, "jobs.json")
+    with open(jobs_path, "w") as f:
+        json.dump(jobs, f)
+    out_dir = os.path.join(work, "records")
+    os.makedirs(out_dir)
+    t_world = time.perf_counter()
+    ranks = launch.start(P21_WORLD, [sys.executable, os.path.join(here, "chip_smoke.py"),
+                                     "--phase21-worker", jobs_path, out_dir],
+                         os.path.join(work, "logs"), cwd=here)
+    # the world-1 runs, in this process, while the world works, with
+    # train-mode BatchNorm in the synced arithmetic over this process alone
+    # (nn.BatchNorm2d's own sums part ResNet-50's first-step gradients from
+    # it by far more than the ranks' summation order does: recorded below).
+    # A bag-sharded run's world-1 run is its dp run's: the mesh changes no
+    # result
+    same_run = {"histo_train_bag": "histo_train_dp2",
+                "histo_train_bag_f32": "histo_train_dp2_f32"}
+    world1 = {}
+    try:
+        for name, (cli, _, c1, _) in runs.items():
+            if c1 is None:
+                continue
+            record: dict = {}
+            reset_counts()
+            t0 = time.perf_counter()
+            with _first_step(record), _synced_statistics():
+                P21_CLIS[cli].main(["--config", c1[1]])
+            torch.cuda.synchronize()
+            world1[name] = {"launches": read_counts(), "record": record, "cfg": c1[0],
+                            "wall_s": time.perf_counter() - t0}
+            print(f"phase 21 {name} at world 1: launches {world1[name]['launches']}, "
+                  f"{world1[name]['wall_s']:.2f} s")
+        # the witnesses: the histo and joint runs with nn.BatchNorm2d's
+        # statistics
+        witness = {}
+        for name, (cli, cfg1, path1) in (
+                ("histo_train_dp2", ("histo_train", *histo_cfg("histo_w1_native"))),
+                ("histo_train_dp2_f32", ("histo_train",
+                                         *histo_cfg("histo_w1_native_f32", **f32))),
+                ("joint_train_dp2", ("joint_train", *joint_cfg("joint_w1_native")))):
+            witness[name] = {}
+            with _first_step(witness[name]):
+                P21_CLIS[cli].main(["--config", path1])
+            witness[name]["final"] = _final_weights(cfg1, cfg1["flag"],
+                                                    witness[name]["grads"])
+    finally:
+        codes = launch.wait(ranks, P21_TIMEOUT_S)
+    world_s = time.perf_counter() - t_world
+    logs = [r.output() for r in ranks]
+    for rank, (code, log) in enumerate(zip(codes, logs)):
+        print(f"--- phase 21 rank {rank} (exit {code}), its last lines:\n"
+              + "\n".join(log.splitlines()[-12:]))
+        if code:
+            raise AssertionError(f"phase 21 rank {rank} exited {code}:\n{log[-6000:]}")
+    records = []
+    for rank in range(P21_WORLD):
+        with open(os.path.join(out_dir, f"rank{rank}.json")) as f:
+            records.append({r["name"]: r for r in json.load(f)})
+    for name, same in same_run.items():
+        world1[name], witness[name] = world1[same], witness[same]
+
+    # (b) each world run: counted on every rank as at world 1, first step and
+    # weights against world 1, frames present and finite. Every check runs;
+    # the phase fails at its end if any did
+    by_cli, checks, failures = {}, {}, []
+    for name, (cli, (cfg, _), _, dtype) in runs.items():
+        want = world1[name]
+        for rank in range(P21_WORLD):
+            rec = records[rank][name]
+            print(f"phase 21 {name} rank {rank}: exit {rec['code']}, launches "
+                  f"{rec['launches']}, {rec['wall_s']:.2f} s")
+            if rec["code"] != 0 or rec["launches"] != want["launches"]:
+                failures.append(f"{name} rank {rank}: exit {rec['code']}, launches "
+                                f"{rec['launches']} (world 1: {want['launches']})")
+            by_cli[f"{name}_rank{rank}"] = {"launches": rec["launches"],
+                                            "wall_s": rec["wall_s"]}
+        if not any(want["launches"][k] for k in ("attention_pool", "dropout_matmul")):
+            failures.append(f"{name}: no kernel of its path launched")
+        if cli == "histo_extractfeatures":
+            diffs = {}
+            for split in ("train", "val", "test"):
+                a = np.loadtxt(os.path.join(cfg["output_path"],
+                                            f"pathology_features_{split}.csv"), delimiter=",")
+                b = np.loadtxt(os.path.join(want["cfg"]["output_path"],
+                                            f"pathology_features_{split}.csv"), delimiter=",")
+                diffs[split] = float(np.abs(a - b).max())
+                if a.shape != b.shape or not np.isfinite(a).all() or \
+                        diffs[split] > SERVE_TOL["bfloat16"] * max(1.0, np.abs(b).max()):
+                    failures.append(f"{name} {split}: features differ from world 1 by "
+                                    f"{diffs[split]}")
+            checks[name] = {"features_max_abs_diff": diffs}
+            print(f"phase 21 {name}: frames vs world 1 max_abs_diff {diffs} [{smi}]")
+            continue
+        got = torch.load(os.path.join(work, f"{name}.grads.pt"))
+        flag = cfg["flag"]
+        got["final"] = _final_weights(cfg, flag, want["record"]["grads"])
+        want["record"]["final"] = _final_weights(want["cfg"], flag, want["record"]["grads"])
+        checks[name] = _p21_compare(name, got, want["record"], dtype, failures,
+                                    witness.get(name))
+        outputs = os.path.join(cfg["checkpoint_path"], "outputs", flag)
+        for split in ("train", "val", "test"):
+            for tag in ("last", "best"):
+                path = os.path.join(outputs, f"{split}_output_{tag}.csv")
+                scores = np.array(_read_csv_column(path, "score"), float)
+                if not (scores.size and np.isfinite(scores).all()):
+                    failures.append(f"{path}: bad scores {scores}")
+
+    # (d) preemption of rank 1 alone: both ranks exit 143 and leave one
+    # .preempt; resumed at world 2 the run ends with the uninterrupted run's
+    # weights; resumed at world 1 it finishes
+    pre = [records[r]["rna_train_preempted"]["code"] for r in range(P21_WORLD)]
+    res = [records[r]["rna_train_resumed_dp2"]["code"] for r in range(P21_WORLD)]
+    saved = os.listdir(os.path.join(preempt["checkpoint_path"], "models", "rna_smoke"))
+    if pre != [PREEMPTED_EXIT_CODE] * P21_WORLD or saved != ["train_state.pt.preempt"] \
+            or res != [0] * P21_WORLD:
+        failures.append(f"preemption: exits {pre}, files {saved}, resumed exits {res}")
+    uninterrupted = _final_weights(runs["rna_train_dp2"][1][0], "rna_smoke",
+                                   world1["rna_train_dp2"]["record"]["grads"])
+    resumed = _final_weights(resume2, "rna_smoke", uninterrupted)
+    differ = sum(int((resumed[k] != v).sum()) for k, v in uninterrupted.items())
+    if differ:
+        failures.append(f"the run resumed at world 2 differs from the uninterrupted run "
+                        f"in {differ} weights")
+    rna_train.main(["--config", resume1_path])
+    _final_weights(resume1, "rna_smoke", uninterrupted)
+    checks["preemption"] = {"exits": pre, "resumed_world2_exits": res,
+                            "resumed_world2_weights_differing": differ,
+                            "resumed_world1": "finished"}
+    print(f"phase 21 preemption: SIGTERM to rank 1 alone -> exits {pre}, files {saved}; "
+          f"resumed at world 2: exits {res}, {differ} weights differ from the "
+          f"uninterrupted run's; resumed at world 1: finished [{smi}]")
+
+    # the TP encoder (checked on rank 0 in the world) and the dry run
+    for name in ("tp_rna_float32", "tp_rna_bfloat16", "dryrun_multichip"):
+        by_cli[name] = {"launches": records[0][name].get("launches"),
+                        "wall_s": records[0][name].get("wall_s")}
+    tp = {}
+    for dtype in ("float32", "bfloat16"):
+        r0 = records[0][f"tp_rna_{dtype}"]
+        tp[dtype] = {k: r0[k] for k in ("loss_rel", "grad_rel", "grad_rel_at", "update_rel",
+                                         "update_rel_max", "update_rel_max_at", "tp_step_s",
+                                         "world1_step_s", "collective_s")}
+        print(f"phase 21 TP RNA encoder ({dtype}) vs world 1: {json.dumps(tp[dtype])}")
+        if not r0["ok"]:
+            failures.append(f"TP RNA encoder ({dtype}) vs world 1: {tp[dtype]}")
+        # the steps after the first (its kernels' first launches)
+        step = float(np.median(r0["tp_step_s"][1:]))
+        coll = float(np.median(r0["collective_s"][1:]))
+        tp[dtype]["collective_share"] = coll / step
+        print(f"phase 21 TP RNA encoder ({dtype}, mp = {P21_WORLD} on one card over gloo): "
+              f"step {step * 1e3:.1f} ms at world 2 vs "
+              f"{float(np.median(r0['world1_step_s'][1:])) * 1e3:.1f} ms at world 1, "
+              f"collectives {coll * 1e3:.1f} ms a step "
+              f"({tp[dtype]['collective_share']:.1%}; through the host, not NVLink) "
+              f"[{smi}]")
+    checks["tp_rna"] = tp
+    checks["dryrun"] = next((line for line in logs[0].splitlines()
+                             if "dryrun_multichip OK" in line), None)
+    if checks["dryrun"] is None:
+        failures.append("the dry run printed no OK line")
+
+    # (c) NCCL: a world of one through the same collective helpers
+    nccl = launch.run(1, [sys.executable, os.path.join(here, "chip_smoke.py"),
+                          "--phase21-nccl"], os.path.join(work, "nccl"), 300, cwd=here)
+    checks["nccl"] = next((line for line in nccl[0][1].splitlines()
+                           if "phase 21 nccl" in line), None)
+    if nccl[0][0] != 0 or "backend nccl" not in nccl[0][1]:
+        failures.append(f"the NCCL world of one failed:\n{nccl[0][1][-3000:]}")
+    if torch.cuda.device_count() < 2:
+        checks["nccl_dp2"] = "not run: one card (NCCL refuses two ranks on one device)"
+    print(checks["nccl"])
+    if failures:
+        raise AssertionError("phase 21 failed:\n" + "\n".join(failures))
+    e2e.update(checks)
+    e2e["world_s"] = world_s
+    e2e["seconds"] = time.perf_counter() - t_phase
+    print(f"phase 21: {e2e['seconds']:.1f} s (the world {world_s:.1f} s)")
+    return by_cli, e2e
+
+
+def main(argv: list[str]) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
               "needs an NVIDIA card", file=sys.stderr)
         return 1
+    # the ranks of phase 21's worlds (the script starts them itself)
+    if argv[:1] == ["--phase21-worker"]:
+        return phase21_worker(argv[1], argv[2])
+    if argv[:1] == ["--phase21-nccl"]:
+        return phase21_nccl()
     device = torch.device("cuda")
     configure_precision()
     smi = _nvidia_smi()
@@ -3952,6 +4761,7 @@ def main() -> int:
         stream_runs, stream = drive_streaming(root, device, smi)
         serve_runs, served = drive_export_serve(root, device, smi)
         p20_runs, p20 = drive_phase20(root, device, smi)
+        p21_runs, p21 = drive_phase21(root, device, smi)
     e2e.update(rna_e2e)
     e2e.update(train_e2e)
     e2e.update(task_e2e)
@@ -3965,9 +4775,10 @@ def main() -> int:
     e2e["phase18_streaming"] = stream
     e2e["phase19_serving"] = served
     e2e["phase20"] = p20
+    e2e["phase21"] = {k: v for k, v in p21.items() if k != "k2_offsets"}
     train_launches.update(task_launches)
     fusion_runs = {**rna_int8["launches"], **early_launches, **joint_launches, **p17_runs,
-                   **stream_runs, **serve_runs, **p20_runs}
+                   **stream_runs, **serve_runs, **p20_runs, **p21_runs}
     train_launches.update(fusion_runs)
     for cli, rec in train_launches.items():
         launches[cli] = rec["launches"]
@@ -4126,6 +4937,23 @@ def main() -> int:
         # the paired form at dense_1's shape: two tensors, one launch
         "pair": k2b_pair,
     }] + [{
+        # K2's forms at a rank's offset in the global mask (phase 21a): the
+        # launches are those of phase 21's worlds, every rank's
+        "name": name,
+        "route": "cuda",
+        "source": k2_source,
+        "replaces": k2_replaces + ("160" if name.startswith("dropout_matmul") else "135"),
+        "launches": sum(rec["launches"][counter] - rec["launches"].get(f"{counter}_bf16", 0)
+                        for cli, rec in p21_runs.items()),
+        **rec21,
+        "tolerance": (0 if name.startswith("seeded") else K2A_TOL if "float32" in name
+                      else "%g of max|plain|" % K2A_BF16_TOL),
+    } for name, rec21 in p21["k2_offsets"].items()
+        for counter in [{"dropout_matmul_offset_float32": "dropout_matmul",
+                         "dropout_matmul_offset_bfloat16": "dropout_matmul_bf16",
+                         "seeded_dropout_pair_offset_float32": "seeded_dropout_pair",
+                         "seeded_dropout_pair_offset_bfloat16": "seeded_dropout_pair_bf16"
+                         }[name]]] + [{
         "name": "fused_bottleneck_stage",
         "route": "cuda",
         "source": "multimodalbrainsurvival_torch/kernels/csrc/fused_stage.cu",
@@ -4167,4 +4995,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

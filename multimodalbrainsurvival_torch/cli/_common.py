@@ -19,6 +19,17 @@ through ``run_train``: a SIGTERM saves the full state to
 ``train_state.pt.preempt`` and the CLI exits with status 143
 (``PREEMPTED_EXIT_CODE``); the same command with ``resume: true``
 continues exactly.
+
+``mesh: {"dp": D, "mp": M, "shard_bag": bool, "distributed": bool}`` runs
+the train CLIs and ``histo_extractfeatures`` data- and bag-parallel over
+``D x M`` processes, one per device, started by ``python -m
+torch.distributed.run --nproc_per_node N -m
+multimodalbrainsurvival_torch.cli.<name> --config cfg.json``
+(``make_device_put``, ``parallel/mesh.py``); the world must be ``D x M``
+processes. Rank 0 alone writes frames, checkpoints and the metric log.
+``distributed: true`` needs a ``flag`` (the JAX rule for multi-host runs);
+without it a mesh run takes rank 0's timestamp flag, so every rank writes
+under one ``save_dir``.
 """
 
 from __future__ import annotations
@@ -50,6 +61,12 @@ from multimodalbrainsurvival_torch.models.quantize import (
     quantize_mil_resnet,
     quantize_rna_encoder,
     quantize_trunk_for_training,
+)
+from multimodalbrainsurvival_torch.parallel.mesh import (
+    BatchPut,
+    batch_device_put,
+    initialize_from_env,
+    make_mesh,
 )
 from multimodalbrainsurvival_torch.train import TrainingPreempted
 from multimodalbrainsurvival_torch.train.adapters import (
@@ -91,9 +108,10 @@ def make_parser(description: str, device: bool = True) -> argparse.ArgumentParse
     return p
 
 
-def load_config(args) -> tuple[Config, str]:
+def load_config(args, mesh_ported: bool = True) -> tuple[Config, str]:
     """Returns (config, flag); the flag defaults to a timestamp, as in the
-    reference."""
+    reference. ``mesh_ported=False``: the entry point raises under a mesh
+    over more than one device (ROADMAP.md, queue 1, item 7b)."""
     config = Config.from_json(args.config)
     unknown = config.unknown_keys()
     if unknown:
@@ -101,11 +119,38 @@ def load_config(args) -> tuple[Config, str]:
     ignored = config.ignored_keys()
     if ignored:
         print(f"config: ignoring keys with no meaning in the port: {', '.join(ignored)}")
-    config.check_ported()
+    config.check_ported(mesh_ported)
+    if (config.get("mesh") or {}).get("distributed") and not config.get("flag"):
+        raise SystemExit("distributed runs need an explicit 'flag' in the config "
+                         "(the timestamp fallback differs across hosts)")
     flag = config.get("flag", "") or "train_{date:%Y-%m-%d_%H:%M:%S}".format(
         date=datetime.datetime.now()
     )
     return config, flag
+
+
+def make_device_put(config: Config, device: torch.device, flag: str
+                    ) -> tuple[BatchPut | None, torch.device, str]:
+    """``(put, device, flag)`` of the config's ``mesh`` (JAX
+    ``cli/_common.py:267-302``): the process group joined from the
+    launcher's variables, the ``dp x mp`` mesh over it (raising, with the
+    launcher command, where the world has another size), the rank's device
+    and, for a run without ``distributed``, rank 0's flag. Without a mesh,
+    or for a mesh of one device, ``(None, device, flag)``."""
+    spec = config.get("mesh") or {}
+    if not spec:
+        return None, device, flag
+    initialize_from_env(device)
+    mesh = make_mesh(int(spec.get("dp", 0)) or None, int(spec.get("mp", 1)), device=device)
+    put = batch_device_put(mesh, shard_bag=bool(spec.get("shard_bag", False)))
+    if put is None:
+        return None, device, flag
+    if not spec.get("distributed"):
+        flag = mesh.broadcast_object(flag)
+    print(f"rank {mesh.rank}: mesh {mesh.shape}"
+          + (" with the bag sharded over mp" if put.shard_bag else "")
+          + f" over {mesh.backend}, on {mesh.device}", flush=True)
+    return put, mesh.device, flag
 
 
 def experiment_dirs(config: Config, flag: str) -> tuple[str, str]:
@@ -118,12 +163,13 @@ def experiment_dirs(config: Config, flag: str) -> tuple[str, str]:
     return save_dir, output_dir
 
 
-def make_writer(log: bool, config: Config, flag: str) -> MetricWriter | None:
+def make_writer(log: bool, config: Config, flag: str,
+                put: BatchPut | None = None) -> MetricWriter | None:
     """A ``MetricWriter`` on ``<summary_path>/<date>_<flag>/`` that has
-    logged the config, or None without ``--log`` (the JAX ``make_writer``;
-    ``summary_path`` defaults to ``<checkpoint_path>/summary`` as at the
-    JAX ``cli/_common.py:106``)."""
-    if not log:
+    logged the config, or None without ``--log`` or on a rank other than 0
+    of a mesh run (the JAX ``make_writer``; ``summary_path`` defaults to
+    ``<checkpoint_path>/summary`` as at the JAX ``cli/_common.py:106``)."""
+    if not log or (put is not None and put.mesh.rank != 0):
         return None
     checkpoint_path = config.get("checkpoint_path", "checkpoints/")
     summary = config.get("summary_path", os.path.join(checkpoint_path, "summary"))

@@ -196,7 +196,7 @@ def main(argv=None):
     args = parser.parse_args(argv)
     resolve_device(args.device)
     train_main, savescore_main = task_mains(args.task)
-    config, flag = load_config(args)
+    config, flag = load_config(args, mesh_ported=False)
     checkpoint_path = config.get("checkpoint_path", "checkpoints/")
     k = int(config.get("cv_folds", 0) or args.folds)
 

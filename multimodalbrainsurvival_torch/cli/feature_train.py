@@ -29,6 +29,7 @@ from multimodalbrainsurvival_torch.cli._common import (
     early_stop_kwargs,
     experiment_dirs,
     load_config,
+    make_device_put,
     make_parser,
     make_writer,
     maybe_restore,
@@ -63,6 +64,7 @@ def main(argv=None):
     args = make_parser(__doc__).parse_args(argv)
     device = resolve_device(args.device)
     config, flag = load_config(args)
+    put, device, flag = make_device_put(config, device, flag)
     save_dir, output_dir = experiment_dirs(config, flag)
 
     datasets = build_feature_datasets(config)
@@ -90,6 +92,8 @@ def main(argv=None):
         running_loss_weight="events" if config.reference_parity else "samples",
         **early_stop_kwargs(config),
         **observability_kwargs(config, save_dir),
+        device_put_fn=put,
+        preempt_sync_every=int(config.get("preempt_sync_every", 8)),
     )
     optimizer = tune_optimizer(
         build_grouped_optimizer(model, [("all", "", float(config["lr"]))],
@@ -97,7 +101,7 @@ def main(argv=None):
         config, len(datasets["train"]),
         num_epochs=settings.num_epochs, batch_size=settings.batch_size,
     )
-    writer = make_writer(args.log, config, flag)
+    writer = make_writer(args.log, config, flag, put)
     try:
         run_train(train_model, adapter, datasets, optimizer, settings, writer=writer)
     finally:

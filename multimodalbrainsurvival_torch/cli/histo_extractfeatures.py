@@ -5,6 +5,12 @@ CLI ``multimodalbrainsurvival_tpu/cli/histo_extractfeatures.py``: runs the
 bag embedding (``model.extract``) over every split, takes the per-case mean
 and writes ``pathology_cases_<split>.csv`` + ``pathology_features_<split>.csv``
 into ``output_path``. The model runs in its ``compute_dtype``.
+
+Under ``mesh: {"dp": D}`` (``python -m torch.distributed.run
+--nproc_per_node D -m multimodalbrainsurvival_torch.cli.histo_extractfeatures
+--config cfg.json``) each rank embeds its rows of every batch (its
+patches, with ``shard_bag``), the embeddings are gathered in rank order,
+and rank 0 writes the frames, equal to a world-of-one run's.
 """
 
 from __future__ import annotations
@@ -18,21 +24,27 @@ from multimodalbrainsurvival_torch.cli._common import (
     build_datasets,
     extract_features_frames,
     load_config,
+    make_device_put,
     make_parser,
     serving_adapter,
 )
 from multimodalbrainsurvival_torch.device import resolve_device
 from multimodalbrainsurvival_torch.frames import write_frame
+from multimodalbrainsurvival_torch.parallel import mesh as parallel
+from multimodalbrainsurvival_torch.parallel.mesh import BatchPut, host_to_global
 from multimodalbrainsurvival_torch.train.adapters import MILAdapter
 
 
-def extract_split(adapter: MILAdapter, dataset, batch_size: int):
+def extract_split(adapter: MILAdapter, dataset, batch_size: int, put: BatchPut | None = None):
     """(cases, (N, D) features) of the real samples of a split. The device
     results stay on the device until the split ends: one copy back, so the
-    host reads the next batch while the card works."""
+    host reads the next batch while the card works. Under ``put`` each rank
+    embeds its part of a batch and the embeddings are gathered."""
     feats, masks, cases = [], [], []
     for batch in dataset.batches(batch_size, **adapter.loader_kwargs):
-        feats.append(adapter.extract(adapter.to_device(batch, adapter.array_keys)))
+        with parallel.activate(put):
+            arrays = adapter.to_device(host_to_global(batch, put), adapter.array_keys)
+            feats.append(parallel.gather_rows(adapter.extract(arrays)))
         mask = np.asarray(batch[adapter.sample_mask_key])
         masks.append(mask)
         cases.extend(c for c, m in zip(batch["case"], mask) if m)
@@ -46,6 +58,7 @@ def main(argv=None):
     args = make_parser(__doc__).parse_args(argv)
     device = resolve_device(args.device)
     config, flag = load_config(args)
+    put, device, flag = make_device_put(config, device, flag)
     output_path = config.get("output_path", "")
     os.makedirs(output_path or ".", exist_ok=True)
 
@@ -54,7 +67,9 @@ def main(argv=None):
     suffix = f"_{flag}" if "cv" in flag else ""
     for split, ds in datasets.items():
         print(f"extracting features for dataset : {split}")
-        cases, feats = extract_split(adapter, ds, config.batch_size)
+        cases, feats = extract_split(adapter, ds, config.batch_size, put)
+        if put is not None and put.mesh.rank != 0:
+            continue
         uc, uf = extract_features_frames(cases, feats)
         write_frame(os.path.join(output_path, f"pathology_cases_{split}{suffix}.csv"),
                     {"0": uc})

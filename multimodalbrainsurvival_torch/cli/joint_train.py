@@ -44,6 +44,7 @@ from multimodalbrainsurvival_torch.cli._common import (
     early_stop_kwargs,
     experiment_dirs,
     load_config,
+    make_device_put,
     make_parser,
     make_writer,
     maybe_restore,
@@ -116,6 +117,7 @@ def main(argv=None):
     args = make_parser(__doc__).parse_args(argv)
     device = resolve_device(args.device)
     config, flag = load_config(args)
+    put, device, flag = make_device_put(config, device, flag)
     save_dir, output_dir = experiment_dirs(config, flag)
 
     datasets = cache_datasets(config, build_joint_datasets(config, bool(args.quick)),
@@ -146,6 +148,8 @@ def main(argv=None):
         accumulate_steps=int(config.get("accumulate_steps", 1)),
         **early_stop_kwargs(config),
         **observability_kwargs(config, save_dir),
+        device_put_fn=put,
+        preempt_sync_every=int(config.get("preempt_sync_every", 8)),
     )
     adapter = quantize_trunk_training(config, adapter, datasets, settings.batch_size,
                                       args.seed)
@@ -153,7 +157,7 @@ def main(argv=None):
         build_joint_optimizer(model, config), config, len(datasets["train"]),
         num_epochs=settings.num_epochs, batch_size=settings.batch_size,
     )
-    writer = make_writer(args.log, config, flag)
+    writer = make_writer(args.log, config, flag, put)
     try:
         run_train(train_model, adapter, datasets, optimizer, settings, writer=writer)
     finally:

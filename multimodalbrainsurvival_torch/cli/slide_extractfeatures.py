@@ -284,7 +284,7 @@ def frame_of_rows(rows: list[dict]) -> dict:
 def main(argv=None):
     args = make_parser(__doc__).parse_args(argv)
     device = resolve_device(args.device)
-    config, flag = load_config(args)
+    config, flag = load_config(args, mesh_ported=False)
     output_path = config.get("output_path", "")
     os.makedirs(output_path or ".", exist_ok=True)
 

@@ -60,7 +60,7 @@ def make_joint_tail(model: torch.nn.Module):
 def main(argv=None):
     args = make_parser(__doc__).parse_args(argv)
     device = resolve_device(args.device)
-    config, flag = load_config(args)
+    config, flag = load_config(args, mesh_ported=False)
     output_path = config.get("output_path", "")
     os.makedirs(output_path or ".", exist_ok=True)
 

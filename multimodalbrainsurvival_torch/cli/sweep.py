@@ -183,7 +183,7 @@ def main(argv=None):
         raise SystemExit("--halving must be 0 (off) or an eta >= 2")
     resolve_device(args.device)
     train_main, _ = task_mains(args.task)
-    config, flag = load_config(args)
+    config, flag = load_config(args, mesh_ported=False)
     checkpoint_path = config.get("checkpoint_path", "checkpoints/")
     if config.get("sweep_grid"):
         grid = _normalize_grid(config["sweep_grid"], "config sweep_grid")

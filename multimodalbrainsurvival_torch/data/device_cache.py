@@ -26,9 +26,10 @@ bags are a gather on the card driven by a small int32 upload:
 ``maybe_cache_datasets`` applies one budget to all splits together
 (``cache_max_bytes_per_device``, 12 GiB by default): all of them if they
 fit, else only ``train`` if it fits, else the host loader, with the JAX
-package's messages. A mesh-sharded cache waits for the port's data
-parallelism (ROADMAP.md, queue 1, item 7; ``Config.check_ported`` refuses
-a ``mesh``).
+package's messages. The mesh-sharded cache (JAX ``:126-505``) is not
+ported yet: under a ``mesh`` over more than one device
+``Config.check_ported`` refuses ``cache_patches_on_device`` (ROADMAP.md,
+queue 1, item 7b).
 """
 
 from __future__ import annotations

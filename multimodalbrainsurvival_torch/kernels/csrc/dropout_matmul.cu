@@ -20,7 +20,14 @@
 // float32(1 / (1 - p)). It is a copy of `_mask_block` (:52-71) and one
 // device function, `keep`, serves both kernels, so the forward's mask and
 // the mask the backward regenerates cannot drift apart. Columns alias at
-// K > 65536; the wrapper refuses such widths.
+// col0 + K > 65536; the wrapper refuses such widths.
+//
+// Every entry takes (row0, col0), the tensor's offset in a larger mask:
+// the hash is of (row0 + row, col0 + col), so a rank that holds rows
+// [row0, row0 + M) of a data-parallel batch, or hidden columns [col0,
+// col0 + K) of a tensor-parallel layer, draws the part of the mask that
+// the unsharded call draws there. The offset enters as one add per index,
+// (row0 * 65536 + col0) mod 2^32 precomputed in the Mask.
 //
 // What bounds it on this card: at the RNA encoder's first layer (M = 256,
 // K = 12,778, N = 4,096) the product is 26.8 GFLOP against 227 MB of
@@ -101,16 +108,22 @@ struct Mask {
   uint32_t threshold;  // keep iff hash >= threshold
   float scale;         // float32(1 / (1 - p))
   int on;              // 0: plain product, no mask (p == 0)
+  uint32_t offset;     // row0 * 65536 + col0 (mod 2^32)
 };
 
-__device__ __forceinline__ bool keep(uint32_t row, uint32_t col, const Mask& mask) {
-  uint32_t h = (row * 65536u + col) ^ mask.seed_mix;
+// The hash of key = (row0 + row) * 65536 + col0 + col (mod 2^32).
+__device__ __forceinline__ bool keep_key(uint32_t key, const Mask& mask) {
+  uint32_t h = key ^ mask.seed_mix;
   h ^= h >> 16;
   h *= 0x85EBCA6Bu;
   h ^= h >> 13;
   h *= 0xC2B2AE35u;
   h ^= h >> 16;
   return h >= mask.threshold;
+}
+
+__device__ __forceinline__ bool keep(uint32_t row, uint32_t col, const Mask& mask) {
+  return keep_key(row * 65536u + mask.offset + col, mask);
 }
 
 // A kept value: v * scale in float32, rounded once to T (bf16: round to
@@ -245,6 +258,8 @@ __global__ void __launch_bounds__(K2B_THREADS)
   const int step = K2B_THREADS * gridDim.x;
   for (int row = blockIdx.y; row < M; row += gridDim.y) {
     const size_t base = static_cast<size_t>(row) * K;
+    // the row's key: each value's is key + its column
+    const uint32_t key = static_cast<uint32_t>(row) * 65536u + mask.offset;
     const int misaligned = static_cast<int>(
         (reinterpret_cast<uintptr_t>(a + base) / sizeof(T)) & (V - 1));
     const int head = min((V - misaligned) & (V - 1), K);
@@ -271,7 +286,7 @@ __global__ void __launch_bounds__(K2B_THREADS)
           const uint32_t col = head + p * V;
 #pragma unroll
           for (int e = 0; e < V; ++e) {
-            const bool kept = keep(row, col + e, mask);
+            const bool kept = keep_key(key + col + e, mask);
             va[j].f[e] = kept ? scaled(va[j].f[e], mask.scale) : zero<T>();
             if (PAIR) vb[j].f[e] = kept ? scaled(vb[j].f[e], mask.scale) : zero<T>();
           }
@@ -288,7 +303,7 @@ __global__ void __launch_bounds__(K2B_THREADS)
       const int col = t < head ? t
                       : (t >= 32 && t - 32 < tail) ? head + pieces * V + t - 32 : -1;
       if (col >= 0) {
-        const bool kept = keep(row, col, mask);
+        const bool kept = keep_key(key + col, mask);
         out_a[base + col] = kept ? scaled(a[base + col], mask.scale) : zero<T>();
         if (PAIR) out_b[base + col] = kept ? scaled(b[base + col], mask.scale) : zero<T>();
       }
@@ -367,16 +382,18 @@ int seeded_dropout_launch(const T* a, const T* b, T* out_a, T* out_b, int M, int
   return static_cast<int>(err);
 }
 
-Mask make_mask(uint32_t seed, uint32_t threshold, float scale, int on) {
-  return Mask{seed * 0x9E3779B1u, threshold, scale, on};
+Mask make_mask(uint32_t seed, uint32_t threshold, float scale, int on, uint32_t row0,
+               uint32_t col0) {
+  return Mask{seed * 0x9E3779B1u, threshold, scale, on, row0 * 65536u + col0};
 }
 
 template <typename T>
 int dropout_matmul_launch(const T* x, const T* w, float* out, int M, int N, int K,
                           uint32_t seed, uint32_t threshold, float scale,
-                          int apply_mask, void* stream) {
+                          int apply_mask, uint32_t row0, uint32_t col0, void* stream) {
   const splitk::Problem p{x, w, M, N, K, 0, 0};
-  const Dropout::Params ep{out, make_mask(seed, threshold, scale, apply_mask)};
+  const Dropout::Params ep{out,
+                           make_mask(seed, threshold, scale, apply_mask, row0, col0)};
   return static_cast<int>(splitk::launch<T, Dropout>(
       p, ep, static_cast<cudaStream_t>(stream)));
 }
@@ -385,55 +402,63 @@ int dropout_matmul_launch(const T* x, const T* w, float* out, int M, int N, int 
 
 extern "C" {
 
+// Every entry masks with the part of a larger mask at (row0, col0): rows
+// [row0, row0 + M) and columns [col0, col0 + K) of it.
+
 // out (M, N) = dropout(x (M, K)) @ w (N, K)^T, x and w float32 row-major on
 // the device, out float32 and 16-byte aligned.
 int dropout_matmul_f32(const float* x, const float* w, float* out, int M, int N,
                        int K, uint32_t seed, uint32_t threshold, float scale,
-                       int apply_mask, void* stream) {
+                       int apply_mask, uint32_t row0, uint32_t col0, void* stream) {
   return dropout_matmul_launch(x, w, out, M, N, K, seed, threshold, scale,
-                               apply_mask, stream);
+                               apply_mask, row0, col0, stream);
 }
 
 // The same with x and w bf16 (rows and bases 4-byte aligned: K even), the
 // products on the bf16 tensor cores, float32 sums and output.
 int dropout_matmul_bf16(const __nv_bfloat16* x, const __nv_bfloat16* w, float* out,
                         int M, int N, int K, uint32_t seed, uint32_t threshold,
-                        float scale, int apply_mask, void* stream) {
+                        float scale, int apply_mask, uint32_t row0, uint32_t col0,
+                        void* stream) {
   return dropout_matmul_launch(x, w, out, M, N, K, seed, threshold, scale,
-                               apply_mask, stream);
+                               apply_mask, row0, col0, stream);
 }
 
 // out (M, K) = dropout(x (M, K)), float32 row-major on the device.
 int seeded_dropout_f32(const float* x, float* out, int M, int K, uint32_t seed,
-                       uint32_t threshold, float scale, void* stream) {
-  return seeded_dropout_launch<float, false>(x, nullptr, out, nullptr, M, K,
-                                             make_mask(seed, threshold, scale, 1),
-                                             stream);
+                       uint32_t threshold, float scale, uint32_t row0, uint32_t col0,
+                       void* stream) {
+  return seeded_dropout_launch<float, false>(
+      x, nullptr, out, nullptr, M, K, make_mask(seed, threshold, scale, 1, row0, col0),
+      stream);
 }
 
 // out_a = dropout(a), out_b = dropout(b) with one mask, all (M, K) float32
 // row-major on the device; each mask value hashed once.
 int seeded_dropout_pair_f32(const float* a, const float* b, float* out_a, float* out_b,
                             int M, int K, uint32_t seed, uint32_t threshold,
-                            float scale, void* stream) {
-  return seeded_dropout_launch<float, true>(a, b, out_a, out_b, M, K,
-                                            make_mask(seed, threshold, scale, 1),
-                                            stream);
+                            float scale, uint32_t row0, uint32_t col0, void* stream) {
+  return seeded_dropout_launch<float, true>(
+      a, b, out_a, out_b, M, K, make_mask(seed, threshold, scale, 1, row0, col0),
+      stream);
 }
 
 // The bf16 forms of the two: kept values scaled in float32 and rounded once.
 int seeded_dropout_bf16(const __nv_bfloat16* x, __nv_bfloat16* out, int M, int K,
-                        uint32_t seed, uint32_t threshold, float scale, void* stream) {
+                        uint32_t seed, uint32_t threshold, float scale, uint32_t row0,
+                        uint32_t col0, void* stream) {
   return seeded_dropout_launch<__nv_bfloat16, false>(
-      x, nullptr, out, nullptr, M, K, make_mask(seed, threshold, scale, 1), stream);
+      x, nullptr, out, nullptr, M, K, make_mask(seed, threshold, scale, 1, row0, col0),
+      stream);
 }
 
 int seeded_dropout_pair_bf16(const __nv_bfloat16* a, const __nv_bfloat16* b,
                              __nv_bfloat16* out_a, __nv_bfloat16* out_b, int M, int K,
                              uint32_t seed, uint32_t threshold, float scale,
-                             void* stream) {
+                             uint32_t row0, uint32_t col0, void* stream) {
   return seeded_dropout_launch<__nv_bfloat16, true>(
-      a, b, out_a, out_b, M, K, make_mask(seed, threshold, scale, 1), stream);
+      a, b, out_a, out_b, M, K, make_mask(seed, threshold, scale, 1, row0, col0),
+      stream);
 }
 
 }  // extern "C"

@@ -10,7 +10,9 @@ the per-patch features and leave the masked mean to the model; the pooled
 result is the same (``masked_bag_mean`` of the rescaled features), and here
 the attention pool is the fused kernel ``kernels/attention_pool.py``. In
 train mode an aggregator draws its dropout from the ``generator`` it is
-given (the train loop's); the others take it and draw nothing.
+given (the train loop's); the others take it and draw nothing. Under a
+bag-sharded placement an aggregator sees the whole bag (the models gather
+it, ``models/mil.py``).
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ from torch import nn
 from multimodalbrainsurvival_torch.kernels import ops
 from multimodalbrainsurvival_torch.kernels.attention_pool import pool
 from multimodalbrainsurvival_torch.models.mil import masked_bag_mean
+from multimodalbrainsurvival_torch.parallel import mesh as parallel
 
 
 class IdentityAggregator(nn.Module):
@@ -97,8 +100,10 @@ def _linear(x, layer: nn.Linear, dtype: torch.dtype):
 
 def _dropout(x, rate: float, generator):
     """flax ``nn.Dropout`` on all of ``x``: kept values scaled by
-    ``1 / (1 - rate)``, the mask drawn from ``generator``."""
-    keep = torch.rand(x.shape, generator=generator, device=x.device) < 1.0 - rate
+    ``1 / (1 - rate)``, the mask drawn from ``generator`` (for the global
+    batch under data parallelism, this rank's rows kept)."""
+    keep = parallel.draw_rows(x.shape, lambda shape: torch.rand(
+        shape, generator=generator, device=x.device)) < 1.0 - rate
     return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
 
 

@@ -26,6 +26,9 @@ seed per call. The early-fusion MLP draws it from the caller's
 the joint models take it as ``seed`` (the joint adapter draws it before
 the step queues any work) and give the RNA encoder ``base`` and ``base +
 1`` and the head ``base + 2``. In eval mode each Linear is ``F.linear``.
+Under data parallelism each mask is taken at the rank's first row of the
+global batch, and a joint model's RNA encoder sharded by
+``parallel/sharding.py`` runs tensor-parallel (``dropout_linears``).
 """
 
 from __future__ import annotations
@@ -37,6 +40,7 @@ from torch import nn
 
 from multimodalbrainsurvival_torch.models.mil import bag_patch_features, masked_bag_mean
 from multimodalbrainsurvival_torch.models.rna import RNAEncoder, draw_seed, dropout_linears
+from multimodalbrainsurvival_torch.parallel import mesh as parallel
 
 #: the RNA encoder's layers take seeds base and base + 1, the head base + 2
 _HEAD_SEED = 2
@@ -98,7 +102,9 @@ class BagHistopathologyRNAModel(_JointHead):
                                mask: torch.Tensor | None = None) -> torch.Tensor:
         """Both encoders run elsewhere (the int8 serving path): pool the
         (B, bag, D) features over the real patches and put the (B, 2048)
-        RNA embedding beside them → (B, 4096)."""
+        RNA embedding beside them → (B, 4096). A bag-sharded batch's
+        features and mask are gathered over ``mp`` first."""
+        feats, mask = parallel.gather_bag(feats, mask)
         return torch.cat([masked_bag_mean(feats, mask), rna_feats.float()], dim=1)
 
     def from_all_feats(self, feats, rna_feats, mask=None, seed=None):

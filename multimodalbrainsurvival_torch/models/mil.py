@@ -10,6 +10,14 @@ The port's aggregators return the pooled ``(B, D)`` embedding themselves
 that never materializes the rescaled per-patch features. A folded
 Bottleneck encoder (``fold_bn: true`` serving) runs through
 ``models/serving.py::fused_folded_extract`` and its fused-stage kernel.
+
+Under a bag-sharded placement (``mesh: {"shard_bag": true}``,
+``parallel/mesh.py``) each rank encodes its ``bag / mp`` patches; the
+models all-gather the per-patch features and the mask over ``mp`` before
+the aggregator (``parallel.gather_bag``, the gradient carried back to the
+local patches), so the pool (K1) and ``masked_bag_mean`` run on the whole
+bag: the all-gather + all-reduce pattern of the JAX package's GSPMD
+lowering (``parallel/sharding.py:9-17`` there).
 """
 
 from __future__ import annotations
@@ -21,6 +29,7 @@ from multimodalbrainsurvival_torch.models.serving import (
     fused_folded_extract,
     takes_fused_stages,
 )
+from multimodalbrainsurvival_torch.parallel import mesh as parallel
 
 
 def masked_bag_mean(x: torch.Tensor, mask: torch.Tensor | None) -> torch.Tensor:
@@ -65,6 +74,7 @@ class AggregationModel(nn.Module):
 
     def extract_from_feats(self, feats, mask=None, generator=None):
         """``generator``: the aggregator's dropout draws in train mode."""
+        feats, mask = parallel.gather_bag(feats, mask)
         return self.aggregator(feats, mask, generator=generator)
 
     def from_feats(self, feats, mask=None, generator=None):
@@ -87,5 +97,5 @@ class AggregationProjectModel(AggregationModel):
         self.fc = nn.Linear(hdim, out_features)
 
     def extract_from_feats(self, feats, mask=None, generator=None):
-        pooled, attention = self.aggregator(feats, mask, generator=generator)
+        pooled, attention = super().extract_from_feats(feats, mask, generator)
         return torch.tanh(self.project(pooled)), attention

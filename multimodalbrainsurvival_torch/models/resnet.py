@@ -13,8 +13,9 @@ kernel is zero padding at every size, even or odd).
 
 BatchNorm is torch's own (eps 1e-5, momentum 0.1): batch statistics in
 train mode, running statistics in eval mode, as the JAX package's
-``TorchBatchNorm`` (``models/resnet.py:50-115``). Two training keys of the
-JAX package:
+``TorchBatchNorm`` (``models/resnet.py:50-115``); under data or bag
+parallelism its train-mode statistics span the global batch
+(``SyncedBatchNorm2d``). Two training keys of the JAX package:
 
 - ``freeze_bn``: every BatchNorm normalizes with its running statistics in
   train mode too, and never updates them (``FrozenStatsBatchNorm2d``; the
@@ -50,6 +51,8 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from multimodalbrainsurvival_torch.parallel import mesh as parallel
+
 BN_EPS = 1e-5
 
 
@@ -63,10 +66,51 @@ class FrozenStatsBatchNorm2d(nn.BatchNorm2d):
                             self.bias, False, 0.0, self.eps)
 
 
+class SyncedBatchNorm2d(nn.BatchNorm2d):
+    """``nn.BatchNorm2d`` (its ``state_dict`` too) whose train-mode
+    statistics span the ranks that hold distinct patches under a data- or
+    bag-parallel placement (``parallel.bn_group()``: ``dp``, or the whole
+    world with ``shard_bag``), as the JAX ``TorchBatchNorm`` takes them over
+    the logically global batch. One implementation on the CPU and the card
+    (``torch.nn.SyncBatchNorm`` refuses CPU tensors): per-channel sums,
+    then sums of squared deviations, each all-reduced (float32, two passes);
+    the biased variance normalizes and the unbiased one, with the global
+    count, goes into ``running_var``. The backward all-reduces the same
+    sums' gradients (``parallel.sum_partials``), and ``remat``'s
+    recomputation issues the same collectives on every rank. Without a
+    group, and in eval mode, it is ``nn.BatchNorm2d``.
+    ``synced_forward(x, None)`` is the synced arithmetic in a world of one
+    (the reference a multi-rank run is held against)."""
+
+    def forward(self, x):
+        group = parallel.bn_group() if self.training else None
+        if group is None:
+            return super().forward(x)
+        return self.synced_forward(x, group)
+
+    def synced_forward(self, x, group):
+        """Train-mode statistics over ``group`` (this process alone at
+        None), in the synced arithmetic."""
+        x32 = x.float()
+        n_local = x32.numel() // x32.shape[1]
+        n = n_local * parallel.group_size(group)
+        shape = (1, -1, 1, 1)
+        mean = parallel.sum_partials(x32.sum((0, 2, 3)), group) / n
+        centred = x32 - mean.view(shape)
+        var = parallel.sum_partials((centred * centred).sum((0, 2, 3)), group) / n
+        with torch.no_grad():
+            m = self.momentum
+            self.running_mean.mul_(1 - m).add_(mean.detach(), alpha=m)
+            self.running_var.mul_(1 - m).add_(var.detach() * (n / max(n - 1, 1)), alpha=m)
+            self.num_batches_tracked.add_(1)
+        y = centred * torch.rsqrt(var + self.eps).view(shape)
+        return (y * self.weight.view(shape) + self.bias.view(shape)).to(x.dtype)
+
+
 def _norm(fold_bn: bool, channels: int, freeze_bn: bool = False) -> nn.Module:
     if fold_bn:
         return nn.Identity()
-    cls = FrozenStatsBatchNorm2d if freeze_bn else nn.BatchNorm2d
+    cls = FrozenStatsBatchNorm2d if freeze_bn else SyncedBatchNorm2d
     return cls(channels, eps=BN_EPS)
 
 

@@ -31,6 +31,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from multimodalbrainsurvival_torch.kernels.dropout_matmul import DropoutMatmul
+from multimodalbrainsurvival_torch.parallel import mesh as parallel
 
 #: the reference's gene count (``1_GeneExpress_train.py:247``)
 RNA_GENES = 12778
@@ -51,23 +52,52 @@ def dropout_linears(layers: nn.Sequential, y: torch.Tensor, training: bool,
     + i`` for the i-th Linear (distinct seeds: equal seeds would give equal
     masks on the columns the layers share), its float32 product rounded to
     ``dtype`` and the bias added in ``dtype``; in eval mode ``F.linear`` in
-    ``dtype``. The operands are cast to ``dtype`` (bf16 or float32)."""
+    ``dtype``. The operands are cast to ``dtype`` (bf16 or float32).
+
+    Under a data-parallel placement (``parallel.activate``) ``y`` is the
+    rank's rows of the global batch, and each mask is taken at the rank's
+    first row (``row0``). A stack sharded by ``parallel/sharding.py``
+    (``layers.tp``, a mesh) runs tensor-parallel over its ``mp`` group:
+    even Linears on their local output rows, odd ones on their local input
+    columns with the mask at ``col0 = mp_rank · K``, their partial products
+    summed over ``mp`` before the bias; an odd depth gathers the last
+    activation's columns."""
     y = y.to(dtype)
+    tp = getattr(layers, "tp", None)
+    row0 = parallel.row_offset(y.shape[0])
     p, layer = 0.0, 0
     for m in layers:
         if isinstance(m, nn.Dropout):
             p = m.p
         elif isinstance(m, nn.Linear):
             w, b = m.weight.to(dtype), m.bias.to(dtype)
-            if training:
-                y = DropoutMatmul.apply(y.contiguous(), w.contiguous(), base + layer,
-                                        p).to(dtype) + b
-            else:
-                y = F.linear(y, w, b)
+            if tp is None:
+                if training:
+                    y = DropoutMatmul.apply(y.contiguous(), w.contiguous(), base + layer, p,
+                                            row0).to(dtype) + b
+                else:
+                    y = F.linear(y, w, b)
+            elif layer % 2 == 0:  # column-parallel: y whole, w's local output rows
+                y = parallel.copy_to(y, tp.mp_group)
+                y = _product(y, w, training, base, layer, p, row0, 0).to(dtype) + b
+            else:  # row-parallel: y's and w's local hidden columns
+                part = _product(y, w, training, base, layer, p, row0,
+                                tp.mp_rank * y.shape[1])
+                y = parallel.reduce_from(part, tp.mp_group).to(dtype) + b
             p, layer = 0.0, layer + 1
         else:
             y = m(y)
+    if tp is not None and layer % 2:
+        y = parallel.gather(y, tp.mp_group, 1)
     return y
+
+
+def _product(y, w, training: bool, base, layer: int, p: float, row0: int, col0: int):
+    """A sharded layer's float32 product (K2a in train mode)."""
+    if training:
+        return DropoutMatmul.apply(y.contiguous(), w.contiguous(), base + layer, p, row0,
+                                   col0)
+    return F.linear(y, w).float()
 
 
 class RNAEncoder(nn.Sequential):

@@ -9,11 +9,20 @@ number of events) under ``reference_parity=False``.
 
 Padded rows (``mask`` False) get sort key ``+inf`` on ``-time``, so a stable
 ascending sort places them last and they never enter a real row's risk set.
+
+Under data parallelism (``group``: the mesh's ``dp`` group) the risk set is
+the global batch's, as the JAX loss's is under a ``dp`` mesh
+(``ops/cox.py:27-32`` there): ``(score, time, event, mask)`` are
+all-gathered over the group in rank order, the gather carrying the score's
+gradient back to the local rows, and every rank computes the same global
+loss.
 """
 
 from __future__ import annotations
 
 import torch
+
+from multimodalbrainsurvival_torch.parallel.mesh import gather
 
 
 def cox_partial_likelihood_loss(
@@ -24,12 +33,17 @@ def cox_partial_likelihood_loss(
     *,
     reference_parity: bool = True,
     eps: float = 1e-5,
+    group=None,
 ) -> torch.Tensor:
     """Negative Cox partial log-likelihood of a batch of risk scores.
 
     ``scores``, ``times``, ``events`` and the optional validity ``mask`` are
-    ``(B,)``; returns a float32 scalar.
+    ``(B,)`` (a rank's rows of the global batch with a ``group``); returns
+    a float32 scalar.
     """
+    if group is not None:
+        scores, times, events = (gather(t.reshape(-1), group) for t in (scores, times, events))
+        mask = None if mask is None else gather(mask.reshape(-1), group)
     scores = scores.reshape(-1).float()
     times = times.reshape(-1).float()
     events = events.reshape(-1).float()

@@ -133,20 +133,25 @@ def batched_color_jitter(imgs: torch.Tensor, generator: torch.Generator) -> torc
 def preprocess_patches(
     images_uint8: torch.Tensor, *, dtype: torch.dtype = torch.float32,
     train: bool = False, generator: torch.Generator | None = None,
+    draws: dict | None = None,
 ) -> torch.Tensor:
     """uint8 (N, H, W, 3) → normalized (N, 3, H, W) in ``channels_last``.
 
     The whole chain runs in ``dtype`` as in the JAX package, so a bfloat16
     model rounds its inputs where the JAX package's bfloat16 model does.
-    ``train=True`` adds the per-image flips and colour jitter, drawn from
-    ``generator`` (required then).
+    ``train=True`` adds the per-image flips and colour jitter: ``draws``
+    where given (``jitter_draws``' of the N images; a data-parallel rank's
+    part of the global batch's draws), else drawn from ``generator``.
     """
     x = images_uint8.to(dtype) / torch.tensor(
         255.0, dtype=dtype, device=images_uint8.device
     )
     if train:
-        if generator is None:
+        if draws is not None:
+            x = apply_color_jitter(x, draws)
+        elif generator is None:
             raise ValueError("train=True draws its augmentation from a generator")
-        x = batched_color_jitter(x, generator)
+        else:
+            x = batched_color_jitter(x, generator)
     x = normalize_imagenet(x)
     return x.permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)

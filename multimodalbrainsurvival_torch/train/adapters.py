@@ -13,7 +13,10 @@ train with the int8 frozen trunk; ``QuantizedTableAdapter``,
 
 Each adapter names the device of the generator that the train loop hands
 its ``apply`` (``generator_device``): the CPU for the RNA MLP's dropout
-seeds, the batch's device for the augmentation's draws.
+seeds, the batch's device for the augmentation's draws. Under a data- or
+bag-parallel placement (``parallel/mesh.py``) the arrays are the rank's
+part of the global batch, and the augmentation is drawn for the global
+batch on every rank, each rank keeping its patches' draws.
 """
 
 from __future__ import annotations
@@ -30,7 +33,8 @@ from multimodalbrainsurvival_torch.models.quantize import (
     quantized_trunk,
 )
 from multimodalbrainsurvival_torch.models.rna import draw_seed
-from multimodalbrainsurvival_torch.ops.image import preprocess_patches
+from multimodalbrainsurvival_torch.ops.image import jitter_draws, preprocess_patches
+from multimodalbrainsurvival_torch.parallel import mesh as parallel
 
 
 def to_device(batch: dict, keys: tuple, device: torch.device) -> dict:
@@ -133,9 +137,15 @@ class MILAdapter:
         bags = arrays["patch_bag"]
         B, bag = bags.shape[:2]
         aug = train and self.augment
+        draws = None
+        if aug:
+            # drawn for every patch of the global batch on every rank, each
+            # rank keeping its own: a data- or bag-parallel run augments as
+            # the world-of-one run does
+            draws = {k: parallel.local_patches(v, B, bag) for k, v in jitter_draws(
+                parallel.global_patch_count(B, bag), generator).items()}
         x = preprocess_patches(bags.reshape((B * bag,) + bags.shape[2:]),
-                               dtype=self.input_dtype, train=aug,
-                               generator=generator if aug else None)
+                               dtype=self.input_dtype, train=aug, draws=draws)
         return x.reshape((B, bag) + x.shape[1:])
 
     def patch_features(self, arrays: dict, *, train: bool = False,

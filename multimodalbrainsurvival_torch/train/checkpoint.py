@@ -13,7 +13,10 @@ there). Under ``<checkpoint_path>/models/<flag>/``:
   (``train/loop.py:655-679`` of the JAX package).
 
 Each file is written to a temporary name and renamed, so a crash mid-write
-never leaves a torn checkpoint under the real name.
+never leaves a torn checkpoint under the real name. Under a data- or
+bag-parallel placement (``parallel.activate``) every rank calls ``save`` at
+the same points: rank 0 alone writes (the parameters are replicated), then
+all ranks meet at a barrier, so no rank reads a half-written file.
 """
 
 from __future__ import annotations
@@ -24,11 +27,17 @@ from typing import Any
 import torch
 from torch import nn
 
+from multimodalbrainsurvival_torch.parallel import mesh as parallel
+
 
 def save(path: str, obj: Any) -> None:
-    tmp = f"{path}.{os.getpid()}.tmp"
-    torch.save(obj, tmp)
-    os.replace(tmp, path)
+    put = parallel.active()
+    if put is None or put.mesh.rank == 0:
+        tmp = f"{path}.{os.getpid()}.tmp"
+        torch.save(obj, tmp)
+        os.replace(tmp, path)
+    if put is not None:
+        put.mesh.barrier()
 
 
 def load(path: str) -> Any:

@@ -48,6 +48,23 @@ state it re-enters that epoch with the dataset's shuffles replayed and the
 consumed batches skipped. A finished run deletes the stale ``.preempt``.
 ``preempt_after_steps`` acts as if the signal came at that global step.
 
+Data and bag parallelism (``device_put_fn``, ``parallel.batch_device_put``;
+JAX ``loop.py:738-915``): every rank reads the global host batch and runs
+its part of it under ``parallel.activate``. The loss is the global batch's
+on every rank (the outputs, labels and mask all-gathered over ``dp``; the
+Cox risk set is global), the gradients are summed over the ranks with
+distinct rows (``parallel.reduce_gradients``), so each equals the
+world-of-one gradient, and the random draws are made for the global batch
+on every rank from generators that stay alike. ``accumulate_steps = k``
+keeps microbatch ``i`` = global rows ``i::k`` (local rows ``i::k``; the
+rank's rows must split by k). ``evaluate`` gathers the outputs to every
+rank, and rank 0 alone writes frames and checkpoints
+(``train/checkpoint.py``). The preemption consensus: every rank joins a
+1-int all-reduce (MAX) at every ``preempt_sync_every``-th check site,
+whether or not it wants to stop, so either all ranks enter the save or
+none does; every rank then raises ``TrainingPreempted``. A state saved at
+one mesh shape resumes at any other, or at a world of one.
+
 With a ``writer`` (``--log 1``, ``utils/logging.py``) the scalars are the
 JAX loop's, under its tags and steps: ``train/loss`` and
 ``train/bags_per_s`` at every ``log_interval``-th step, and
@@ -65,6 +82,7 @@ import signal
 import threading
 import time
 from dataclasses import dataclass
+from typing import Any
 
 import numpy as np
 import torch
@@ -74,6 +92,7 @@ from multimodalbrainsurvival_torch.frames import write_frame
 from multimodalbrainsurvival_torch.ops import metrics as M
 from multimodalbrainsurvival_torch.ops.cox import cox_partial_likelihood_loss
 from multimodalbrainsurvival_torch.ops.nll_surv import nll_surv_loss
+from multimodalbrainsurvival_torch.parallel import mesh as parallel
 from multimodalbrainsurvival_torch.train import checkpoint
 from multimodalbrainsurvival_torch.train.optim import TrainOptimizer
 
@@ -139,13 +158,20 @@ class TrainSettings:
     profile_dir: str = "torch_trace"
     # each step under autograd's anomaly mode, its loss checked
     debug_checkify: bool = False
+    # the data- or bag-parallel placement (parallel.batch_device_put), or
+    # None for a world of one
+    device_put_fn: Any = None
+    # a multi-rank run agrees on a preemption at every n-th check site
+    preempt_sync_every: int = 8
 
 
-def make_loss_fn(settings: TrainSettings):
+def make_loss_fn(settings: TrainSettings, group=None):
     """``(loss_fn(out, arrays, mask), label keys)`` for the settings' task
     (``loop.py:199-219`` of the JAX package). The serving CLIs score with
     the reference's Cox loss (the default ``reference_parity=True``), as
-    the JAX CLIs do."""
+    the JAX CLIs do. With a ``group`` (a mesh's ``dp`` group) the arrays
+    are a rank's rows and the loss is the global batch's: the outputs (with
+    their gradient), the labels and the mask are gathered over it."""
     if settings.task == "survival_prediction":
 
         def loss_fn(out, arrays, mask):
@@ -155,9 +181,24 @@ def make_loss_fn(settings: TrainSettings):
                 arrays["vital_status"],
                 mask=mask,
                 reference_parity=settings.reference_parity,
+                group=group,
             )
 
         return loss_fn, ("survival_months", "vital_status")
+    local_fn, keys = _local_loss_fn(settings)
+    if group is None:
+        return local_fn, keys
+
+    def loss_fn(out, arrays, mask):
+        return local_fn(parallel.gather(out, group),
+                        {k: parallel.gather(arrays[k], group) for k in keys},
+                        parallel.gather(mask, group))
+
+    return loss_fn, keys
+
+
+def _local_loss_fn(settings: TrainSettings):
+    """``make_loss_fn``'s non-Cox tasks on the arrays as given."""
     if settings.task == "survival_bin":
 
         def loss_fn(out, arrays, mask):
@@ -192,9 +233,12 @@ def evaluate(adapter, dataset, settings: TrainSettings, *, split: str = "val",
     ``np.mean(loss_list)`` (``2_HistoPath_train.py:148``); the padded final
     batch gives the same per-batch loss as torch's ragged one. ``frames``
     holds the task's score frame per level, ``"wsi"`` and ``"case"``
-    (``default_frame`` picks the one a train run writes).
+    (``default_frame`` picks the one a train run writes). Under a placement
+    (``settings.device_put_fn``) each rank scores its part of every batch
+    and the outputs are gathered to every rank.
     """
     loss_fn, loss_keys = make_loss_fn(settings)
+    put = settings.device_put_fn
     keys = tuple(dict.fromkeys(adapter.array_keys + loss_keys))
     label_keys = tuple(dict.fromkeys(
         loss_keys + (settings.target_label, "survival_months", "vital_status")))
@@ -202,8 +246,13 @@ def evaluate(adapter, dataset, settings: TrainSettings, *, split: str = "val",
     ids: dict[str, list] = {k: [] for k in adapter.id_keys}
     labels: dict[str, list] = {}
     for batch in dataset.batches(settings.batch_size, **adapter.loader_kwargs):
-        arrays = adapter.to_device(batch, keys)
-        out = adapter.apply(arrays)
+        if put is None:
+            arrays = adapter.to_device(batch, keys)
+            out = adapter.apply(arrays)
+        else:
+            with parallel.activate(put):
+                out = parallel.gather_rows(adapter.apply(adapter.to_device(put(batch), keys)))
+            arrays = adapter.to_device(batch, loss_keys + (adapter.sample_mask_key,))
         losses.append(loss_fn(out, arrays, arrays[adapter.sample_mask_key]))
         outputs.append(out)
         mask = host_array(batch, adapter.sample_mask_key)
@@ -271,9 +320,12 @@ def train_step(adapter, optimizer: TrainOptimizer, loss_fn, arrays: dict,
     op's traceback), and a non-finite loss raises before the backward.
     """
     k = settings.accumulate_steps
-    if settings.batch_size % k:
+    put = settings.device_put_fn
+    rows = settings.batch_size // (1 if put is None else put.mesh.dp)
+    if settings.batch_size % k or rows % k:
         raise ValueError(f"accumulate_steps={k} must divide batch_size="
-                         f"{settings.batch_size}")
+                         f"{settings.batch_size}" + ("" if put is None else
+                                                     f" / dp={put.mesh.dp}"))
     micro = [arrays] if k == 1 else [
         {key: v[i::k].contiguous() for key, v in arrays.items()} for i in range(k)]
     optimizer.zero_grad()
@@ -292,12 +344,23 @@ def train_step(adapter, optimizer: TrainOptimizer, loss_fn, arrays: dict,
                     "inf in the step's inputs or activations)")
             loss.backward()
             total = loss.detach() if total is None else total + loss.detach()
+    if put is not None:
+        parallel.reduce_gradients(optimizer.params, _bag_params(adapter, put))
     if k > 1:
         for p in optimizer.params:
             if p.grad is not None:
                 p.grad.div_(k)
     optimizer.step()
     return total / k
+
+
+def _bag_params(adapter, put) -> frozenset:
+    """The parameters of the patch encoder, which under ``shard_bag`` sees
+    this rank's patches alone."""
+    resnet = getattr(adapter.model, "resnet", None)
+    if not put.shard_bag or resnet is None:
+        return frozenset()
+    return frozenset(resnet.parameters())
 
 
 class StepTrace:
@@ -378,7 +441,15 @@ def train_model(adapter, datasets: dict, optimizer: TrainOptimizer,
     The model ends holding the last weights. ``writer``: a
     ``MetricWriter`` or None. Raises ``TrainingPreempted`` after an
     emergency save (module docstring)."""
-    loss_fn, loss_keys = make_loss_fn(settings)
+    with parallel.activate(settings.device_put_fn):
+        return _train_model(adapter, datasets, optimizer, settings, writer)
+
+
+def _train_model(adapter, datasets: dict, optimizer: TrainOptimizer,
+                 settings: TrainSettings, writer) -> dict:
+    put = settings.device_put_fn
+    mesh = None if put is None else put.mesh
+    loss_fn, loss_keys = make_loss_fn(settings, None if mesh is None else mesh.dp_group)
     keys = tuple(dict.fromkeys(adapter.array_keys + loss_keys))
     model = adapter.model
     train_set = datasets["train"]
@@ -469,6 +540,10 @@ def train_model(adapter, datasets: dict, optimizer: TrainOptimizer,
 
     preempt_flag = threading.Event()
     prev_handler, handler_installed = None, False
+    # a multi-rank run: every rank joins the consensus at the aligned check
+    # sites, whether or not it wants to stop (JAX loop.py:832-915)
+    consensus = bool(mesh is not None and save_dir and settings.emergency_checkpoint)
+    sites = 0
     if save_dir and settings.emergency_checkpoint:
         def on_sigterm(signum, frame):
             preempt_flag.set()
@@ -484,11 +559,21 @@ def train_model(adapter, datasets: dict, optimizer: TrainOptimizer,
     def maybe_preempt() -> None:
         """Between steps: on a preemption request, save the full state to
         the ``.preempt`` sibling and raise."""
-        nonlocal running_loss, seen
+        nonlocal running_loss, seen, sites
         if not (save_dir and settings.emergency_checkpoint):
             return
-        if not (preempt_flag.is_set() or (settings.preempt_after_steps
-                                          and step >= settings.preempt_after_steps)):
+        want = preempt_flag.is_set() or bool(settings.preempt_after_steps
+                                             and step >= settings.preempt_after_steps)
+        if consensus:
+            sites += 1
+            if sites % max(settings.preempt_sync_every, 1):
+                return
+            if not mesh.any_rank(want):
+                return
+            if not want:
+                print("a peer rank asked for preemption: joining the emergency save",
+                      flush=True)
+        elif not want:
             return
         running_loss, seen = _drain_losses(pending, running_loss, seen, state_epoch)
         t0 = time.perf_counter()
@@ -521,7 +606,7 @@ def train_model(adapter, datasets: dict, optimizer: TrainOptimizer,
             try:
                 for batch in batches:
                     maybe_preempt()
-                    arrays = adapter.to_device(batch, keys)
+                    arrays = adapter.to_device(batch if put is None else put(batch), keys)
                     mask = host_array(batch, adapter.sample_mask_key)
                     if settings.running_loss_weight == "events" and "vital_status" in batch:
                         weight = float((host_array(batch, "vital_status").astype(np.float64)
@@ -605,7 +690,7 @@ def train_model(adapter, datasets: dict, optimizer: TrainOptimizer,
         checkpoint.save(os.path.join(save_dir, "model_last.pt"),
                         checkpoint.cpu_state_dict(model))
         # a finished run: an emergency state from before is stale
-        if os.path.exists(preempt_path):
+        if (mesh is None or mesh.rank == 0) and os.path.exists(preempt_path):
             os.remove(preempt_path)
     # only a best this run kept (or a resumed run restored): a file left in
     # save_dir by an earlier run is not this run's best
@@ -627,7 +712,7 @@ def train_model(adapter, datasets: dict, optimizer: TrainOptimizer,
                 epoch=best_epoch if tag == "best" else settings.num_epochs - 1)
             outputs[f"{split}_output_{tag}"] = default_frame(frames, settings.task)
             outputs[f"{split}_metrics_{tag}"] = metrics
-    if settings.output_dir:
+    if settings.output_dir and (mesh is None or mesh.rank == 0):
         os.makedirs(settings.output_dir, exist_ok=True)
         for name, frame in outputs.items():
             if name.endswith(("_output_last", "_output_best")) and frame is not None:

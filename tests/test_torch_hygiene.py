@@ -59,7 +59,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                  "cli.slide_extractfeatures", "cli.slide_joint_savescore",
                  "cli.attention_heatmap", "kernels.ops", "artifact", "cli.export_model",
                  "cli.serve", "cli.convert_checkpoint", "ops.survival", "data.genes",
-                 "cli.evaluate_scores", "cli.validate_data", "cli.cv_run", "cli.sweep"):
+                 "cli.evaluate_scores", "cli.validate_data", "cli.cv_run", "cli.sweep",
+                 "parallel", "parallel.mesh", "parallel.sharding", "parallel.launch",
+                 "parallel.dryrun"):
         assert f"multimodalbrainsurvival_torch.{name}" in modules
     code = (
         "import importlib, json, sys\n"
@@ -85,6 +87,28 @@ def test_cli_without_card_raises_unless_cpu_asked(main, tmp_path, monkeypatch):
     cfg.write_text(json.dumps({"model_path": "missing.pt"}))
     with pytest.raises(RuntimeError, match="--device cpu"):
         main(["--config", str(cfg)])
+
+
+@pytest.mark.parametrize("main", [
+    rna_train.main, feature_train.main, histo_train.main, joint_train.main,
+    histo_extractfeatures.main,
+])
+def test_mesh_clis_without_card_raise_unless_cpu_asked(main, tmp_path, monkeypatch):
+    """The CLIs that take a ``mesh`` still default to ``cuda`` and raise
+    without a card before they join a process group."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = tmp_path / "cfg.json"
+    cfg.write_text(json.dumps({"model_path": "missing.pt", "mesh": {"dp": 2}}))
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        main(["--config", str(cfg)])
+
+
+def test_dryrun_without_card_raises_unless_cpu_asked(monkeypatch):
+    from multimodalbrainsurvival_torch.parallel import dryrun
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        dryrun.main(["--world", "2"])
 
 
 @pytest.mark.parametrize("name, argv", [

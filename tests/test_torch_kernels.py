@@ -1007,3 +1007,78 @@ def test_exported_mil_program_launches_k1_and_k4_on_the_card(cuda, tmp_path, fol
         for k in want:
             err = (got[k] - want[k]).abs().max().item()
             assert err <= 2**-6 * max(1.0, want[k].abs().max().item()), (k, err)
+
+
+# K2's mask offsets (row0, col0) at the RNA shapes: a data-parallel rank's
+# rows, a tensor-parallel rank's hidden columns
+OFFSET_SHAPES = {
+    "dense_0_rank_1_of_2": (128, 12778, 4096, 128, 0),
+    "dense_1_tp_rank_1_of_2": (256, 2048, 2048, 0, 2048),
+    "dense_1_dp_and_tp": (128, 2048, 2048, 128, 2048),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", sorted(OFFSET_SHAPES))
+def test_k2_offset_forms_match_plain(cuda, name, dtype):
+    """K2a with ``(row0, col0)`` within its tolerance of the plain version
+    (float32 ``atol=1e-4``; bf16 ``DM_BF16_TOL`` of the scale), K2b's single
+    and paired forms bit for bit."""
+    M, K, N, row0, col0 = OFFSET_SHAPES[name]
+    x, w, _ = _dm_inputs(M, K, N, cuda)
+    x, w = x.to(dtype), w.to(dtype)
+    out = dropout_matmul(x, w, 77, 0.5, row0, col0)
+    want = dropout_matmul_plain(x, w, 77, 0.5, row0, col0)
+    tol = 1e-4 if dtype == torch.float32 else DM_BF16_TOL * want.abs().max().item()
+    torch.testing.assert_close(out, want, rtol=0, atol=tol)
+    assert torch.equal(seeded_dropout(x, 77, 0.5, row0, col0),
+                       seeded_dropout_plain(x, 77, 0.5, row0, col0))
+    a, b = seeded_dropout_pair(x, 2 * x, 77, 0.5, row0, col0)
+    assert torch.equal(a, seeded_dropout_plain(x, 77, 0.5, row0, col0))
+    assert torch.equal(b, seeded_dropout_plain(2 * x, 77, 0.5, row0, col0))
+    if row0 or col0:
+        assert not torch.equal(seeded_dropout(x, 77, 0.5), a)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k2_sharded_calls_equal_the_unsharded_call(cuda, dtype):
+    """The dp split (row halves at ``row0``) and the TP split of dense_0
+    (output rows) and dense_1 (input columns at ``col0``, partial products
+    summed) against the unsharded calls: K2b bit for bit, K2a within
+    tolerance; the backward's gradients within ``atol=1e-4`` (float32) or,
+    being bf16 tensors rounded at other places, 2**-7 of their scale."""
+    x, w0, _ = _dm_inputs(256, 12778, 4096, cuda)
+    h, w1, _ = _dm_inputs(256, 4096, 2048, cuda, seed=1)
+    x, w0, h, w1 = (t.to(dtype) for t in (x, w0, h, w1))
+    scale = 1e-4 if dtype == torch.float32 else None
+
+    def close(got, want, grad=False):
+        tol = scale or (2**-7 if grad else DM_BF16_TOL) * want.abs().max().item()
+        torch.testing.assert_close(got, want, rtol=0, atol=tol)
+
+    whole0 = dropout_matmul(x, w0, 5, 0.5)
+    close(torch.cat([dropout_matmul(x[r * 128:(r + 1) * 128], w0, 5, 0.5, 128 * r)
+                     for r in range(2)]), whole0)
+    close(torch.cat([dropout_matmul(x, w0[m * 2048:(m + 1) * 2048].contiguous(), 5, 0.5)
+                     for m in range(2)], 1), whole0)
+    whole1 = dropout_matmul(h, w1, 6, 0.5)
+    close(sum(dropout_matmul(h[:, m * 2048:(m + 1) * 2048].contiguous(),
+                             w1[:, m * 2048:(m + 1) * 2048].contiguous(), 6, 0.5, 0, 2048 * m)
+              for m in range(2)), whole1)
+    assert torch.equal(
+        torch.cat([seeded_dropout(h[:, m * 2048:(m + 1) * 2048].contiguous(), 6, 0.5, 0,
+                                  2048 * m) for m in range(2)], 1),
+        seeded_dropout(h, 6, 0.5))
+    g = torch.randn(256, 2048, device=cuda, generator=torch.Generator(
+        device=cuda).manual_seed(3))
+    hw = h.clone().requires_grad_()
+    w1w = w1.clone().requires_grad_()
+    DropoutMatmul.apply(hw, w1w, 6, 0.5).backward(g)
+    parts = [h[r * 128:(r + 1) * 128].clone().requires_grad_() for r in range(2)]
+    ws = [w1.clone().requires_grad_() for _ in range(2)]
+    for r in range(2):
+        DropoutMatmul.apply(parts[r], ws[r], 6, 0.5, 128 * r).backward(g[r * 128:(r + 1) * 128])
+    close(torch.cat([parts[0].grad, parts[1].grad]).float(), hw.grad.float(), grad=True)
+    close((ws[0].grad.float() + ws[1].grad.float()), w1w.grad.float(), grad=True)

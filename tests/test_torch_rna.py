@@ -141,8 +141,8 @@ def test_train_mode_goes_through_dropout_matmul(monkeypatch):
     calls = []
     orig = k2.DropoutMatmul.apply
     monkeypatch.setattr(k2.DropoutMatmul, "apply",
-                        lambda x, w, seed, p: calls.append((tuple(w.shape), seed, p))
-                        or orig(x, w, seed, p))
+                        lambda x, w, seed, p, *offsets: calls.append((tuple(w.shape), seed, p))
+                        or orig(x, w, seed, p, *offsets))
     x = torch.from_numpy(np.random.default_rng(5).normal(size=(6, 16)).astype(np.float32))
     model = RNAOnlyModel(RNAEncoder(16, (24, 12), dropout=0.0))
     with torch.no_grad():

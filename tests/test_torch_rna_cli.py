@@ -274,15 +274,16 @@ def test_emergency_checkpoint_is_reported_ignored(cohort, tmp_path, capsys):
     """``emergency_checkpoint`` is read now (the SIGTERM save,
     ``tests/test_torch_preemption.py``): it is no longer reported as
     ignored, and training no longer says that a SIGTERM loses the epoch's
-    work; the multi-host ``preempt_sync_every`` still is ignored."""
+    work; nor is ``preempt_sync_every``, the preemption consensus of a
+    multi-rank run (``tests/test_torch_parallel_rna.py``)."""
     from multimodalbrainsurvival_torch.config import Config
 
     cfg = _config(cohort, tmp_path / "out", num_epochs=1, emergency_checkpoint=True,
                   preempt_sync_every=8)
-    assert Config(cfg).ignored_keys() == ["preempt_sync_every"]
+    assert Config(cfg).ignored_keys() == []
     rna_train.main(["--config", _write(tmp_path / "cfg.json", cfg), "--device", "cpu"])
     out, err = capsys.readouterr()
-    assert "ignoring keys with no meaning in the port: preempt_sync_every\n" in out
+    assert "ignoring keys with no meaning in the port" not in out
     assert "SIGTERM" not in err
     assert not (tmp_path / "out/models/rna_model/train_state.pt.preempt").exists()
 
@@ -295,12 +296,14 @@ def test_train_without_card_defaults_to_cuda_and_raises(cohort, tmp_path, monkey
 
 
 def test_unported_knobs_raise(cohort, tmp_path):
-    """A multi-device ``mesh`` raises (ROADMAP item 7) in training and in
-    serving; ``quantize: "int8"`` serving is ported (its parity with the
-    JAX CLIs: ``tests/test_torch_rna_int8.py``)."""
+    """A multi-device ``mesh`` in a world of one process raises in training,
+    naming the launcher (``parallel/mesh.py``), and with ``quantize:
+    "int8"`` in serving (ROADMAP item 7b); ``quantize: "int8"`` serving on
+    one device is ported (its parity with the JAX CLIs:
+    ``tests/test_torch_rna_int8.py``)."""
     out = tmp_path / "out"
     path = _write(tmp_path / "cfg.json", _config(cohort, out, mesh={"dp": 2}))
-    with pytest.raises(NotImplementedError, match="item 7"):
+    with pytest.raises(ValueError, match="torch.distributed.run"):
         rna_train.main(["--config", path, "--device", "cpu"])
     model = tmp_path / "model.pt"
     torch.save(build_rna_model(None, N_GENES).state_dict(), str(model))

@@ -31,7 +31,8 @@ enforced: ``no_flush`` is there to measure it), then all are timed with the
 L2 scrubbed, in turns (the variants in order, then reversed). All nvcc
 builds of this part start together.
 
-K2b's variants (``K2B_VARIANTS``: the 64-bit division per element, 8-byte
+K2b's variants (``K2B_VARIANTS``: the 64-bit division per element, the
+row's mask key not hoisted out of the column loop, 8-byte
 pieces in place of a scalar head at dense_0, pieces in flight, threads a
 block, grid size, cache hints, programmatic launch, no mask, an empty
 launch) are substitutions in the committed ``dropout_matmul.cu``; with ``--parent DIR`` DIR's ``dropout_matmul.cu`` is
@@ -40,6 +41,13 @@ form at dense_1's shape against two launches of the committed single form,
 two of the parent's and two ``torch.mul`` calls by the pre-scaled mask;
 each is checked against the plain version and timed in turns, with its
 speed-up over the parent.
+
+The ``k2`` part holds K2 against its parent in both dtypes: K2a (float32
+at the RNA batch, bf16 at the joint model's 128 rows) and K2b's single
+and paired forms at both RNA layers, the committed kernels, K2b's
+``unhoisted`` variant (each value's mask key computed from its row) and
+the parent's, every output equal to the committed one's, timed in turns
+``--rounds`` times (``--only k2 --parent DIR``).
 
 K4's variants are ``multimodalbrainsurvival_torch/kernels/csrc/fused_stage.cu``
 with a few text substitutions (the knobs of the bfloat16 wgmma path: ring
@@ -64,7 +72,7 @@ picks the parts to run (default all). Run from the root of the repository,
 on a machine with a card:
 
     python tools/kernel_variants.py [--parent DIR] [--k4 NAME=FILE ...]
-        [--only k1_k2a,k2b,k4,k3]
+        [--only k1_k2a,k2b,k2,k4,k3] [--rounds N]
 """
 
 from __future__ import annotations
@@ -148,7 +156,7 @@ K2B_LAUNCH = ("  seeded_dropout_kernel<T, V, PAIR>\n"
               "      <<<dim3(gx, gy), K2B_THREADS, 0, stream>>>(a, b, out_a, out_b, M, K, mask);\n")
 K2B_VARIANTS = {
     "committed": [],
-    "div64": [("            const bool kept = keep(row, col + e, mask);\n",
+    "div64": [("            const bool kept = keep_key(key + col + e, mask);\n",
                "            const long long i = static_cast<long long>(row) * K + col + e;\n"
                "            const bool kept = keep(static_cast<uint32_t>(i / K),\n"
                "                                   static_cast<uint32_t>(i % K), mask);\n")],
@@ -186,15 +194,21 @@ K2B_VARIANTS = {
                 "                 : \"=r\"(w.x), \"=r\"(w.y), \"=r\"(w.z), \"=r\"(w.w) : \"l\"(p));\n"
                 "  else\n"
                 "    w = __ldcs(reinterpret_cast<const W*>(p));\n")],
-    "no_hash": [("            const bool kept = keep(row, col + e, mask);\n",
+    # each value's key from its row, the row's key not hoisted out of the
+    # column loop (as before the mask offsets)
+    "unhoisted": [("            const bool kept = keep_key(key + col + e, mask);\n",
+                   "            const bool kept = keep(row, col + e, mask);\n"),
+                  ("        const bool kept = keep_key(key + col, mask);\n",
+                   "        const bool kept = keep(row, col, mask);\n")],
+    "no_hash": [("            const bool kept = keep_key(key + col + e, mask);\n",
                  "            const bool kept = true;\n")],
     "empty": [("  const int step = K2B_THREADS * gridDim.x;\n",
                "  const int step = K2B_THREADS * gridDim.x;\n  if (M > 0) return;\n")],
 }
-# the parent's K2b entry, before the paired form: (x, out, numel, K, seed,
-# threshold, scale, stream)
-PARENT_K2B_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
-                       ctypes.c_uint32, ctypes.c_uint32, ctypes.c_float, ctypes.c_void_p]
+# K2's C entries, which take the mask offsets (row0, col0) before the stream
+K2_ENTRIES = tuple(f"{entry}_{suffix}" for entry in ("dropout_matmul", "seeded_dropout",
+                                                      "seeded_dropout_pair")
+                   for suffix in ("f32", "bf16"))
 
 # K4's variants: substitutions in fused_stage.cu
 VARIANTS = {
@@ -304,38 +318,44 @@ def splitk_libraries(parent: Path | None) -> dict:
     return libs
 
 
-def bind_parent_dropout(lib: ctypes.CDLL) -> ctypes.CDLL:
-    """A parent's dropout_matmul library: K2a's entry as the committed one
-    takes it, K2b's single entry as it was before the paired form."""
-    lib.dropout_matmul_f32.argtypes = (
-        [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
-        + [ctypes.c_uint32, ctypes.c_uint32, ctypes.c_float, ctypes.c_int,
-           ctypes.c_void_p])
-    lib.dropout_matmul_f32.restype = ctypes.c_int
-    lib.seeded_dropout_f32.argtypes = PARENT_K2B_ARGTYPES
-    lib.seeded_dropout_f32.restype = ctypes.c_int
-    return lib
+class _WithoutOffsets:
+    """A parent's dropout_matmul library from before the mask offsets,
+    called through the committed wrapper: each K2 entry drops the offsets
+    ``(row0, col0)`` (only offset-free calls may reach it)."""
+
+    def __init__(self, lib: ctypes.CDLL):
+        self._lib = lib
+
+    def __getattr__(self, name):
+        fn = getattr(self._lib, name)
+        if name not in K2_ENTRIES:
+            return fn
+
+        def call(*args):
+            *head, row0, col0, stream = args
+            if row0 or col0:
+                raise ValueError("the parent's K2 takes no mask offsets")
+            return fn(*head, stream)
+
+        return call
 
 
-def parent_seeded_dropout(lib: ctypes.CDLL, x: torch.Tensor, seed: int,
-                          p: float) -> torch.Tensor:
-    """The parent's K2b on ``x``, called as its wrapper called it."""
-    out = torch.empty_like(x)
-    err = lib.seeded_dropout_f32(
-        x.data_ptr(), out.data_ptr(), x.numel(), x.shape[1], seed & 0xFFFFFFFF,
-        dropout_matmul.keep_threshold(p), float(dropout_matmul.keep_scale(p)),
-        torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"parent seeded_dropout launch failed: CUDA error {err}")
-    return out
+def bind_parent_dropout(lib: ctypes.CDLL) -> _WithoutOffsets:
+    """A parent's dropout_matmul library: K2's entries as they were before
+    the mask offsets (the committed ones without ``row0, col0``)."""
+    dropout_matmul.bind(lib)
+    for name in K2_ENTRIES:
+        fn = getattr(lib, name)
+        fn.argtypes = fn.argtypes[:-3] + fn.argtypes[-1:]
+    return _WithoutOffsets(lib)
 
 
-def _in_turns(names: list, run, timed) -> dict:
+def _in_turns(names: list, run, timed, rounds: int = 1) -> dict:
     """``run(name)`` → error once per name, ``timed(name)`` → ms twice per
-    name (the names in order, then reversed)."""
+    name and round (the names in order, then reversed)."""
     times = {name: [] for name in names}
     errs = {}
-    for name in names + names[::-1]:
+    for name in (names + names[::-1]) * rounds:
         if name not in errs:
             errs[name] = run(name)
         times[name].append(timed(name))
@@ -435,7 +455,7 @@ def k2b_variants(parent: Path | None) -> dict:
         calls = {name: (lambda name=name: ours(name, dropout_matmul.seeded_dropout, x))
                  for name in K2B_VARIANTS}
         if parent is not None:
-            calls["parent"] = lambda: parent_seeded_dropout(libs["parent"], x, seed, p)
+            calls["parent"] = lambda: ours("parent", dropout_matmul.seeded_dropout, x)
         calls["torch.mul"] = lambda: torch.mul(x, mask)
         # not a yardstick of the function: a copy of the same bytes
         calls["clone"] = lambda: x.clone()
@@ -449,8 +469,8 @@ def k2b_variants(parent: Path | None) -> dict:
             pairs["committed x2"] = lambda: (ours("committed", dropout_matmul.seeded_dropout, x),
                                              ours("committed", dropout_matmul.seeded_dropout, b))
             if parent is not None:
-                pairs["parent x2"] = lambda: tuple(
-                    parent_seeded_dropout(libs["parent"], t, seed, p) for t in (x, b))
+                pairs["parent pair"] = lambda: ours("parent", dropout_matmul.seeded_dropout_pair,
+                                                    x, b)
             pairs["torch.mul x2"] = lambda: (torch.mul(x, mask), torch.mul(b, mask))
             label = f"K2b pair {where} {M}x{K} p={p}"
             results[label] = _k2b_in_turns(label, pairs, want2, scrub)
@@ -475,6 +495,79 @@ def _k2b_in_turns(label: str, calls: dict, want: list, scrub: torch.Tensor) -> d
             rec["parent_over_this"] = ref / rec["ms"]
     print(label, json.dumps(out), flush=True)
     return out
+
+
+def k2_against_parent(parent: Path | None, rounds: int) -> dict:
+    """K2a (float32 at the RNA batch, bf16 at the joint model's 128 rows)
+    and K2b's single and paired forms in both dtypes, at both RNA layers
+    (drop probability 0.5): the committed kernels, K2b's ``unhoisted``
+    variant and, with ``--parent``, the parent's, each output equal to the
+    committed kernel's bit for bit, timed in turns ``rounds`` times; each
+    one's time over the parent's."""
+    committed = (build.CSRC / "dropout_matmul.cu").read_text()
+    jobs = {"unhoisted": (build.BUILD_DIR / "variants" / "k2_unhoisted" / "dropout_matmul.cu",
+                          patched(committed, K2B_VARIANTS["unhoisted"], "unhoisted"),
+                          build.CSRC)}
+    if parent is not None:
+        jobs["parent"] = (build.BUILD_DIR / "variants" / "k2_parent" / "dropout_matmul.cu",
+                          (parent / "dropout_matmul.cu").read_text(), parent)
+    built = build_sources(jobs)
+    libs = {"committed": dropout_matmul._library(),
+            "unhoisted": dropout_matmul.bind(built["unhoisted"])}
+    if parent is not None:
+        libs["parent"] = bind_parent_dropout(built["parent"])
+    device = torch.device("cuda")
+    scrub = torch.empty(64 << 20, dtype=torch.uint8, device=device)
+    g = torch.Generator().manual_seed(chip_smoke.SEED)
+    seed, p = 20240607, chip_smoke.RNA_DROPOUT
+    results = {}
+    for dtype, M in ((torch.float32, chip_smoke.RNA_BATCH), (torch.bfloat16, 128)):
+        for where, _, K, N in chip_smoke.K2_SHAPES:
+            x = torch.randn(M, K, generator=g).to(device, dtype)
+            b = torch.randn(M, K, generator=g).to(device, dtype)
+            w = (torch.randn(N, K, generator=g) / K**0.5).to(device, dtype)
+            forms = {
+                f"K2a {where} {M}x{K}x{N}": (lambda: dropout_matmul.dropout_matmul(
+                    x, w, seed, p), ["committed", "parent"]),
+                f"K2b {where} {M}x{K}": (lambda: dropout_matmul.seeded_dropout(x, seed, p),
+                                         ["committed", "unhoisted", "parent"]),
+                f"K2b pair {where} {M}x{K}": (lambda: dropout_matmul.seeded_dropout_pair(
+                    x, b, seed, p), ["committed", "unhoisted", "parent"]),
+            }
+            for label, (fn, names) in forms.items():
+                names = [n for n in names if n in libs]
+
+                def call(name, fn=fn):
+                    dropout_matmul._lib = libs[name]
+                    out = fn()
+                    return out if isinstance(out, tuple) else (out,)
+
+                want = call("committed")
+
+                def run(name, call=call, want=want):
+                    got = call(name)
+                    torch.cuda.synchronize()
+                    return max((u.float() - v.float()).abs().max().item()
+                               for u, v in zip(got, want))
+
+                def timed(name, fn=fn):
+                    dropout_matmul._lib = libs[name]
+                    return chip_smoke._time_ms(fn, 10 if K > 8192 else 25, scrub)
+
+                label = f"{label} {str(dtype)[6:]}"
+                out = _in_turns(names, run, timed, rounds)
+                if "parent" in out:
+                    for rec in out.values():
+                        rec["over_parent"] = rec["ms"] / out["parent"]["ms"]
+                results[label] = out
+                print(label, json.dumps(out), flush=True)
+                bad = {n: r["max_abs_err"] for n, r in out.items() if r["max_abs_err"]}
+                if bad:
+                    raise AssertionError(f"{label}: outputs differ from the committed "
+                                         f"kernel's: {bad}")
+            del x, b, w
+    dropout_matmul._lib = None
+    return results
 
 
 def k4_library(name: str, src: str, home: Path = build.CSRC) -> ctypes.CDLL:
@@ -580,9 +673,11 @@ def main() -> int:
                              "timed too")
     parser.add_argument("--k4", action="append", default=[], metavar="NAME=FILE",
                         help="another fused_stage.cu to time as variant NAME")
-    parser.add_argument("--only", default="k1_k2a,k2b,k4,k3",
-                        help="comma-separated parts to run: k1_k2a, k2b, k4, k3 (k3 "
+    parser.add_argument("--only", default="k1_k2a,k2b,k2,k4,k3",
+                        help="comma-separated parts to run: k1_k2a, k2b, k2, k4, k3 (k3 "
                              "needs --parent)")
+    parser.add_argument("--rounds", type=int, default=4,
+                        help="rounds of turns of the k2 part")
     args = parser.parse_args()
     extra = {name: Path(path) for name, path in (v.split("=", 1) for v in args.k4)}
     parts = set(args.only.split(","))
@@ -596,6 +691,8 @@ def main() -> int:
         results["k1_k2a"] = k1_k2a_variants(args.parent)
     if "k2b" in parts:
         results["k2b"] = k2b_variants(args.parent)
+    if "k2" in parts:
+        results["k2"] = k2_against_parent(args.parent, args.rounds)
     if "k4" in parts:
         results["k4"] = k4_variants(args.parent, extra)
     if "k3" in parts and args.parent is not None:
