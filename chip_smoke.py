@@ -204,7 +204,14 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    collective helpers (``--phase21-nccl``); (d) ``rna_train`` preempted by a
    SIGTERM to rank 1 alone, resumed at world 2 (the uninterrupted run's
    weights) and at world 1; (e) the TP step's time at world 2 and 1 with
-   its collectives' share (through the host: no NVLink figure).
+   its collectives' share (through the host: no NVLink figure); (f) a
+   second world of ``P21_WORLD`` ranks, beside the first, runs under
+   ``{"dp": 2}`` the rest of the mesh paths: the int8
+   and folded ``histo_extractfeatures``, ``histo_train`` with the int8
+   trunk and with the mesh-sharded device cache (float32, BatchNorm held),
+   the int8 ``slide_extractfeatures`` on phase 18's slide and ``cv_run
+   --task rna``, each counted per rank and held against its world-1 run,
+   which this process also runs meanwhile.
 
 The last lines are the ``kernels`` JSON line, the nvidia-smi line and
 ``{"ok": true, "device": {...}}``. Without a card, or without the rest of
@@ -3963,6 +3970,9 @@ P21_GRAD_FLOOR = {"float32": 1e-4, "bfloat16": 1e-2}
 # the TP encoder's steps (12,778 -> 4,096 -> 2,048 over mp = 2, batch 256)
 P21_TP_STEPS, P21_TP_LR = 3, 1e-4
 P21_TIMEOUT_S = 600
+# where phase 21 writes when it has this much room (a tmpfs: RAM, not the
+# machine's disk); the phase's files peak near 20 GB
+P21_TMPFS, P21_TMPFS_BYTES = "/dev/shm", 32 << 30
 # the device of phase 21's ranks
 P21_DEVICE = "cuda"
 
@@ -4028,7 +4038,21 @@ def _first_step(record: dict, sigterm_step: int = 0):
 
 
 P21_CLIS = {"rna_train": rna_train, "histo_train": histo_train, "joint_train": joint_train,
-            "histo_extractfeatures": histo_extractfeatures}
+            "histo_extractfeatures": histo_extractfeatures,
+            "slide_extractfeatures": slide_extractfeatures, "cv_run": cv_run}
+# 21f: the int8 slide stream's tiles (two batches of STREAM_BATCH), and the
+# int8 features' per-case cosine to world 1 (INT8_COSINE's contract is to
+# the float path; the world's ranks quantize with rank 0's qtree, so only
+# the float32 stem's other batch size can move a requantized value)
+P21_STREAM_PATCHES = 256
+P21_INT8_COSINE = 0.999
+# the cv_run world's frames against world 1, |diff| / max|score|: each fold
+# trains one Adam step from the same weights and dropout masks, and Adam's
+# first step moves every element whose gradient is rounding noise by the
+# whole LR in a direction the rounding picks (3e-4 on the CPU at small
+# shapes);
+# a fold scored by another model, or trained on other rows, parts by O(1)
+P21_FRAME_TOL = 1e-2
 
 
 def _p21_cli(job: dict, rank: int) -> dict:
@@ -4434,8 +4458,211 @@ def _final_weights(cfg: dict, flag: str, names) -> dict:
     return {k: state[k].float() for k in names}
 
 
+def _p21_mesh_paths(root: str, work: str, rna_paths: dict, histo_cfg, extract_cfg
+                    ) -> dict:
+    """21f's runs: name -> (cli, (config, argv) at world 2, at world 1,
+    kind). The world-1 runs are the same configurations without the mesh."""
+    dp2 = {"dp": P21_WORLD}
+    f32_held = {"compute_dtype": "float32", "freeze_bn": True}
+    d = os.path.join(root, "stream")
+    slide = os.path.join(d, "wsi", "slide.png")
+    if not os.path.isfile(slide):  # phase 21 run alone
+        os.makedirs(os.path.dirname(slide), exist_ok=True)
+        write_stream_slide(slide)
+    _stream_models(root)
+
+    def slide_cfg(name, **kw):
+        cfg, path = _stream_config(root, name, quantize="int8",
+                                   max_patches_per_slide=P21_STREAM_PATCHES,
+                                   save_patch_features=False,
+                                   output_path=os.path.join(work, name), **kw)
+        return cfg, ["--config", path]
+
+    cv_rows = os.path.join(work, "cv_rna.csv")
+    with open(rna_paths["train"]) as f, open(cv_rows, "w") as out:
+        out.writelines(itertools.islice(f, 1 + CV_RNA_ROWS))
+
+    def cv_cfg(name, **kw):
+        cfg, path = _rna_config(work, rna_paths, name, num_epochs=1, flag="rna_cv",
+                                cv_csv_path=cv_rows, **kw)
+        return cfg, ["--config", path, "--task", "rna", "--folds", str(CV_FOLDS),
+                     "--seed", str(SEED)]
+
+    def argv(c):
+        return c[0], ["--config", c[1]]
+
+    return {
+        "extract_int8_dp2": ("histo_extractfeatures",
+                             argv(extract_cfg("extract_int8_dp2", quantize="int8", mesh=dp2)),
+                             argv(extract_cfg("extract_int8_w1", quantize="int8")), "int8"),
+        "extract_folded_dp2": ("histo_extractfeatures",
+                               argv(extract_cfg("extract_folded_dp2", fold_bn=True, mesh=dp2)),
+                               argv(extract_cfg("extract_folded_w1", fold_bn=True)), "folded"),
+        "histo_train_trunk_dp2": ("histo_train",
+                                  argv(histo_cfg("histo_trunk_dp2", quantize_trunk="int8",
+                                                 mesh=dp2, **f32_held)),
+                                  argv(histo_cfg("histo_trunk_w1", quantize_trunk="int8",
+                                                 **f32_held)), "train"),
+        # its world-1 run reads the host loader: the cache's batches are its
+        "histo_train_cache_dp2": ("histo_train",
+                                  argv(histo_cfg("histo_cache_dp2", mesh=dp2,
+                                                 cache_patches_on_device=True, **f32_held)),
+                                  argv(histo_cfg("histo_cache_w1", **f32_held)), "train"),
+        "slide_extractfeatures_int8_dp2": ("slide_extractfeatures",
+                                           slide_cfg("p21_slide_int8_dp2", mesh=dp2),
+                                           slide_cfg("p21_slide_int8_w1"), "slide"),
+        "cv_run_rna_dp2": ("cv_run", cv_cfg("p21_cv_rna_dp2", mesh=dp2),
+                           cv_cfg("p21_cv_rna_w1"), "cv"),
+    }
+
+
+def _kernel_launches(launches: dict) -> dict:
+    """A run's launches of K1, K3 (its conv forms, which ``qmm_requant``
+    counts with the residual one, and the stem pass), K4 and K2 (K2a, K2b
+    single and paired, both dtypes)."""
+    return {"K1": launches["attention_pool"],
+            "K3": launches["qmm_requant"] + launches["stem_requant_pool"],
+            "K4": launches["fused_bottleneck_stage"],
+            "K2": sum(launches[k] for k in ("dropout_matmul", "seeded_dropout",
+                                             "seeded_dropout_pair"))}
+
+
+def _p21_check_mesh_paths(mesh_runs: dict, world1: dict, records: list, failures: list,
+                          smi: str) -> tuple[dict, dict]:
+    """21f's checks: each rank's launches against the world-1 run's (the
+    slide tail, K1, on rank 0 alone: it alone scores and writes), and the
+    outputs against world 1's: the extract features (int8: per-case cosine
+    ``P21_INT8_COSINE``; folded bf16: ``SERVE_TOL``), the train runs' first
+    step and weights (float32, BatchNorm held: the whole gradient vector
+    and the whole update against ``P21_GRAD_TOL`` / ``P21_UPDATE_TOL``), the slide
+    frames, and the folds' frames (``P21_FRAME_TOL``) with one set of fold
+    files."""
+    by_cli, checks, table = {}, {}, {}
+    for name, (cli, (cfg, _), (cfg1, _), kind) in mesh_runs.items():
+        want = world1[name]
+        table[name] = {"world1": _kernel_launches(want["launches"])}
+        for rank in range(P21_WORLD):
+            rec = records[rank][name]
+            expected = dict(want["launches"])
+            if kind == "slide" and rank:
+                expected["attention_pool"] = 0
+            table[name][f"rank{rank}"] = _kernel_launches(rec["launches"])
+            if rec["code"] != 0 or rec["launches"] != expected:
+                failures.append(f"{name} rank {rank}: exit {rec['code']}, launches "
+                                f"{rec['launches']} (expected {expected})")
+            by_cli[f"{name}_rank{rank}"] = {"launches": rec["launches"],
+                                            "wall_s": rec["wall_s"]}
+        if not any(table[name]["world1"].values()):
+            failures.append(f"{name}: no kernel of its path launched")
+        if kind in ("int8", "folded"):
+            diffs = {}
+            for split in ("train", "val", "test"):
+                a, b = (np.loadtxt(os.path.join(c["output_path"],
+                                                f"pathology_features_{split}.csv"),
+                                   delimiter=",", ndmin=2) for c in (cfg, cfg1))
+                if kind == "int8":
+                    cos = (a * b).sum(-1) / np.linalg.norm(a, axis=-1) / np.linalg.norm(b, axis=-1)
+                    diffs[split] = {"cosine_min": float(cos.min()),
+                                    "max_abs_diff": float(np.abs(a - b).max())}
+                    ok = a.shape == b.shape and cos.min() >= P21_INT8_COSINE
+                else:
+                    diffs[split] = {"max_abs_diff": float(np.abs(a - b).max())}
+                    ok = a.shape == b.shape and diffs[split]["max_abs_diff"] <= \
+                        SERVE_TOL["bfloat16"] * max(1.0, float(np.abs(b).max()))
+                if not (ok and np.isfinite(a).all()):
+                    failures.append(f"{name} {split}: features differ from world 1: "
+                                    f"{diffs[split]}")
+            checks[name] = diffs
+        elif kind == "train":
+            # BatchNorm held (freeze_bn), float32: the first step's whole
+            # gradient vector and the steps' whole update are world 1's up to
+            # the sums' order; a tensor's own can part further (the Cox-blind
+            # head bias's gradient is rounding noise: 3.4e-3 of its own norm
+            # on an H100), recorded, not judged. A gradient
+            # summed over the ranks twice, or not at all, parts the whole
+            # vector by half of it
+            got, ref = torch.load(want["world_grads"]), want["record"]
+            names = list(ref["grads"])
+            got["final"] = _final_weights(cfg, cfg["flag"], names)
+            ref["final"] = _final_weights(cfg1, cfg1["flag"], names)
+
+            def whole(r, key, base=None):
+                return torch.cat([(r[key][k] - (0 if base is None else base[k])).flatten()
+                                  for k in names])
+
+            rec = {"loss_rel": abs(got["loss"] - ref["loss"]) / max(abs(ref["loss"]), 1e-6),
+                   "grad_rel": _rel(whole(got, "grads"), whole(ref, "grads")),
+                   "update_rel": _rel(whole(got, "final", ref["weights0"]),
+                                      whole(ref, "final", ref["weights0"])),
+                   **_distances(got, ref, names, "float32")}
+            checks[name] = rec
+            if not (rec["loss_rel"] <= P21_LOSS_TOL["float32"]
+                    and rec["grad_rel"] <= P21_GRAD_TOL["float32"]
+                    and rec["update_rel"] <= P21_UPDATE_TOL["float32"]):
+                failures.append(f"{name} disagrees with its world-1 run: {rec}")
+        elif kind == "slide":
+            a, b = (read_frame(os.path.join(c["output_path"], "slide_scores.csv"))
+                    for c in (cfg, cfg1))
+            fa, fb = (np.loadtxt(os.path.join(c["output_path"],
+                                              "pathology_features_slides.csv"),
+                                 delimiter=",", ndmin=2) for c in (cfg, cfg1))
+            cos = float((fa * fb).sum() / np.linalg.norm(fa) / np.linalg.norm(fb))
+            checks[name] = {"n_patches": a["n_patches"], "score": a["score"],
+                            "world1_score": b["score"], "embedding_cosine": cos}
+            if a["n_patches"] != b["n_patches"] or cos < P21_INT8_COSINE \
+                    or not np.isfinite(fa).all():
+                failures.append(f"{name}: slide frames differ from world 1: {checks[name]}")
+        else:  # cv
+            ckpt, ckpt1 = cfg["checkpoint_path"], cfg1["checkpoint_path"]
+            rel = 0.0
+            for k in range(1, CV_FOLDS + 1):
+                for split in ("val", "test"):
+                    frame = f"outputs/rna_cv_cv{k}/rna_{split}_rna_cv_cv{k}_df.csv"
+                    a, b = (np.array(_read_csv_column(os.path.join(c, frame), "score"), float)
+                            for c in (ckpt, ckpt1))
+                    if a.shape != b.shape or not np.isfinite(a).all():
+                        failures.append(f"{name}: {frame} has {a.shape} scores "
+                                        f"(world 1: {b.shape})")
+                        continue
+                    rel = max(rel, float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-12)))
+                for split in ("train", "val"):
+                    fold_csv = f"cv/fold{k}/{split}.csv"
+                    with open(os.path.join(ckpt, fold_csv), "rb") as fa, \
+                            open(os.path.join(ckpt1, fold_csv), "rb") as fb:
+                        if fa.read() != fb.read():
+                            failures.append(f"{name}: {fold_csv} differs from world 1's")
+            runs_written = sorted(os.listdir(os.path.join(ckpt, "models")))
+            checks[name] = {"frames_rel_max": rel, "runs_written": runs_written}
+            if rel > P21_FRAME_TOL or runs_written != [f"rna_cv_cv{k}"
+                                                       for k in range(1, CV_FOLDS + 1)]:
+                failures.append(f"{name}: frames {rel} from world 1, runs {runs_written}")
+        print(f"phase 21f {name}: {json.dumps(checks[name], default=str)} [{smi}]")
+    print(f"phase 21f launches a rank (K1 / K3 / K4 / K2) beside world 1: "
+          f"{json.dumps(table)} [{smi}]")
+    checks["launches"] = table
+    return by_cli, checks
+
+
 def drive_phase21(root: str, device: torch.device, smi: str) -> tuple[dict, dict]:
-    """Phase 21: (a) K2's offset forms on the card; (b) worlds of
+    """Phase 21 (``_drive_phase21``) with its outputs in a directory on
+    ``P21_TMPFS`` when that has room: the phase writes ~20 GB of
+    checkpoints, many rewritten epoch by epoch, and the card's machine caps
+    the bytes written to its disk (deleted ones count), which the smoke
+    reached with them on disk. Removed at the phase's end."""
+    fits = os.path.isdir(P21_TMPFS) and shutil.disk_usage(P21_TMPFS).free > P21_TMPFS_BYTES
+    scratch = tempfile.mkdtemp(dir=P21_TMPFS) if fits else None
+    print(f"phase 21 writes under {scratch or root}"
+          + ("" if fits else f" ({P21_TMPFS} has no {P21_TMPFS_BYTES >> 30} GiB free)"))
+    try:
+        return _drive_phase21(root, os.path.join(scratch or root, "p21"), device, smi)
+    finally:
+        if scratch is not None:
+            shutil.rmtree(scratch, ignore_errors=True)
+
+
+def _drive_phase21(root: str, work: str, device: torch.device, smi: str
+                   ) -> tuple[dict, dict]:
+    """Phase 21, its outputs under ``work``: (a) K2's offset forms on the card; (b) worlds of
     ``P21_WORLD`` ranks sharing the card over gloo (``rna_train``,
     ``histo_train`` under ``{"dp": 2}`` and ``{"dp": 1, "mp": 2,
     "shard_bag": true}`` in bf16 and float32, ``joint_train``,
@@ -4444,11 +4671,12 @@ def drive_phase21(root: str, device: torch.device, smi: str) -> tuple[dict, dict
     held against the same run at world 1, which this process runs while
     the world works; (c) a world of one over NCCL; (d) ``rna_train``
     preempted on rank 1 alone and resumed at world 2 and at world 1; (e)
-    the TP step's time at world 2 and 1 with its collectives' share."""
+    the TP step's time at world 2 and 1 with its collectives' share; (f)
+    a second world, beside the first, on the paths of ``_p21_mesh_paths``
+    (``_p21_check_mesh_paths``)."""
     t_phase = time.perf_counter()
     e2e = {"k2_offsets": check_k2_offsets(device, smi)}
     here = os.path.dirname(os.path.abspath(__file__))
-    work = os.path.join(root, "p21")
     os.makedirs(work)
     paths = make_rna_cohort(os.path.join(work, "rna"), P21_RNA_SPLITS, SEED + 21)
     histo_csv = os.path.join(root, "cohort.csv")
@@ -4523,15 +4751,25 @@ def drive_phase21(root: str, device: torch.device, smi: str) -> tuple[dict, dict
         {"kind": "dryrun", "name": "dryrun_multichip", "dir": os.path.join(work, "dryrun")},
     ]
     os.makedirs(os.path.join(work, "dryrun"))
-    jobs_path = os.path.join(work, "jobs.json")
-    with open(jobs_path, "w") as f:
-        json.dump(jobs, f)
-    out_dir = os.path.join(work, "records")
-    os.makedirs(out_dir)
+    mesh_runs = _p21_mesh_paths(root, work, paths, histo_cfg, extract_cfg)
+    jobs_b = [{"kind": "cli", "name": name, "cli": cli, "argv": c[1],
+               "grads": os.path.join(work, f"{name}.grads.pt")}
+              for name, (cli, c, _, _) in mesh_runs.items()]
     t_world = time.perf_counter()
-    ranks = launch.start(P21_WORLD, [sys.executable, os.path.join(here, "chip_smoke.py"),
-                                     "--phase21-worker", jobs_path, out_dir],
-                         os.path.join(work, "logs"), cwd=here)
+    worlds = {}
+    for tag, world_jobs, env in (("", jobs, None),
+                                 ("_b", jobs_b, {**os.environ, "OMP_NUM_THREADS": "2"})):
+        jobs_path = os.path.join(work, f"jobs{tag}.json")
+        with open(jobs_path, "w") as f:
+            json.dump(world_jobs, f)
+        out = os.path.join(work, f"records{tag}")
+        os.makedirs(out)
+        worlds[tag] = (out, launch.start(
+            P21_WORLD, [sys.executable, os.path.join(here, "chip_smoke.py"),
+                        "--phase21-worker", jobs_path, out],
+            os.path.join(work, f"logs{tag}"), env=env, cwd=here))
+    out_dir, ranks = worlds[""]
+    out_dir_b, ranks_b = worlds["_b"]
     # the world-1 runs, in this process, while the world works, with
     # train-mode BatchNorm in the synced arithmetic over this process alone
     # (nn.BatchNorm2d's own sums part ResNet-50's first-step gradients from
@@ -4568,19 +4806,38 @@ def drive_phase21(root: str, device: torch.device, smi: str) -> tuple[dict, dict
                 P21_CLIS[cli].main(["--config", path1])
             witness[name]["final"] = _final_weights(cfg1, cfg1["flag"],
                                                     witness[name]["grads"])
+        # 21f's world-1 runs
+        world1_b = {}
+        for name, (cli, _, (cfg1, argv1), _) in mesh_runs.items():
+            record: dict = {}
+            reset_counts()
+            t0 = time.perf_counter()
+            with _first_step(record):
+                P21_CLIS[cli].main(argv1)
+            torch.cuda.synchronize()
+            world1_b[name] = {"launches": read_counts(), "record": record,
+                              "wall_s": time.perf_counter() - t0,
+                              "world_grads": os.path.join(work, f"{name}.grads.pt")}
+            print(f"phase 21f {name} at world 1: launches {world1_b[name]['launches']}, "
+                  f"{world1_b[name]['wall_s']:.2f} s")
     finally:
         codes = launch.wait(ranks, P21_TIMEOUT_S)
+        codes_b = launch.wait(ranks_b, P21_TIMEOUT_S)
     world_s = time.perf_counter() - t_world
     logs = [r.output() for r in ranks]
-    for rank, (code, log) in enumerate(zip(codes, logs)):
-        print(f"--- phase 21 rank {rank} (exit {code}), its last lines:\n"
-              + "\n".join(log.splitlines()[-12:]))
-        if code:
-            raise AssertionError(f"phase 21 rank {rank} exited {code}:\n{log[-6000:]}")
-    records = []
+    for tag, world_codes, world_ranks in (("", codes, ranks), ("f", codes_b, ranks_b)):
+        for rank, (code, r) in enumerate(zip(world_codes, world_ranks)):
+            log = r.output()
+            print(f"--- phase 21{tag} rank {rank} (exit {code}), its last lines:\n"
+                  + "\n".join(log.splitlines()[-12:]))
+            if code:
+                raise AssertionError(f"phase 21{tag} rank {rank} exited {code}:\n"
+                                     f"{log[-6000:]}")
+    records, records_b = [], []
     for rank in range(P21_WORLD):
-        with open(os.path.join(out_dir, f"rank{rank}.json")) as f:
-            records.append({r["name"]: r for r in json.load(f)})
+        for d, recs in ((out_dir, records), (out_dir_b, records_b)):
+            with open(os.path.join(d, f"rank{rank}.json")) as f:
+                recs.append({r["name"]: r for r in json.load(f)})
     for name, same in same_run.items():
         world1[name], witness[name] = world1[same], witness[same]
 
@@ -4629,6 +4886,10 @@ def drive_phase21(root: str, device: torch.device, smi: str) -> tuple[dict, dict
                 scores = np.array(_read_csv_column(path, "score"), float)
                 if not (scores.size and np.isfinite(scores).all()):
                     failures.append(f"{path}: bad scores {scores}")
+
+    mesh_by_cli, checks["mesh_paths"] = _p21_check_mesh_paths(mesh_runs, world1_b,
+                                                              records_b, failures, smi)
+    by_cli.update(mesh_by_cli)
 
     # (d) preemption of rank 1 alone: both ranks exit 143 and leave one
     # .preempt; resumed at world 2 the run ends with the uninterrupted run's

@@ -29,12 +29,20 @@ multimodalbrainsurvival_torch.cli.<name> --config cfg.json``
 processes. Rank 0 alone writes frames, checkpoints and the metric log.
 ``distributed: true`` needs a ``flag`` (the JAX rule for multi-host runs);
 without it a mesh run takes rank 0's timestamp flag, so every rank writes
-under one ``save_dir``.
+under one ``save_dir``. The other entry points that place batches over the
+mesh are the ``slide_*`` CLIs, ``cv_run`` and ``sweep``; under a mesh the
+int8 calibrations run on rank 0 and every rank takes its qtree
+(``rank_zero_tree``). The single-device serving CLIs (``histo_savescore``,
+``rna_savescore``, ``rna_extractfeatures``, ``feature_savescore``,
+``joint_savescore``, ``export_model``) ignore ``mesh``, as their JAX twins
+do; started in a world of several ranks, rank 0 serves and the others wait
+for it (``single_device_serving``).
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import datetime
 import itertools
 import os
@@ -67,6 +75,9 @@ from multimodalbrainsurvival_torch.parallel.mesh import (
     batch_device_put,
     initialize_from_env,
     make_mesh,
+    whole_patch_bag,
+    world_barrier,
+    world_rank,
 )
 from multimodalbrainsurvival_torch.train import TrainingPreempted
 from multimodalbrainsurvival_torch.train.adapters import (
@@ -108,10 +119,9 @@ def make_parser(description: str, device: bool = True) -> argparse.ArgumentParse
     return p
 
 
-def load_config(args, mesh_ported: bool = True) -> tuple[Config, str]:
+def load_config(args) -> tuple[Config, str]:
     """Returns (config, flag); the flag defaults to a timestamp, as in the
-    reference. ``mesh_ported=False``: the entry point raises under a mesh
-    over more than one device (ROADMAP.md, queue 1, item 7b)."""
+    reference."""
     config = Config.from_json(args.config)
     unknown = config.unknown_keys()
     if unknown:
@@ -119,7 +129,6 @@ def load_config(args, mesh_ported: bool = True) -> tuple[Config, str]:
     ignored = config.ignored_keys()
     if ignored:
         print(f"config: ignoring keys with no meaning in the port: {', '.join(ignored)}")
-    config.check_ported(mesh_ported)
     if (config.get("mesh") or {}).get("distributed") and not config.get("flag"):
         raise SystemExit("distributed runs need an explicit 'flag' in the config "
                          "(the timestamp fallback differs across hosts)")
@@ -151,6 +160,35 @@ def make_device_put(config: Config, device: torch.device, flag: str
           + (" with the bag sharded over mp" if put.shard_bag else "")
           + f" over {mesh.backend}, on {mesh.device}", flush=True)
     return put, mesh.device, flag
+
+
+@contextlib.contextmanager
+def single_device_serving(device: torch.device):
+    """The single-device serving CLIs' world rule: they serve on one device
+    whatever ``mesh`` says, as their JAX twins do, so in a
+    ``torch.distributed`` world of more than one rank (the launcher's, or
+    one that ``cv_run`` runs them in) rank 0 serves and the other ranks wait
+    for it at a barrier: no two ranks write one frame. Yields whether this
+    process serves (True without a world)."""
+    initialize_from_env(device)
+    rank = world_rank()
+    if rank is None:
+        yield True
+        return
+    try:
+        yield rank == 0
+    finally:
+        world_barrier(device)
+
+
+def rank_zero_tree(put: BatchPut | None, make, device: torch.device):
+    """``make()`` (an int8 calibration's tree of tensors) made on rank 0 of
+    ``put``'s mesh and sent to every rank, on ``device``: each rank's float
+    pass could round an abs-max otherwise, and the ranks would serve or
+    train with other scales. Without a placement, ``make()``."""
+    if put is None:
+        return make()
+    return put.mesh.broadcast_tree(make() if put.mesh.rank == 0 else None, device)
 
 
 def experiment_dirs(config: Config, flag: str) -> tuple[str, str]:
@@ -342,16 +380,17 @@ def build_datasets(config, quick: bool, dataset_cls: type = PatchBagDataset
     }
 
 
-def cache_datasets(config: Config, datasets: dict, device: torch.device) -> dict:
+def cache_datasets(config: Config, datasets: dict, device: torch.device,
+                   put: BatchPut | None = None) -> dict:
     """With ``cache_patches_on_device: true`` the train CLIs' splits held on
-    ``device`` under one budget of ``cache_max_bytes_per_device`` (12 GiB by
-    default; ``data/device_cache.py``), as the JAX ``cli/histo_train.py:
-    133-143`` and ``cli/joint_train.py:115-125`` hold them; else as they
-    are."""
+    ``device`` under one budget of ``cache_max_bytes_per_device`` a rank
+    (12 GiB by default), block-sharded over ``put``'s mesh
+    (``data/device_cache.py``), as the JAX ``cli/histo_train.py:133-143``
+    and ``cli/joint_train.py:115-125`` hold them; else as they are."""
     return maybe_cache_datasets(
         datasets, bool(config.get("cache_patches_on_device", False)), device=device,
         max_bytes=int(config.get("cache_max_bytes_per_device", DEFAULT_MAX_BYTES)),
-        num_threads=int(config.get("num_workers", 8)) or 1)
+        num_threads=int(config.get("num_workers", 8)) or 1, put=put)
 
 
 def load_mil_model(config: Config, device: torch.device,
@@ -372,16 +411,18 @@ def load_mil_model(config: Config, device: torch.device,
     return model.to(device, memory_format=torch.channels_last).eval()
 
 
-def quantize_serving(config: Config, adapter: MILAdapter, probe: dict
-                     ) -> QuantizedMILAdapter:
+def quantize_serving(config: Config, adapter: MILAdapter, probe,
+                     put: BatchPut | None = None) -> QuantizedMILAdapter:
     """Swap a float MIL or joint serving adapter for the int8 (W8A8) one:
-    calibrate the activation ranges on the probe batch and quantize the
-    folded ResNet weights; for the joint model also the RNA encoder
+    calibrate the activation ranges on the batch ``probe()`` reads and
+    quantize the folded ResNet weights (on rank 0 of ``put``'s mesh, the
+    qtree sent to every rank); for the joint model also the RNA encoder
     (``quantize_rna_encoder``, dynamic activation scales: nothing to
     calibrate). Deviates from reference numerics by int8 rounding
     (per-sample embedding cosine > 0.995), opt-in for that reason."""
-    qtree = quantize_mil_resnet(adapter.model.resnet, [probe["patch_bag"]],
-                                arch=config.model_name)
+    qtree = rank_zero_tree(put, lambda: quantize_mil_resnet(
+        adapter.model.resnet, [probe()["patch_bag"]], arch=config.model_name),
+        adapter.device)
     common = dict(model=adapter.model, device=adapter.device,
                   loader_kwargs=adapter.loader_kwargs, qtree=qtree,
                   arch=config.model_name)
@@ -405,10 +446,12 @@ def quantize_rna_serving(adapter: TableAdapter) -> QuantizedTableAdapter:
 
 
 def serving_adapter(config: Config, device: torch.device, datasets: dict,
-                    build=build_mil_model, adapter_cls: type = MILAdapter) -> MILAdapter:
+                    build=build_mil_model, adapter_cls: type = MILAdapter,
+                    put: BatchPut | None = None) -> MILAdapter:
     """The serving CLIs' adapter: the float model (``build``'s, MIL by
     default, in ``adapter_cls``), or with ``quantize: "int8"`` its int8
-    encoders, the ResNet's calibrated on the first train batch."""
+    encoders, the ResNet's calibrated on the first train batch (by rank 0
+    of ``put``'s mesh)."""
     adapter = adapter_cls(
         model=load_mil_model(config, device, build),
         device=device,
@@ -416,14 +459,20 @@ def serving_adapter(config: Config, device: torch.device, datasets: dict,
     )
     if not quantize_mode(config):
         return adapter
-    batches = datasets["train"].batches(config.batch_size, **adapter.loader_kwargs)
-    probe = next(batches)
-    batches.close()
-    return quantize_serving(config, adapter, probe)
+
+    def probe():
+        batches = datasets["train"].batches(config.batch_size, **adapter.loader_kwargs)
+        try:
+            return next(batches)
+        finally:
+            batches.close()
+
+    return quantize_serving(config, adapter, probe, put)
 
 
 def quantize_trunk_training(config: Config, adapter: MILAdapter, datasets: dict,
-                            batch_size: int, seed: int) -> MILAdapter:
+                            batch_size: int, seed: int,
+                            put: BatchPut | None = None) -> MILAdapter:
     """With ``quantize_trunk: "int8"``, swap a float MIL or joint training
     adapter for the int8 frozen-trunk one (JAX ``cli/_common.py:416-496``).
 
@@ -432,7 +481,9 @@ def quantize_trunk_training(config: Config, adapter: MILAdapter, datasets: dict,
     below them run forward-only every step; that prefix is folded,
     calibrated and quantized once, here, on the JAX CLI's calibration set:
     its probe batch (the first train batch) and the first two train
-    batches. Without the key the adapter is returned as it is."""
+    batches. Under ``put``'s mesh rank 0 calibrates and every rank takes its
+    qtree, so every rank trains one model. Without the key the adapter is
+    returned as it is."""
     mode = str(config.get("quantize_trunk", "") or "")
     if not mode:
         return adapter
@@ -444,15 +495,16 @@ def quantize_trunk_training(config: Config, adapter: MILAdapter, datasets: dict,
         raise ValueError(
             "quantize_trunk requires n_layers_to_train <= 4: the frozen prefix "
             f"must cover at least conv1 and layer1 (got n_layers_to_train={n})")
+
+    # every rank reads them: the mesh-sharded cache's batches are collective
     batches = datasets["train"].batches(batch_size, **adapter.loader_kwargs)
     try:
-        first_two = [b["patch_bag"] for b in itertools.islice(batches, 2)]
+        first_two = [whole_patch_bag(b, put) for b in itertools.islice(batches, 2)]
     finally:
         batches.close()
-    cal_bags = first_two[:1] + first_two
-    qtree = quantize_trunk_for_training(adapter.model.resnet, cal_bags,
-                                        arch=config.model_name,
-                                        augment=adapter.augment, seed=seed)
+    qtree = rank_zero_tree(put, lambda: quantize_trunk_for_training(
+        adapter.model.resnet, first_two[:1] + first_two, arch=config.model_name,
+        augment=adapter.augment, seed=seed), adapter.device)
     print(f"quantize_trunk: int8 frozen prefix = stem + {trunk_stages} stage(s); "
           "the trainable tail stays float")
     cls = QuantTrunkJointAdapter if isinstance(adapter, JointAdapter) else QuantTrunkMILAdapter

@@ -33,7 +33,16 @@ every child CLI (``cuda`` by default, which raises without a card)::
   (the savescore frame's columns).
 
 Config keys: ``cv_csv_path`` (a single cohort CSV) and ``cv_folds``
-(overrides ``--folds``). Everything else is the task's train config.
+(overrides ``--folds``). Everything else is the task's train config:
+``mesh``, ``cache_patches_on_device`` and ``quantize_trunk`` apply to each
+fold unchanged (JAX ``cv_run.py:44-48``).
+
+In a world (``python -m torch.distributed.run --nproc_per_node N -m
+multimodalbrainsurvival_torch.cli.cv_run ...`` with a ``mesh`` of N
+ranks) every rank runs this loop and the train CLIs in-process in that
+world; rank 0 writes the fold CSVs, the configs and the summaries, the
+others waiting for its files, and its timestamp flag is every rank's. The
+savescore CLIs serve on one device (their world rule: rank 0 serves).
 """
 
 from __future__ import annotations
@@ -44,7 +53,11 @@ import os
 
 import numpy as np
 
-from multimodalbrainsurvival_torch.cli._common import load_config, make_parser
+from multimodalbrainsurvival_torch.cli._common import (
+    load_config,
+    make_device_put,
+    make_parser,
+)
 from multimodalbrainsurvival_torch.device import resolve_device
 from multimodalbrainsurvival_torch.frames import (
     as_text,
@@ -59,6 +72,7 @@ from multimodalbrainsurvival_torch.frames import (
     write_frame,
 )
 from multimodalbrainsurvival_torch.ops.metrics import survival_ci
+from multimodalbrainsurvival_torch.parallel.mesh import world_barrier
 
 TASKS = ("rna", "histo", "feature", "joint")
 
@@ -194,9 +208,11 @@ def main(argv=None):
     parser.add_argument("--no_savescore", type=int, default=0,
                         help="1 = train the folds only, skip score export")
     args = parser.parse_args(argv)
-    resolve_device(args.device)
+    device = resolve_device(args.device)
     train_main, savescore_main = task_mains(args.task)
-    config, flag = load_config(args, mesh_ported=False)
+    config, flag = load_config(args)
+    put, _, flag = make_device_put(config, device, flag)
+    writes = put is None or put.mesh.rank == 0
     checkpoint_path = config.get("checkpoint_path", "checkpoints/")
     k = int(config.get("cv_folds", 0) or args.folds)
 
@@ -215,14 +231,15 @@ def main(argv=None):
     rows = []
     for f in range(k):
         fold_dir = os.path.join(cv_dir, f"fold{f + 1}")
-        os.makedirs(fold_dir, exist_ok=True)
         train_csv = os.path.join(fold_dir, "train.csv")
         val_csv = os.path.join(fold_dir, "val.csv")
         val_rows = [i for i, g in enumerate(folds) if g == f]
-        for path, keep in ((train_csv, [i for i, g in enumerate(folds) if g != f]),
-                           (val_csv, val_rows)):
-            with open(path, "w", newline="") as fh:
-                fh.writelines([header] + [lines[i] for i in keep])
+        if writes:
+            os.makedirs(fold_dir, exist_ok=True)
+            for path, keep in ((train_csv, [i for i, g in enumerate(folds) if g != f]),
+                               (val_csv, val_rows)):
+                with open(path, "w", newline="") as fh:
+                    fh.writelines([header] + [lines[i] for i in keep])
 
         flag_k = f"{flag}_cv{f + 1}"
         raw = {key: v for key, v in dict(config.raw).items() if not key.startswith("cv_")}
@@ -236,8 +253,10 @@ def main(argv=None):
             flag=flag_k,
         )
         cfg_path = os.path.join(fold_dir, "config_train.json")
-        with open(cfg_path, "w") as fh:
-            json.dump(raw, fh, indent=2)
+        if writes:
+            with open(cfg_path, "w") as fh:
+                json.dump(raw, fh, indent=2)
+        world_barrier(device)  # every rank's train CLI reads them
 
         n_val = len(val_rows)
         n_train = n_rows(df) - n_val
@@ -256,14 +275,17 @@ def main(argv=None):
                 output_path=output_dir,
             )
             score_path = os.path.join(fold_dir, "config_savescore.json")
-            with open(score_path, "w") as fh:
-                json.dump(score_raw, fh, indent=2)
+            if writes:
+                with open(score_path, "w") as fh:
+                    json.dump(score_raw, fh, indent=2)
             savescore_main(["--config", score_path] + child_args)
-            for split in ("val", "test"):
+            for split in ("val", "test") if writes else ():
                 frame = fold_frame(output_dir, flag_k, split)
                 if frame is not None:
                     row[f"{split}_CI"] = frame_ci(frame)
         rows.append(row)
+    if not writes:
+        return
 
     summary = records_frame(rows)
     for split in ("val", "test"):

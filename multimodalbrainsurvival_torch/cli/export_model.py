@@ -33,6 +33,7 @@ from multimodalbrainsurvival_torch.cli._common import (
     make_parser,
     quantize_mode,
     serving_adapter,
+    single_device_serving,
 )
 from multimodalbrainsurvival_torch.cli.feature_train import build_feature_model
 from multimodalbrainsurvival_torch.cli.joint_train import build_joint_datasets, build_joint_model
@@ -90,24 +91,28 @@ def export_table(config, device, kind: str, out_dir: str) -> dict:
 def main(argv=None):
     args = make_parser(__doc__).parse_args(argv)
     device = resolve_device(args.device)
-    config, _ = load_config(args)
-    out_dir = config.get("export_path") or ""
-    if not out_dir:
-        raise SystemExit("export_model requires an 'export_path' config key")
-    kind = str(config.get("export_kind", "mil") or "mil").lower()
-    if kind == "mil":
-        meta = export_mil(config, device, bool(args.quick), out_dir)
-    elif kind == "joint":
-        meta = export_joint(config, device, bool(args.quick), out_dir)
-    elif kind in ("rna", "feature"):
-        if kind == "feature" and quantize_mode(config):
-            raise SystemExit("quantize=int8 applies to the ResNet and RNA serving paths, "
-                             "not export_kind='feature'")
-        meta = export_table(config, device, kind, out_dir)
-    else:
-        raise SystemExit(f"unknown export_kind: {kind!r} (expected mil / rna / feature / joint)")
-    print(f"exported {meta['kind']} artifact ({meta['size_bytes'] / 1e6:.1f} MB, platforms "
-          f"{'+'.join(meta['platforms'])}, quantize={meta['quantize'] or 'no'}) to {out_dir}")
+    with single_device_serving(device) as serving:
+        if not serving:
+            return
+        config, _ = load_config(args)
+        out_dir = config.get("export_path") or ""
+        if not out_dir:
+            raise SystemExit("export_model requires an 'export_path' config key")
+        kind = str(config.get("export_kind", "mil") or "mil").lower()
+        if kind == "mil":
+            meta = export_mil(config, device, bool(args.quick), out_dir)
+        elif kind == "joint":
+            meta = export_joint(config, device, bool(args.quick), out_dir)
+        elif kind in ("rna", "feature"):
+            if kind == "feature" and quantize_mode(config):
+                raise SystemExit("quantize=int8 applies to the ResNet and RNA serving paths, "
+                                 "not export_kind='feature'")
+            meta = export_table(config, device, kind, out_dir)
+        else:
+            raise SystemExit(f"unknown export_kind: {kind!r} "
+                             "(expected mil / rna / feature / joint)")
+        print(f"exported {meta['kind']} artifact ({meta['size_bytes'] / 1e6:.1f} MB, platforms "
+              f"{'+'.join(meta['platforms'])}, quantize={meta['quantize'] or 'no'}) to {out_dir}")
 
 
 if __name__ == "__main__":

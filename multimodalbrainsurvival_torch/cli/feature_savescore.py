@@ -16,6 +16,7 @@ from multimodalbrainsurvival_torch.cli._common import (
     load_config,
     make_parser,
     savescore_name,
+    single_device_serving,
 )
 from multimodalbrainsurvival_torch.cli.feature_train import (
     build_feature_datasets,
@@ -31,22 +32,25 @@ from multimodalbrainsurvival_torch.train.adapters import TableAdapter
 def main(argv=None):
     args = make_parser(__doc__).parse_args(argv)
     device = resolve_device(args.device)
-    config, flag = load_config(args)
-    output_path = config.get("output_path", "")
-    os.makedirs(output_path or ".", exist_ok=True)
+    with single_device_serving(device) as serving:
+        if not serving:
+            return
+        config, flag = load_config(args)
+        output_path = config.get("output_path", "")
+        os.makedirs(output_path or ".", exist_ok=True)
 
-    datasets = build_feature_datasets(config)
-    model = build_feature_model(in_features=datasets["train"].feature_dim)
-    model.load_state_dict(load_reference_state_dict(config["model_path"]))
-    adapter = TableAdapter(model=model.to(device).eval(), device=device)
-    settings = TrainSettings(task="survival_prediction", batch_size=config.batch_size)
-    prefix = os.path.basename(str(config["model_path"]).rstrip("/")) + "_feature"
-    for split, ds in datasets.items():
-        print(f"Evaluation for dataset : {split}")
-        _, frames, _ = evaluate(adapter, ds, settings, split=split)
-        out = os.path.join(output_path, savescore_name(prefix, split, flag))
-        write_frame(out, frames["case"])
-        print(f"wrote {out}")
+        datasets = build_feature_datasets(config)
+        model = build_feature_model(in_features=datasets["train"].feature_dim)
+        model.load_state_dict(load_reference_state_dict(config["model_path"]))
+        adapter = TableAdapter(model=model.to(device).eval(), device=device)
+        settings = TrainSettings(task="survival_prediction", batch_size=config.batch_size)
+        prefix = os.path.basename(str(config["model_path"]).rstrip("/")) + "_feature"
+        for split, ds in datasets.items():
+            print(f"Evaluation for dataset : {split}")
+            _, frames, _ = evaluate(adapter, ds, settings, split=split)
+            out = os.path.join(output_path, savescore_name(prefix, split, flag))
+            write_frame(out, frames["case"])
+            print(f"wrote {out}")
 
 
 if __name__ == "__main__":

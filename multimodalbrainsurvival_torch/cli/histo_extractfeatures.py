@@ -10,7 +10,10 @@ Under ``mesh: {"dp": D}`` (``python -m torch.distributed.run
 --nproc_per_node D -m multimodalbrainsurvival_torch.cli.histo_extractfeatures
 --config cfg.json``) each rank embeds its rows of every batch (its
 patches, with ``shard_bag``), the embeddings are gathered in rank order,
-and rank 0 writes the frames, equal to a world-of-one run's.
+and rank 0 writes the frames, equal to a world-of-one run's. With
+``quantize: "int8"`` rank 0 calibrates and every rank takes its qtree;
+with ``fold_bn: true`` each rank packs K4's weights from the same folded
+weights.
 """
 
 from __future__ import annotations
@@ -63,7 +66,7 @@ def main(argv=None):
     os.makedirs(output_path or ".", exist_ok=True)
 
     datasets = build_datasets(config, bool(args.quick))
-    adapter = serving_adapter(config, device, datasets)
+    adapter = serving_adapter(config, device, datasets, put=put)
     suffix = f"_{flag}" if "cv" in flag else ""
     for split, ds in datasets.items():
         print(f"extracting features for dataset : {split}")

@@ -93,7 +93,7 @@ def main(argv=None):
     put, device, flag = make_device_put(config, device, flag)
     save_dir, output_dir = experiment_dirs(config, flag)
 
-    datasets = cache_datasets(config, build_datasets(config, bool(args.quick)), device)
+    datasets = cache_datasets(config, build_datasets(config, bool(args.quick)), device, put)
     print("loaded datasets")
     torch.manual_seed(args.seed)
     model = build_mil_model(config)
@@ -130,7 +130,7 @@ def main(argv=None):
         preempt_sync_every=int(config.get("preempt_sync_every", 8)),
     )
     adapter = quantize_trunk_training(config, adapter, datasets, settings.batch_size,
-                                      args.seed)
+                                      args.seed, put)
     optimizer = tune_optimizer(
         build_grouped_optimizer(
             model, [("train", mil_freeze_ladder(config.n_layers_to_train),

@@ -21,6 +21,7 @@ from multimodalbrainsurvival_torch.cli._common import (
     make_parser,
     savescore_name,
     serving_adapter,
+    single_device_serving,
 )
 from multimodalbrainsurvival_torch.cli.joint_train import (
     build_joint_datasets,
@@ -35,23 +36,26 @@ from multimodalbrainsurvival_torch.train.adapters import JointAdapter
 def main(argv=None):
     args = make_parser(__doc__).parse_args(argv)
     device = resolve_device(args.device)
-    config, flag = load_config(args)
-    output_path = config.get("output_path", "")
-    os.makedirs(output_path or ".", exist_ok=True)
+    with single_device_serving(device) as serving:
+        if not serving:
+            return
+        config, flag = load_config(args)
+        output_path = config.get("output_path", "")
+        os.makedirs(output_path or ".", exist_ok=True)
 
-    datasets = build_joint_datasets(config, bool(args.quick))
-    build = functools.partial(build_joint_model, in_features=datasets["train"].rna_dim)
-    adapter = serving_adapter(config, device, datasets, build, JointAdapter)
-    settings = TrainSettings(task=config.task, num_classes=config.num_classes,
-                             batch_size=config.batch_size)
-    prefix = os.path.basename(str(config["model_path"]).rstrip("/")) + "_joint"
-    for split, ds in datasets.items():
-        print(f"Evaluation for dataset : {split}")
-        # savescore writes the CASE-level frame (2_JointFusion_savescore.py:96)
-        _, frames, _ = evaluate(adapter, ds, settings, split=split)
-        out = os.path.join(output_path, savescore_name(prefix, split, flag))
-        write_frame(out, frames["case"])
-        print(f"wrote {out}")
+        datasets = build_joint_datasets(config, bool(args.quick))
+        build = functools.partial(build_joint_model, in_features=datasets["train"].rna_dim)
+        adapter = serving_adapter(config, device, datasets, build, JointAdapter)
+        settings = TrainSettings(task=config.task, num_classes=config.num_classes,
+                                 batch_size=config.batch_size)
+        prefix = os.path.basename(str(config["model_path"]).rstrip("/")) + "_joint"
+        for split, ds in datasets.items():
+            print(f"Evaluation for dataset : {split}")
+            # savescore writes the CASE-level frame (2_JointFusion_savescore.py:96)
+            _, frames, _ = evaluate(adapter, ds, settings, split=split)
+            out = os.path.join(output_path, savescore_name(prefix, split, flag))
+            write_frame(out, frames["case"])
+            print(f"wrote {out}")
 
 
 if __name__ == "__main__":

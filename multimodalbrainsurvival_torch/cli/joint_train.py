@@ -121,7 +121,7 @@ def main(argv=None):
     save_dir, output_dir = experiment_dirs(config, flag)
 
     datasets = cache_datasets(config, build_joint_datasets(config, bool(args.quick)),
-                              device)
+                              device, put)
     print("loaded datasets")
     torch.manual_seed(args.seed)
     model = build_joint_model(config, in_features=datasets["train"].rna_dim)
@@ -152,7 +152,7 @@ def main(argv=None):
         preempt_sync_every=int(config.get("preempt_sync_every", 8)),
     )
     adapter = quantize_trunk_training(config, adapter, datasets, settings.batch_size,
-                                      args.seed)
+                                      args.seed, put)
     optimizer = tune_optimizer(
         build_joint_optimizer(model, config), config, len(datasets["train"]),
         num_epochs=settings.num_epochs, batch_size=settings.batch_size,

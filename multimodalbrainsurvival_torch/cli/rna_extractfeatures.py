@@ -20,6 +20,7 @@ from multimodalbrainsurvival_torch.cli._common import (
     extract_features_frames,
     load_config,
     make_parser,
+    single_device_serving,
 )
 from multimodalbrainsurvival_torch.cli.rna_train import build_rna_datasets, rna_serving_adapter
 from multimodalbrainsurvival_torch.device import resolve_device
@@ -44,20 +45,23 @@ def extract_split(adapter: TableAdapter, dataset, batch_size: int):
 def main(argv=None):
     args = make_parser(__doc__).parse_args(argv)
     device = resolve_device(args.device)
-    config, flag = load_config(args)
-    output_path = config.get("output_path", "")
-    os.makedirs(output_path or ".", exist_ok=True)
+    with single_device_serving(device) as serving:
+        if not serving:
+            return
+        config, flag = load_config(args)
+        output_path = config.get("output_path", "")
+        os.makedirs(output_path or ".", exist_ok=True)
 
-    datasets = build_rna_datasets(config)
-    adapter = rna_serving_adapter(config, device, datasets["train"].feature_dim)
-    suffix = f"_{flag}" if "cv" in flag else ""
-    for split, ds in datasets.items():
-        print(f"extracting features for dataset : {split}")
-        cases, feats = extract_split(adapter, ds, config.batch_size)
-        uc, uf = extract_features_frames(cases, feats)
-        write_frame(os.path.join(output_path, f"rna_cases_{split}{suffix}.csv"), {"0": uc})
-        np.savetxt(os.path.join(output_path, f"rna_features_{split}{suffix}.csv"),
-                   uf, delimiter=",")
+        datasets = build_rna_datasets(config)
+        adapter = rna_serving_adapter(config, device, datasets["train"].feature_dim)
+        suffix = f"_{flag}" if "cv" in flag else ""
+        for split, ds in datasets.items():
+            print(f"extracting features for dataset : {split}")
+            cases, feats = extract_split(adapter, ds, config.batch_size)
+            uc, uf = extract_features_frames(cases, feats)
+            write_frame(os.path.join(output_path, f"rna_cases_{split}{suffix}.csv"), {"0": uc})
+            np.savetxt(os.path.join(output_path, f"rna_features_{split}{suffix}.csv"),
+                       uf, delimiter=",")
 
 
 if __name__ == "__main__":

@@ -23,6 +23,15 @@ buffers, each copied with ``non_blocking`` and refilled only after the
 CUDA event recorded behind its copy. The embeddings stay on the card until
 the slide's tail has run; the last batch's padded rows are sliced off.
 
+Under ``mesh: {"dp": D}`` (``python -m torch.distributed.run
+--nproc_per_node D -m ...``; JAX ``:209-245``) ``batch_size`` must divide
+by ``D`` (``check_mesh_batch``, at start-up). Every rank tiles each slide
+itself (the tiler is deterministic) and keeps its ``batch_size / D`` rows
+of each batch in its buffers; the slide's features are gathered once, at
+its end, in the tiler's order. The int8 encoder is calibrated on rank 0,
+every rank taking its qtree. Rank 0 alone runs the slide's tail and
+writes the frames, equal to a world-of-one run's.
+
 Outputs under ``output_path``: ``slide_scores<suffix>.csv`` (slide, case,
 n_patches, score columns); ``pathology_cases_slides<suffix>.csv`` and
 ``pathology_features_slides<suffix>.csv`` (per-case mean embeddings, the
@@ -52,8 +61,10 @@ from multimodalbrainsurvival_torch.cli._common import (
     extract_features_frames,
     load_config,
     load_mil_model,
+    make_device_put,
     make_parser,
     quantize_mode,
+    rank_zero_tree,
 )
 from multimodalbrainsurvival_torch.config import Config
 from multimodalbrainsurvival_torch.data.patches import read_csv_rows
@@ -72,6 +83,8 @@ from multimodalbrainsurvival_torch.models.quantize import (
     quantized_extract,
 )
 from multimodalbrainsurvival_torch.ops.image import preprocess_patches
+from multimodalbrainsurvival_torch.parallel import mesh as parallel
+from multimodalbrainsurvival_torch.parallel.mesh import BatchPut
 
 #: a slide's bag is padded to a multiple of this many patches
 BAG_BUCKET = 128
@@ -168,19 +181,33 @@ def make_slide_tail(model: torch.nn.Module):
     return tail
 
 
+def check_mesh_batch(put: BatchPut | None, batch_size: int) -> None:
+    """At start-up: the tile batches split over the mesh's ``dp`` ranks
+    (JAX ``check_mesh_batch``, the same error)."""
+    if put is not None and batch_size % put.mesh.dp:
+        raise ValueError(
+            f"streaming serve under mesh: batch_size {batch_size} must be "
+            f"divisible by dp={put.mesh.dp} (batches shard over the batch axis)")
+
+
 def stream_slide_features(patch_extract, slide, cfg: TileConfig, batch_size: int,
                           device: torch.device, mask: np.ndarray | None = None,
-                          timing: dict | None = None) -> tuple[torch.Tensor, list]:
+                          timing: dict | None = None,
+                          put: BatchPut | None = None) -> tuple[torch.Tensor, list]:
     """One slide's tissue tiles through ``patch_extract``, batch k+1 tiled
     on the host while the card encodes batch k. Returns ``((N, D) float32
     features on device, [(x, y)] level-0 tile positions)``, in the tiler's
-    order. ``timing``, when given, gathers ``tile_s`` (host seconds in the
-    tiler and the buffer fill), ``wait_s`` (host seconds waiting for a
-    buffer's copy) and, on the card, ``encode_ms`` (device time of the
-    encoder launches, CUDA events) and ``batches``."""
+    order. Under ``put`` this rank encodes its ``dp`` rows of each batch
+    and the features are gathered from every rank at the slide's end.
+    ``timing``, when given, gathers ``tile_s`` (host seconds in the tiler
+    and the buffer fill), ``wait_s`` (host seconds waiting for a buffer's
+    copy) and, on the card, ``encode_ms`` (device time of the encoder
+    launches, CUDA events) and ``batches``."""
     cuda = device.type == "cuda"
     P = cfg.patch_size
-    bufs = [torch.empty((batch_size, P, P, 3), dtype=torch.uint8, pin_memory=cuda)
+    rows = batch_size if put is None else batch_size // put.mesh.dp
+    lo = 0 if put is None else put.mesh.dp_rank * rows
+    bufs = [torch.empty((rows, P, P, 3), dtype=torch.uint8, pin_memory=cuda)
             for _ in range(2)]
     views = [b.numpy() for b in bufs]
     copied: list = [None, None]  # the event behind each buffer's last copy
@@ -204,7 +231,7 @@ def stream_slide_features(patch_extract, slide, cfg: TileConfig, batch_size: int
             spans.append((start, end))
         else:
             out = patch_extract(x)
-        outs.append(out[:count])
+        outs.append(out)
         which, count = 1 - which, 0
 
     t = time.perf_counter()
@@ -213,7 +240,8 @@ def stream_slide_features(patch_extract, slide, cfg: TileConfig, batch_size: int
             t_wait = time.perf_counter()
             copied[which].synchronize()  # its last copy must have left
             wait_s += time.perf_counter() - t_wait
-        views[which][count] = patch
+        if lo <= count < lo + rows:
+            views[which][count - lo] = patch
         locs.append((int(x), int(y)))
         count += 1
         if count == batch_size:
@@ -233,7 +261,12 @@ def stream_slide_features(patch_extract, slide, cfg: TileConfig, batch_size: int
                 s.elapsed_time(e) for s, e in spans)
     if not outs:
         return torch.zeros((0, 0), dtype=torch.float32, device=device), locs
-    return torch.cat(outs), locs
+    feats = torch.stack(outs)  # (batches, rows, D)
+    if put is not None:
+        # (dp, batches, rows, D) in rank order -> each batch's rows in order
+        feats = parallel.all_gather(feats[None], put.mesh.dp_group).transpose(0, 1)
+    # only the last batch is partial: its padded rows are the last ones
+    return feats.reshape(-1, feats.shape[-1])[:len(locs)], locs
 
 
 def calibrate_int8(model: torch.nn.Module, slides: list, cfg: TileConfig, batch_size: int,
@@ -256,15 +289,21 @@ def calibrate_int8(model: torch.nn.Module, slides: list, cfg: TileConfig, batch_
 
 
 def serving_encoder(config: Config, device: torch.device, slides: list, cfg: TileConfig,
-                    build=None) -> tuple[torch.nn.Module, object, dict]:
+                    build=None, put: BatchPut | None = None
+                    ) -> tuple[torch.nn.Module, object, dict]:
     """The model (``build``'s, the MIL model by default) from
     ``model_path`` on ``device``, its per-patch encoder and the masks
-    already computed (the int8 calibration slide's)."""
+    already computed (the int8 calibration slide's, on the rank that
+    calibrated: rank 0 of ``put``'s mesh)."""
     model = load_mil_model(config, device, build or build_mil_model)
     qtree, masks = None, {}
     if quantize_mode(config):
-        qtree, masks[slides[0][0]] = calibrate_int8(model, slides, cfg, config.batch_size,
-                                                    config.model_name)
+        def calibrate():
+            tree, masks[slides[0][0]] = calibrate_int8(model, slides, cfg, config.batch_size,
+                                                       config.model_name)
+            return tree
+
+        qtree = rank_zero_tree(put, calibrate, device)
     return model, make_patch_extract(model, qtree, config.model_name), masks
 
 
@@ -284,13 +323,16 @@ def frame_of_rows(rows: list[dict]) -> dict:
 def main(argv=None):
     args = make_parser(__doc__).parse_args(argv)
     device = resolve_device(args.device)
-    config, flag = load_config(args, mesh_ported=False)
+    config, flag = load_config(args)
+    put, device, flag = make_device_put(config, device, flag)
+    check_mesh_batch(put, config.batch_size)
+    writes = put is None or put.mesh.rank == 0
     output_path = config.get("output_path", "")
     os.makedirs(output_path or ".", exist_ok=True)
 
     slides = resolve_slides(config, limit=2 if args.quick else None)
     cfg = tile_config(config)
-    model, patch_extract, masks = serving_encoder(config, device, slides, cfg)
+    model, patch_extract, masks = serving_encoder(config, device, slides, cfg, put=put)
     slide_tail = make_slide_tail(model)
     patch_dir = os.path.join(output_path or ".", "patch_features")
     save_patches = bool(config.get("save_patch_features", False))
@@ -300,7 +342,10 @@ def main(argv=None):
     rows, cases, embs = [], [], []
     for path, sid, case in slides:
         feats, locs = stream_slide_features(patch_extract, open_slide(path), cfg,
-                                            config.batch_size, device, mask=masks.get(path))
+                                            config.batch_size, device, mask=masks.get(path),
+                                            put=put)
+        if not writes:
+            continue
         if feats.shape[0] == 0:
             print(f"{sid}: no tissue tiles — skipped")
             continue
@@ -318,6 +363,8 @@ def main(argv=None):
                         index=False)
         print(f"{sid}: {feats.shape[0]} patches, score {row.get('score', scores.tolist())}")
 
+    if not writes:
+        return
     if not rows:
         raise SystemExit("no slide produced any tissue tiles")
     suffix = f"_{flag}" if "cv" in flag else ""

@@ -16,6 +16,11 @@ Output: ``<output_path>/joint_slide_scores<suffix>.csv`` (slide, case,
 n_patches, score, and the survival columns when the CSV has them); with
 survival labels the case-level C-index is printed.
 
+Under ``mesh: {"dp": D}`` the tiles stream as in ``slide_extractfeatures``
+(each rank encodes its rows of every batch, the int8 encoder calibrated on
+rank 0; JAX ``:121-142``) and rank 0 alone runs the joint tail and writes
+the frame.
+
     python -m multimodalbrainsurvival_torch.cli.slide_joint_savescore \\
         --config cfg.json [--device cpu]
 """
@@ -28,9 +33,14 @@ import os
 import numpy as np
 import torch
 
-from multimodalbrainsurvival_torch.cli._common import load_config, make_parser
+from multimodalbrainsurvival_torch.cli._common import (
+    load_config,
+    make_device_put,
+    make_parser,
+)
 from multimodalbrainsurvival_torch.cli.joint_train import build_joint_model
 from multimodalbrainsurvival_torch.cli.slide_extractfeatures import (
+    check_mesh_batch,
     frame_of_rows,
     pad_slide_bag,
     resolve_slides,
@@ -60,7 +70,9 @@ def make_joint_tail(model: torch.nn.Module):
 def main(argv=None):
     args = make_parser(__doc__).parse_args(argv)
     device = resolve_device(args.device)
-    config, flag = load_config(args, mesh_ported=False)
+    config, flag = load_config(args)
+    put, device, flag = make_device_put(config, device, flag)
+    check_mesh_batch(put, config.batch_size)
     output_path = config.get("output_path", "")
     os.makedirs(output_path or ".", exist_ok=True)
 
@@ -74,13 +86,16 @@ def main(argv=None):
 
     cfg = tile_config(config)
     build = functools.partial(build_joint_model, in_features=len(rna_cols))
-    model, patch_extract, masks = serving_encoder(config, device, slides, cfg, build)
+    model, patch_extract, masks = serving_encoder(config, device, slides, cfg, build, put)
     joint_tail = make_joint_tail(model)
 
     rows = []
     for i, ((path, sid, case), rna) in enumerate(zip(slides, rna_all)):
         feats, _ = stream_slide_features(patch_extract, open_slide(path), cfg,
-                                         config.batch_size, device, mask=masks.get(path))
+                                         config.batch_size, device, mask=masks.get(path),
+                                         put=put)
+        if put is not None and put.mesh.rank != 0:
+            continue
         if feats.shape[0] == 0:
             print(f"{sid}: no tissue tiles — skipped")
             continue
@@ -92,6 +107,8 @@ def main(argv=None):
         rows.append(row)
         print(f"{sid}: {feats.shape[0]} patches, score {row.get('score', scores.tolist())}")
 
+    if put is not None and put.mesh.rank != 0:
+        return
     if not rows:
         raise SystemExit("no slide produced any tissue tiles")
     frame = frame_of_rows(rows)

@@ -42,6 +42,12 @@ Budgeted modes:
   the best checkpoint's race included, so no epoch is retrained) to an
   ``eta``-times larger budget, until one finishes the config's
   ``num_epochs``.
+
+In a world (a ``mesh`` of N ranks under ``python -m
+torch.distributed.run --nproc_per_node N``) every rank runs the sweep and
+the train CLIs in-process in that world; rank 0 writes the configs and
+the summaries, the others waiting for its configs, and every rank ranks
+by rank 0's C-indices, so all take the same halving decisions.
 """
 
 from __future__ import annotations
@@ -53,11 +59,16 @@ import os
 
 import numpy as np
 
-from multimodalbrainsurvival_torch.cli._common import load_config, make_parser
+from multimodalbrainsurvival_torch.cli._common import (
+    load_config,
+    make_device_put,
+    make_parser,
+)
 from multimodalbrainsurvival_torch.cli.cv_run import TASKS, frame_ci, task_mains
 from multimodalbrainsurvival_torch.config import KNOWN_KEYS
 from multimodalbrainsurvival_torch.device import resolve_device
 from multimodalbrainsurvival_torch.frames import read_frame, records_frame, write_frame
+from multimodalbrainsurvival_torch.parallel.mesh import world_barrier
 
 
 def _normalize_grid(grid: dict, origin: str) -> dict:
@@ -181,9 +192,11 @@ def main(argv=None):
     args = parser.parse_args(argv)
     if args.halving == 1 or args.halving < 0:
         raise SystemExit("--halving must be 0 (off) or an eta >= 2")
-    resolve_device(args.device)
+    device = resolve_device(args.device)
     train_main, _ = task_mains(args.task)
-    config, flag = load_config(args, mesh_ported=False)
+    config, flag = load_config(args)
+    put, _, flag = make_device_put(config, device, flag)
+    writes = put is None or put.mesh.rank == 0
     checkpoint_path = config.get("checkpoint_path", "checkpoints/")
     if config.get("sweep_grid"):
         grid = _normalize_grid(config["sweep_grid"], "config sweep_grid")
@@ -197,7 +210,8 @@ def main(argv=None):
         child_args += ["--quick", "1"]
 
     sweep_dir = os.path.join(checkpoint_path, "sweep")
-    os.makedirs(sweep_dir, exist_ok=True)
+    if writes:
+        os.makedirs(sweep_dir, exist_ok=True)
 
     # combo id -> record; ids are 1-based positions in the (possibly
     # subsampled) combo list, so flags stay the same across rungs
@@ -216,15 +230,19 @@ def main(argv=None):
         if target_epochs is not None:  # halving controls the budget
             raw.update(num_epochs=target_epochs, resume=bool(resume))
         cfg_path = os.path.join(sweep_dir, f"config_hp{c}.json")
-        with open(cfg_path, "w") as fh:
-            json.dump(raw, fh, indent=2)
+        if writes:
+            with open(cfg_path, "w") as fh:
+                json.dump(raw, fh, indent=2)
+        world_barrier(device)  # every rank's train CLI reads it
         train_main(["--config", cfg_path] + child_args)
         records[c]["epochs_trained"] = (
             target_epochs if target_epochs is not None
             else int(raw.get("num_epochs", num_epochs)))
         output_dir = os.path.join(checkpoint_path, "outputs", flag_c)
-        records[c]["val_CI"] = _ci_of(output_dir, "val")
-        records[c]["test_CI"] = _ci_of(output_dir, "test")
+        cis = (_ci_of(output_dir, "val"), _ci_of(output_dir, "test")) if writes else None
+        if put is not None:  # rank 0 wrote the frames: its reading ranks
+            cis = put.mesh.broadcast_object(cis)
+        records[c]["val_CI"], records[c]["test_CI"] = cis
 
     summary_path = os.path.join(checkpoint_path, "sweep_summary.csv")
     if args.halving:
@@ -253,8 +271,9 @@ def main(argv=None):
                 break
             if all(records[c]["val_CI"] is None for c in alive):
                 # the completed rung's work is kept before stopping
-                write_frame(summary_path, records_frame(list(records.values())),
-                            index=False)
+                if writes:
+                    write_frame(summary_path, records_frame(list(records.values())),
+                                index=False)
                 raise SystemExit(
                     "--halving: no combo produced a survival val score "
                     "frame to rank by after rung 1 (partial results in "
@@ -277,6 +296,8 @@ def main(argv=None):
                   + f" (flag {records[c]['flag']}) ===")
             run_combo(c, overrides)
 
+    if not writes:
+        return
     ranked = rank(list(records.values()), halving=bool(args.halving))
     write_frame(summary_path, records_frame(ranked), index=False)
     print(f"wrote {summary_path}")

@@ -6,17 +6,12 @@ with the same defaults.
 
 Keys of the JAX package that mean nothing here (XLA buffer donation, the
 compile cache) are reported as ignored, as
-``use_cuda`` is (the device comes from ``--device``). Keys that change
-results but whose path is not ported yet raise, with a pointer to
-ROADMAP.md, rather than being dropped silently: under a ``mesh`` over more
-than one device, the paths of queue 1, item 7b (the device cache, int8 and
-folded serving and training).
+``use_cuda`` is (the device comes from ``--device``).
 """
 
 from __future__ import annotations
 
 import json
-import os
 from dataclasses import dataclass, field
 from typing import Any
 
@@ -57,10 +52,6 @@ KNOWN_KEYS = {
 #: read by the JAX package only; no meaning in the port
 IGNORED_KEYS = ("use_cuda", "donate_state", "compile_cache_dir")
 
-#: keys whose paths do not run under a mesh over more than one device yet
-#: (ROADMAP.md, queue 1, item 7b)
-MESH_7B_KEYS = ("cache_patches_on_device", "quantize", "quantize_trunk", "fold_bn")
-
 
 @dataclass
 class Config:
@@ -82,30 +73,6 @@ class Config:
 
     def ignored_keys(self) -> list[str]:
         return [k for k in IGNORED_KEYS if k in self.raw]
-
-    def mesh_devices(self) -> int:
-        """The devices (processes) the config's ``mesh`` spans: ``dp x mp``,
-        ``dp`` defaulting to the launcher's ``WORLD_SIZE // mp``; 1 without
-        a mesh."""
-        spec = self.raw.get("mesh") or {}
-        if not spec:
-            return 1
-        mp = int(spec.get("mp", 1))
-        world = int(os.environ.get("WORLD_SIZE", "1"))
-        return (int(spec.get("dp", 0)) or max(world // mp, 1)) * mp
-
-    def check_ported(self, mesh_ported: bool = True) -> None:
-        """Raise where a ``mesh`` over more than one device meets a path that
-        does not run under one yet (ROADMAP.md, queue 1, item 7b): a CLI
-        that passes ``mesh_ported=False``, or one of ``MESH_7B_KEYS``."""
-        if self.mesh_devices() == 1:
-            return
-        keys = [k for k in MESH_7B_KEYS if self.raw.get(k)]
-        if keys or not mesh_ported:
-            what = ", ".join(keys) if keys else "this entry point"
-            raise NotImplementedError(
-                f"{what} under mesh {self.raw['mesh']} is not ported yet: it runs on "
-                "one device (ROADMAP.md, queue 1, item 7b)")
 
     @property
     def model_name(self) -> str:

@@ -16,10 +16,13 @@ rounding of zero, which the synced statistics' other summation order can
 flip, moves a gradient by a whole element's share. The CPU tests hold
 them at sizes where no input lies that close.) Sub-checks: a bag-sharded
 MIL step (``16·mp`` patches a bag), held against its reference the same
-way, and an elastic resume: an RNA ``train_model`` run over ``(world, 1)``
+way; the mesh-sharded device cache (``data/device_cache.py``, the bag
+sharded over ``mp``), whose batches over two shuffled epochs must equal
+the host loader's placed by ``BatchPut`` and whose first batch takes a
+MIL step held against the one-process step on the host loader's batch;
+and an elastic resume: an RNA ``train_model`` run over ``(world, 1)``
 preempted after 2 steps and resumed over ``(world / 2, 2)``, which must
-end with the weights of the uninterrupted run in one process. (The
-sharded device cache's sub-check waits for ROADMAP.md, queue 1, item 7b.)
+end with the weights of the uninterrupted run in one process.
 
 ``python -m multimodalbrainsurvival_torch.parallel.dryrun --world 4
 [--device cpu]`` starts the world itself (``parallel/launch.py``; gloo on
@@ -188,6 +191,89 @@ def bag_sharded_mil(mesh: parallel.Mesh) -> None:
           f"within {diff:.2e} of their scale)", flush=True)
 
 
+def _write_patch_cohort(root: str, csv_path: str, img: int = 16) -> None:
+    """Four slides of 6-9 seeded ``img``-px patches in packed shards
+    (``loc.txt`` + ``patches.npy``) and their survival CSV."""
+    rng = np.random.default_rng(0)
+    wsis = ["A", "B", "C", "D"]
+    for i, w in enumerate(wsis):
+        d = os.path.join(root, w)
+        os.makedirs(d, exist_ok=True)
+        n = 6 + i
+        with open(os.path.join(d, "loc.txt"), "w") as loc:
+            loc.write(f"slide_id {w}\nid x y patch_level patch_size_read patch_size_output\n")
+            loc.writelines(f"{j} {j * img} 0 0 {img} {img}\n" for j in range(n))
+        np.save(os.path.join(d, "patches.npy"), rng.integers(0, 256, (n, img, img, 3), np.uint8))
+    months = rng.uniform(1, 120, len(wsis)).round(4)
+    with open(csv_path, "w") as f:
+        f.write("case,survival_months,vital_status,wsi_file_name\n")
+        f.writelines(f"c{i},{m},1,{w}.svs\n" for i, (w, m) in enumerate(zip(wsis, months)))
+
+
+def sharded_device_cache(mesh: parallel.Mesh, directory: str) -> None:
+    """The mesh-sharded device cache with the bag sharded over ``mp``: each
+    rank holds its block of the cohort's rows; every batch of two shuffled
+    epochs equals the host loader's placed by ``BatchPut``; a MIL step on
+    its first batch is held against the one-process step on the host
+    loader's batch."""
+    from multimodalbrainsurvival_torch.data import PatchBagDataset
+    from multimodalbrainsurvival_torch.data.device_cache import (
+        DeviceCachedPatchBags,
+        cache_bytes,
+    )
+
+    device = mesh.device
+    root, csv = os.path.join(directory, "patches"), os.path.join(directory, "cohort.csv")
+    if mesh.rank == 0:
+        _write_patch_cohort(root, csv)
+    mesh.barrier()
+    put = parallel.BatchPut(mesh, shard_bag=True)
+
+    def dataset():
+        return PatchBagDataset(root, csv, img_size=16, bag_size=2 * mesh.mp,
+                               max_patches_total=64)
+
+    host = dataset()
+    cached = DeviceCachedPatchBags(dataset(), device, num_threads=1, put=put)
+    if cached.nbytes > -(-cache_bytes(host) // mesh.world) + 16 * 16 * 3 * mesh.world:
+        raise AssertionError(f"sharded cache: rank {mesh.rank} holds {cached.nbytes} bytes "
+                             f"of {cache_bytes(host)}")
+    batch_size, first = 2 * mesh.dp, None
+    for epoch in range(2):
+        host.shuffle()
+        cached.shuffle()
+        pairs = zip(host.batches(batch_size, shuffle=True, seed=epoch, num_threads=1),
+                    cached.batches(batch_size, shuffle=True, seed=epoch))
+        for want, got in pairs:
+            first = first or (want, got)
+            w, g = put(want), put(got)
+            for k in ("patch_bag", "bag_mask", "sample_mask", "survival_months"):
+                if not torch.equal(torch.as_tensor(w[k]).to(device), g[k]):
+                    raise AssertionError(f"sharded cache epoch {epoch}: {k} differs from "
+                                         "the host loader's")
+    torch.manual_seed(7)
+    model = AggregationModel(resnet18(num_classes=None),
+                             make_aggregator("attention", dim=512)).to(device)
+    reference = copy.deepcopy(model)
+
+    def arrays(batch):
+        x = torch.as_tensor(batch["patch_bag"]).to(device).float() / 255
+        return {"x": x.permute(0, 1, 4, 2, 3).contiguous(),
+                "mask": torch.as_tensor(batch["bag_mask"]).to(device),
+                "time": torch.as_tensor(batch["survival_months"]).to(device).float(),
+                "event": torch.as_tensor(batch["vital_status"]).to(device).float()}
+
+    ref_loss = _step(reference, arrays(first[0]), 0)
+    with parallel.activate(put):
+        loss = _step(model, arrays(put(first[1])), 0, mesh.dp_group)
+        parallel.reduce_gradients(list(model.parameters()),
+                                  frozenset(model.resnet.parameters()))
+    diff = _compare(model, reference, loss, ref_loss, {}, mesh, "sharded device cache step")
+    print(f"subcheck sharded_device_cache OK ({cached.nbytes} of {cache_bytes(host)} bytes "
+          f"on rank {mesh.rank}; ResNet gradients within {diff:.2e} of their scale)",
+          flush=True)
+
+
 def elastic_resume(mesh: parallel.Mesh, directory: str) -> None:
     """An RNA ``train_model`` run preempted over ``(world, 1)`` after 2
     steps, resumed over ``(world / 2, 2)`` (the same ranks, another
@@ -248,10 +334,12 @@ def worker(device_name: str, directory: str) -> None:
     mesh = parallel.make_mesh(world // mp, mp, device=device)
     loss, resnet_diff = joint_step(mesh)
     bag_sharded_mil(mesh)
+    sharded_device_cache(mesh, directory)
     elastic_resume(parallel.make_mesh(world, 1, device=device), directory)
     if mesh.rank == 0:
         print(f"dryrun_multichip OK: mesh={mesh.shape}, loss={loss:.4f}, devices={world}, "
-              "subchecks=[joint_tp_sp_step, bag_sharded_mil, elastic_resume], "
+              "subchecks=[joint_tp_sp_step, bag_sharded_mil, sharded_device_cache, "
+              "elastic_resume], "
               f"resnet_grad_rel_diff={resnet_diff:.2e}", flush=True)
     if torch.distributed.is_initialized():
         torch.distributed.destroy_process_group()

@@ -22,6 +22,9 @@ collectives are explicit:
   ``shard_bag``, its ``bag / mp`` patches), the JAX multi-process
   semantics of ``host_to_global`` (``mesh.py:91-105``).
 - ``global_to_host``: an all-gather of the sample axis, in rank order.
+- A batch's ``placed_keys`` (the mesh-sharded device cache's
+  ``patch_bag``) are already the rank's part: ``BatchPut`` leaves them,
+  and ``whole_patch_bag`` gathers the whole one back.
 
 While a loop runs under ``activate(put)``, the models read the placement
 through the functions below, which are identities without one:
@@ -168,6 +171,38 @@ class Mesh:
                                    device=self.comm_device)
         return box[0]
 
+    def broadcast_tree(self, tree, device: torch.device):
+        """Rank 0's nested dict / list of tensors on every rank, its tensors
+        on ``device`` (sent through the host)."""
+        tree = self.broadcast_object(tree_map(lambda t: t.cpu(), tree)
+                                     if self.rank == 0 else None)
+        return tree_map(lambda t: t.to(device), tree)
+
+
+def tree_map(fn: Callable, tree):
+    """``fn`` applied to every tensor of a nested dict / list / tuple."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map(fn, v) for v in tree)
+    return fn(tree) if isinstance(tree, torch.Tensor) else tree
+
+
+def world_rank() -> int | None:
+    """This process's rank in a ``torch.distributed`` world of more than one
+    rank, else None."""
+    if not dist.is_initialized() or dist.get_world_size() == 1:
+        return None
+    return dist.get_rank()
+
+
+def world_barrier(device: torch.device) -> None:
+    """A barrier over the whole world (nothing without one)."""
+    if world_rank() is None:
+        return
+    comm = rank_device(device) if dist.get_backend() == "nccl" else torch.device("cpu")
+    dist.all_reduce(torch.zeros(1, device=comm))
+
 
 def make_mesh(dp: int | None = None, mp: int = 1, *,
               device: torch.device | str = "cpu") -> Mesh:
@@ -236,6 +271,20 @@ def all_gather(t: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
     parts = [torch.empty_like(src) for _ in range(group_size(group))]
     dist.all_gather(parts, src, group=group)
     out = torch.cat(parts, dim=dim).to(kind)
+    return out.to(t.device)
+
+
+def all_to_all(t: torch.Tensor, group, recv_counts: Sequence[int],
+               send_counts: Sequence[int]) -> torch.Tensor:
+    """The rows of ``t`` split by ``send_counts`` sent to the ranks of
+    ``group`` in rank order; returns the rows received, ``recv_counts[r]``
+    from rank ``r``, in rank order."""
+    if group is None:
+        return t
+    src = (t.cpu() if _via_host(t) else t).contiguous()
+    out = torch.empty((sum(recv_counts),) + tuple(t.shape[1:]), dtype=t.dtype,
+                      device=src.device)
+    dist.all_to_all_single(out, src, list(recv_counts), list(send_counts), group=group)
     return out.to(t.device)
 
 
@@ -332,8 +381,9 @@ class BatchPut:
 
     def __call__(self, batch: dict) -> dict:
         mesh, out = self.mesh, dict(batch)
+        placed = batch.get("placed_keys", ())
         for k, v in batch.items():
-            if k not in BATCH_AXIS_KEYS or isinstance(v, (list, tuple)):
+            if k not in BATCH_AXIS_KEYS or k in placed or isinstance(v, (list, tuple)):
                 continue
             n = v.shape[0]
             if n % mesh.dp:
@@ -403,6 +453,18 @@ def host_to_global(batch: dict, put: BatchPut | None) -> dict:
     """This rank's part of a global host batch (``put``'s), the batch itself
     without a placement."""
     return batch if put is None else put(batch)
+
+
+def whole_patch_bag(batch: dict, put: BatchPut | None):
+    """A batch's whole ``patch_bag``: the host loader's as it is, the
+    mesh-sharded device cache's (the rank's part, ``placed_keys``) gathered
+    from every rank (every rank must call)."""
+    bags = batch["patch_bag"]
+    if put is None or "patch_bag" not in batch.get("placed_keys", ()):
+        return bags
+    if put.shard_bag:
+        bags = all_gather(bags, put.mesh.mp_group, 1)
+    return all_gather(bags, put.mesh.dp_group, 0)
 
 
 def global_to_host(t: torch.Tensor) -> np.ndarray:

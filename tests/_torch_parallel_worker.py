@@ -6,10 +6,14 @@ variables) runs the jobs of ``jobs.json`` in order in one process group and
 writes ``out_dir/codes<rank>.json``, each job's exit status. A job is:
 
 - ``{"cli": name, "argv": [...], "grads": path, "sigterm_step": k,
-  "sigterm_rank": r}``: ``multimodalbrainsurvival_torch.cli.<name>.main(
-  argv)``; rank 0 saves the first step's loss and gradients (``capture``)
-  to ``grads``; rank ``r`` sends itself SIGTERM before its ``k``-th step;
-- ``{"tp": {...}}``: the tensor-parallel RNA encoder of ``tp_check``.
+  "sigterm_rank": r, "skew_rank": s}``: ``multimodalbrainsurvival_torch.cli.
+  <name>.main(argv)``; rank 0 saves the first step's loss and gradients
+  (``capture``) to ``grads``; rank ``r`` sends itself SIGTERM before its
+  ``k``-th step; rank ``s`` calibrates int8 with doubled abs-maxes
+  (``skewed_calibration``), which its results show unless it takes rank
+  0's qtree;
+- ``{"tp": {...}}``: the tensor-parallel RNA encoder of ``tp_check``;
+- ``{"cache": {...}}``: the mesh-sharded device cache of ``cache_check``.
 
 The test process imports ``capture``, ``synced_statistics`` and
 ``tp_reference`` for its world-of-one runs. After each CLI job rank 0 deletes the run's
@@ -74,6 +78,22 @@ def capture(record: dict, sigterm_step: int = 0):
         yield record
     finally:
         loop.train_step = original
+
+
+@contextlib.contextmanager
+def skewed_calibration(on: bool):
+    """With ``on``, int8 quantization (``models.quantize.quantize_resnet``)
+    takes every site's abs-max doubled."""
+    from multimodalbrainsurvival_torch.models import quantize
+
+    original = quantize.quantize_resnet
+    if on:
+        quantize.quantize_resnet = lambda state, amax, **kw: original(
+            state, {k: 2 * v for k, v in amax.items()}, **kw)
+    try:
+        yield
+    finally:
+        quantize.quantize_resnet = original
 
 
 @contextlib.contextmanager
@@ -233,6 +253,75 @@ def tp_check(spec: dict) -> dict:
             "state": gathered_state_dict(model)}
 
 
+def cache_check(spec: dict) -> dict:
+    """The mesh-sharded device cache over ``spec["mesh"]`` on the patch
+    cohort of ``spec`` (``root``, ``csv``, ``bag``): over two epochs, the
+    second after ``shuffle()``, every batch placed by ``BatchPut`` against the host
+    loader's (arrays, lists and ``host_*`` mirrors equal), the first
+    epoch's ``patch_bag`` parts saved (``spec["out"]`` + rank), the rows
+    this rank holds, the budget (a cohort over one rank's budget held by
+    the world) and the refusals (``bag_size`` over ``mp`` under
+    ``shard_bag``, ``batch_size`` over ``dp``)."""
+    from multimodalbrainsurvival_torch.data import PatchBagDataset
+    from multimodalbrainsurvival_torch.data.device_cache import (
+        DeviceCachedPatchBags,
+        cache_bytes,
+        maybe_cache_on_device,
+    )
+    from multimodalbrainsurvival_torch.parallel import mesh as parallel
+
+    m = spec["mesh"]
+    mesh = parallel.make_mesh(m.get("dp"), m.get("mp", 1))
+    put = parallel.BatchPut(mesh, shard_bag=m.get("shard_bag", False))
+
+    def dataset(bag=spec["bag"]):
+        return PatchBagDataset(spec["root"], spec["csv"], img_size=spec["img"], bag_size=bag,
+                               max_patches_total=100)
+
+    host, base = dataset(), dataset()
+    budget = -(-cache_bytes(base) // mesh.world)  # one rank's share: too small alone
+    cached = maybe_cache_on_device(base, True, device=torch.device("cpu"), max_bytes=budget,
+                                   num_threads=1, put=put)
+    alone = maybe_cache_on_device(dataset(), True, device=torch.device("cpu"),
+                                  max_bytes=budget)
+    report = {"cached": isinstance(cached, DeviceCachedPatchBags),
+              "cached_alone": isinstance(alone, DeviceCachedPatchBags),
+              "nbytes": cached.nbytes, "cohort_bytes": cache_bytes(base), "mismatches": [],
+              "batches": 0}
+    parts = []
+    keys = ("patch_bag", "bag_mask", "sample_mask", "survival_months", "vital_status")
+    for epoch in range(2):
+        if epoch:
+            host.shuffle()
+            cached.shuffle()
+        for want, got in zip(host.batches(spec["batch"], shuffle=True, seed=epoch,
+                                          num_threads=1),
+                             cached.batches(spec["batch"], shuffle=True, seed=epoch)):
+            report["batches"] += 1
+            w, g = put(want), put(got)
+            for k in keys:
+                if not torch.equal(torch.as_tensor(w[k]), g[k]):
+                    report["mismatches"].append((epoch, k))
+            for k in ("WSI", "case"):
+                if list(want[k]) != list(got[k]):
+                    report["mismatches"].append((epoch, k))
+            for k in ("sample_mask", "survival_months", "vital_status"):
+                if not np.array_equal(np.asarray(want[k]), got["host_" + k]):
+                    report["mismatches"].append((epoch, "host_" + k))
+            if epoch == 0:
+                parts.append(g["patch_bag"].numpy())
+    np.savez(f"{spec['out']}{mesh.rank}.npz", *parts)
+    for what, make in (("bag", lambda: DeviceCachedPatchBags(
+                            dataset(bag=3), torch.device("cpu"), num_threads=1, put=put)),
+                       ("batch", lambda: next(cached.batches(3)))):
+        try:
+            make()
+            report[f"{what}_error"] = None
+        except ValueError as e:
+            report[f"{what}_error"] = str(e)
+    return report
+
+
 def main() -> None:
     from multimodalbrainsurvival_torch.parallel import mesh as parallel
 
@@ -249,9 +338,15 @@ def main() -> None:
                 torch.save(result, job["tp"]["out"])
             codes.append(0)
             continue
+        if "cache" in job:
+            with open(f"{job['cache']['out']}{rank}.json", "w") as f:
+                json.dump(cache_check(job["cache"]), f)
+            codes.append(0)
+            continue
         record: dict = {}
         sigterm = job.get("sigterm_step", 0) if rank == job.get("sigterm_rank", -1) else 0
-        codes.append(run_cli(job["cli"], job["argv"], record, sigterm, rank))
+        with skewed_calibration(rank == job.get("skew_rank", -1)):
+            codes.append(run_cli(job["cli"], job["argv"], record, sigterm, rank))
         if rank == 0 and job.get("grads") and "grads" in record:
             torch.save(record, job["grads"])
     with open(os.path.join(out_dir, f"codes{rank}.json"), "w") as f:

@@ -7,7 +7,9 @@ and the JAX cache's, in index order, shuffled and after ``skip_batches``;
 ``shuffle()`` re-permutes each slide's patches as the host loader's does;
 labels are the union over the slides; the budget falls back as the JAX
 one does. ``histo_train`` with and without the cache ends with the same
-weights and frames, and a ``mesh`` with the cache raises (queue item 7).
+weights and frames; a ``mesh`` of 2 with the cache in a world of one
+process raises naming the launcher, as any such mesh does (the
+mesh-sharded cache: ``tests/test_torch_parallel_cache.py``).
 """
 
 import os
@@ -233,6 +235,6 @@ def test_histo_train_with_the_cache_ends_with_the_host_loaders_weights(
 def test_a_mesh_with_the_cache_raises_naming_item_7(train_cohort, tmp_path):  # noqa: F811
     cfg = _config(train_cohort, tmp_path / "m", cache_patches_on_device=True,
                   mesh={"dp": 2, "mp": 1})
-    with pytest.raises(NotImplementedError, match="queue 1, item 7"):
+    with pytest.raises(ValueError, match="torch.distributed.run --nproc_per_node"):
         histo_train.main(["--config", _write(tmp_path / "m.json", cfg), "--device", "cpu"])
     assert not os.path.exists(tmp_path / "m" / "outputs")

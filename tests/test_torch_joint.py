@@ -398,12 +398,13 @@ def test_int8_joint_adapter_from_jax_qtrees_matches_jax(experiment):
 
 
 def test_joint_cache_patches_on_device_raises(experiment, tmp_path):
-    """The device cache is single-device: with a ``mesh`` (the sharded
-    cache, queue item 7) the run raises."""
+    """With a ``mesh`` of 2 in a world of one process the cached run raises
+    naming the launcher, as any such mesh does (the mesh-sharded cache:
+    ``tests/test_torch_parallel_cache.py``)."""
     _, cfg, _, _ = experiment
     c = dict(cfg, checkpoint_path=str(tmp_path) + "/", cache_patches_on_device=True,
              mesh={"dp": 2, "mp": 1})
-    with pytest.raises(NotImplementedError, match="item 7"):
+    with pytest.raises(ValueError, match="torch.distributed.run --nproc_per_node"):
         joint_train.main(["--config", _write(tmp_path / "c.json", c), "--device", "cpu"])
 
 

@@ -6,7 +6,8 @@ the JAX ``late_fusion`` CLI's, on the merged frames of a seeded cohort
 with ties in time. The port's fit on the same rows is held to it at
 ``lambdas`` rtol 1e-6 (both take the null gradient in float32), and
 ``cv_mean`` and ``betas_path`` at rtol 1e-4 / atol 1e-6 (float32 sums in
-another order, after 50 x 500 FISTA steps), with the same λ.min where the
+another order, after 20 x 500 FISTA steps: the fixture runs both CLIs on a
+path of ``LATE_N_LAMBDA`` λ values), with the same λ.min where the
 JAX curve's two lowest points lie further apart than that. The analytic
 gradient is held to ``jax.grad`` of the JAX ``_npll`` with ties and on a
 fold's rows; the batched, masked solve to a loop of single problems; the
@@ -15,6 +16,7 @@ to the KKT conditions. The CLIs' frames equal the JAX CLIs' (headers and
 row order exact, values at rtol 1e-6, the late-fusion scores at 1e-4).
 """
 
+import functools
 import os
 
 import jax
@@ -65,8 +67,31 @@ def _score_frames(root, split, n, seed):
     return files
 
 
+#: the λ path of the CLI fixture's fits (both stacks): shorter than the
+#: CLIs' 50, so the JAX fit's 11 problems stay a few seconds' work; its
+#: λ.min choice stays decided (``test_fit_coxnet_matches_jax``)
+LATE_N_LAMBDA = 20
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """The coxnet fits and the plain K1 runs here are tiny ops: on several
+    threads beside other test processes they wait on each other."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def late(tmp_path_factory):
+    with pytest.MonkeyPatch.context() as mp:
+        for cli, fit in ((jax_late, jax_late.fit_coxnet), (port_late, port_late.fit_coxnet)):
+            mp.setattr(cli, "fit_coxnet", functools.partial(fit, n_lambda=LATE_N_LAMBDA))
+        return _late_fusion_runs(tmp_path_factory)
+
+
+def _late_fusion_runs(tmp_path_factory):
     root = str(tmp_path_factory.mktemp("late"))
     out = {"root": root}
     for split, n, seed in (("train", 125, 2), ("val", 40, 1)):

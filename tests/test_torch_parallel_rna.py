@@ -284,14 +284,24 @@ def test_distributed_without_flag_raises(tmp_path):
                                        ("quantize", "int8"), ("quantize_trunk", "int8"),
                                        ("fold_bn", True)])
 def test_item_7b_keys_raise_under_a_mesh(key, value):
-    with pytest.raises(NotImplementedError, match="item 7b"):
-        Config({"mesh": {"dp": 2}, key: value}).check_ported()
-    Config({"mesh": {"dp": 1}, key: value}).check_ported()
+    """The keys whose paths once ran on one device alone run under a mesh
+    (``tests/test_torch_parallel_{serving,cache}.py``): a mesh over
+    another world size raises as any mesh does, naming the launcher, and a
+    mesh of one device places nothing."""
+    cfg = Config({"mesh": {"dp": 2}, key: value})
+    with pytest.raises(ValueError, match="torch.distributed.run --nproc_per_node"):
+        _common.make_device_put(cfg, torch.device("cpu"), "f")
+    put, _, _ = _common.make_device_put(Config({"mesh": {"dp": 1}, key: value}),
+                                        torch.device("cpu"), "f")
+    assert put is None
 
 
 @pytest.mark.parametrize("cli", ["slide_extractfeatures", "slide_joint_savescore",
                                  "cv_run", "sweep"])
 def test_item_7b_entry_points_raise_under_a_mesh(cli, tmp_path):
+    """These entry points place their batches over the mesh
+    (``tests/test_torch_parallel_{stream,cv}.py``): in a world of one
+    process a mesh of 2 raises, naming the launcher."""
     import importlib
 
     cfg = _write_json(tmp_path / "c.json", {"mesh": {"dp": 2, "mp": 1}})
@@ -301,5 +311,5 @@ def test_item_7b_entry_points_raise_under_a_mesh(cli, tmp_path):
     if cli == "sweep":
         argv += ["--grid", '{"lr": [1e-4]}']
     main = importlib.import_module(f"multimodalbrainsurvival_torch.cli.{cli}").main
-    with pytest.raises(NotImplementedError, match="item 7b"):
+    with pytest.raises(ValueError, match="torch.distributed.run --nproc_per_node"):
         main(argv)

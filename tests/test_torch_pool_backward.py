@@ -51,6 +51,16 @@ CASES = {
 }
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """Tiny ops: on several threads beside other test processes they wait
+    on each other (``gradcheck``'s thousands of forwards most of all)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _inputs(case, seed=0, dtype=np.float32):
     B, bag, D, lengths = CASES[case]
     rng = np.random.default_rng(seed)

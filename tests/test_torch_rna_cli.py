@@ -297,9 +297,10 @@ def test_train_without_card_defaults_to_cuda_and_raises(cohort, tmp_path, monkey
 
 def test_unported_knobs_raise(cohort, tmp_path):
     """A multi-device ``mesh`` in a world of one process raises in training,
-    naming the launcher (``parallel/mesh.py``), and with ``quantize:
-    "int8"`` in serving (ROADMAP item 7b); ``quantize: "int8"`` serving on
-    one device is ported (its parity with the JAX CLIs:
+    naming the launcher (``parallel/mesh.py``). The serving CLIs never read
+    ``mesh``, as the JAX ones do not: with ``quantize: "int8"`` under
+    ``{"dp": 2}`` they serve on one device and write the frames of the
+    config without the mesh (int8 parity with the JAX CLIs:
     ``tests/test_torch_rna_int8.py``)."""
     out = tmp_path / "out"
     path = _write(tmp_path / "cfg.json", _config(cohort, out, mesh={"dp": 2}))
@@ -307,9 +308,13 @@ def test_unported_knobs_raise(cohort, tmp_path):
         rna_train.main(["--config", path, "--device", "cpu"])
     model = tmp_path / "model.pt"
     torch.save(build_rna_model(None, N_GENES).state_dict(), str(model))
-    path = _write(tmp_path / "serve.json", _config(
-        cohort, out, quantize="int8", model_path=str(model), output_path=str(out),
-        mesh={"dp": 2}))
-    for main in (rna_savescore.main, rna_extractfeatures.main):
-        with pytest.raises(NotImplementedError, match="item 7"):
+    for name, mesh in (("mesh", {"dp": 2}), ("plain", {})):
+        path = _write(tmp_path / f"serve_{name}.json", _config(
+            cohort, out, quantize="int8", model_path=str(model),
+            output_path=str(tmp_path / name), mesh=mesh))
+        for main in (rna_savescore.main, rna_extractfeatures.main):
             main(["--config", path, "--device", "cpu"])
+    written = sorted(p.name for p in (tmp_path / "plain").iterdir())
+    assert written and written == sorted(p.name for p in (tmp_path / "mesh").iterdir())
+    for name in written:
+        assert (tmp_path / "mesh" / name).read_text() == (tmp_path / "plain" / name).read_text()

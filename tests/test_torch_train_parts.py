@@ -355,11 +355,13 @@ def test_augmentation_draws_change_training(cohort, tmp_path):  # noqa: F811
 
 
 def test_unported_and_ignored_keys(cohort, tmp_path, capsys):  # noqa: F811
-    # the device cache is single-device: a mesh (queue item 7b) raises
+    # the device cache runs under a mesh (block-sharded over its ranks): in a
+    # world of one process a mesh of 2 raises as any mesh does, naming the
+    # launcher
     path = _write(tmp_path / "cache.json",
                   _config(cohort, tmp_path / "out", cache_patches_on_device=True,
                           mesh={"dp": 2, "mp": 1}))
-    with pytest.raises(NotImplementedError, match="item 7"):
+    with pytest.raises(ValueError, match="torch.distributed.run"):
         histo_train.main(["--config", path, "--device", "cpu"])
     # emergency_checkpoint is read (the SIGTERM save), and preempt_sync_every
     # (the consensus of a multi-rank run): neither is reported ignored
