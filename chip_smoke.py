@@ -148,18 +148,26 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    (e) the cached ``histo_train`` run also has ``profile_steps:
    TRACE_STEPS``: its trace must hold the card's kernels;
 18. whole-slide streaming: a 10,240 x 10,240 px slide (a noisy tissue
-   square on white, about 1,700 tissue tiles; a PNG, and a 2-level tiled
-   TIFF where libtiff builds) through ``slide_extractfeatures`` at
-   ResNet-50 / attention 2048 / bf16 / 224 px, batches of 128, folded
-   (K4) and int8 (K3) on the whole slide and in floating point cut to
-   ``STREAM_CUT_PATCHES`` tiles, and ``slide_joint_savescore`` (a 12,778-gene
-   row) folded and int8, cut likewise; each counted (K1 once a slide) and
-   its frames checked; one slide timed (host tiling, encoder, tail, tiles/s,
-   the card's idle share); the card against the CPU over the first 32 tiles
-   in float32; the streamed tiles and slide embedding against
-   ``wsi2patches`` → ``pack_patches`` → ``histo_extractfeatures``; K1 at
-   the slide tail's shape (1, 2048, 2048) bf16 against its plain version,
-   timed beside ``torch.matmul`` of its product;
+   square on white, about 1,700 tissue tiles; a PNG, and a 2-level
+   deflate-tiled TIFF written by the port's ``data/tiff.py``) through
+   ``slide_extractfeatures`` at ResNet-50 / attention 2048 / bf16 / 224 px,
+   batches of 128: folded (K4), int8 (K3) and in floating point on the
+   whole PNG; in floating point on the TIFF cut to ``STREAM_CUT_PATCHES``
+   tiles (read by the port's ``TiffSlide``, first read back bit for bit:
+   the first tiles of the PNG's float run, their features bit for bit);
+   ``slide_joint_savescore`` (a 12,778-gene row) folded and int8 cut
+   likewise; each counted (K1 once a slide) and its frames checked; the
+   PNG's and the TIFF's float runs timed as they run (host tiling and its
+   share, the TIFF's decode ms a tile, encoder, tail, tiles/s, the card's
+   idle share); the card against the CPU over the first 32 tiles in float32; the
+   streamed tiles and slide embedding against ``wsi2patches`` →
+   ``pack_patches`` → ``histo_extractfeatures``; (a) the committed
+   JPEG-tiled ``tests/data/torch_tiff/aperio_jpeg.svs`` (240-px 4:2:0 tiles
+   under Photometric RGB, as Aperio writes them): every level and associated
+   image at the digests of libjpeg's decode, streamed whole in bf16
+   (counted) and in float32 against the two-step route; K1 at the slide
+   tail's shape (1, 2048, 2048) bf16 against its plain version, timed
+   beside ``torch.matmul`` of its product;
 19. exported serving: ``export_model`` on the card (MIL attention bf16,
    folded, int8; joint; RNA; no kernel launched while tracing), one
    ``serve`` thread on 127.0.0.1 serving all five (``--buckets 1,8
@@ -224,6 +232,7 @@ import contextlib
 import copy
 import csv
 import functools
+import hashlib
 import itertools
 import json
 import math
@@ -286,7 +295,7 @@ from multimodalbrainsurvival_torch.data import (
     RNATableDataset,
     native,
 )
-from multimodalbrainsurvival_torch.data import tiler
+from multimodalbrainsurvival_torch.data import codecs, tiff, tiler
 from multimodalbrainsurvival_torch.data.device_cache import DeviceCachedPatchBags
 from multimodalbrainsurvival_torch.data.patches import read_csv_rows
 from multimodalbrainsurvival_torch.device import configure_precision
@@ -3049,15 +3058,25 @@ def drive_phase17(root: str, device: torch.device, smi: str, k1_ms: dict
 # --- phases 18-19: whole-slide streaming, exported serving ---------------------
 
 # the streaming slide (18): a white square with a noisy tissue square inside,
-# PNG (and a 2-level tiled TIFF where libtiff builds), about 1,700 tissue tiles
+# about 1,700 tissue tiles; a PNG, and a 2-level deflate-tiled TIFF written by
+# the port's writer (256-px tiles; its second level is the PNG reader's
+# thumbnail, every 10th pixel, so both give the same tissue mask)
 STREAM_SLIDE_PX, STREAM_TISSUE = 10240, (512, 9728)
+TIFF_TILE, TIFF_LOW = 256, 10
+# the JPEG-tiled fixture (18a): an Aperio-style pyramid and its digests
+JPEG_FIXTURE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "data",
+                            "torch_tiff")
 STREAM_ARCH, STREAM_IMG, STREAM_BATCH = "resnet50", IMG, 128
 # the JAX default cap on tiles a slide, and the least the slide must give
 STREAM_MAX_PATCHES, STREAM_MIN_TILES = 2000, 1500
-# the float and joint runs are cut to these many tiles (the host's tiling,
-# about 6 ms a tile, would otherwise hold the phase past its time); the
-# folded and int8 runs and the timed breakdown take the whole slide
-STREAM_CUT_PATCHES = {"float": 256, "joint": 512}
+# the runs cut to these many tiles (the host's tiling, about 6 ms a tile,
+# sets their time): the deflate TIFF's and the joint ones; the PNG's folded,
+# int8 and float runs take the whole slide, the float one timed
+STREAM_CUT_PATCHES = {"tiff": 256, "joint": 512}
+# regions of the deflate TIFF read back against the slide's pixels before
+# it streams, (x, y, w, h): inside a tile, across four, past the corner
+TIFF_READBACK = ((3000, 3000, 224, 224), (7 * TIFF_TILE - 100, 9 * TIFF_TILE - 50, 300, 300),
+                 (STREAM_SLIDE_PX - 150, STREAM_SLIDE_PX - 100, 400, 300))
 # card vs CPU and the two-step route (18c-d): the first tiles only
 STREAM_CHECK_PATCHES = 32
 # the histo card-vs-CPU tolerance (phases 5, 9): rtol, atol
@@ -3145,8 +3164,9 @@ def _stream_config(root: str, name: str, **overrides) -> tuple[dict, str]:
     return cfg, path
 
 
-def _check_slide_frames(cfg: dict, n: int | None = None) -> int:
-    """slide_extractfeatures' frames for one slide; returns its tiles."""
+def _check_slide_frames(cfg: dict, n: int | None = None, sid: str = "slide") -> int:
+    """slide_extractfeatures' frames for one slide (id ``sid``); returns its
+    tiles."""
     out = cfg["output_path"]
     scores = read_frame(os.path.join(out, "slide_scores.csv"))
     if list(scores) != ["slide", "case", "n_patches", "score"] or n_rows(scores) != 1:
@@ -3159,8 +3179,8 @@ def _check_slide_frames(cfg: dict, n: int | None = None) -> int:
     if feats.shape != (D,) or not np.isfinite(feats).all() or n_rows(cases) != 1:
         raise AssertionError(f"{out}: features {feats.shape}, cases {cases}")
     if cfg.get("save_patch_features"):
-        pf = np.load(os.path.join(out, "patch_features", "slide_features.npy"))
-        patches = read_frame(os.path.join(out, "patch_features", "slide_patches.csv"))
+        pf = np.load(os.path.join(out, "patch_features", f"{sid}_features.npy"))
+        patches = read_frame(os.path.join(out, "patch_features", f"{sid}_patches.csv"))
         att = np.asarray(patches["attention"])
         if (pf.shape != (tiles, D) or list(patches) != ["id", "x", "y", "attention"]
                 or n_rows(patches) != tiles or not np.isfinite(pf).all()
@@ -3179,20 +3199,62 @@ def _check_joint_slide_frame(cfg: dict, n: int) -> None:
         raise AssertionError(f"{path}: {frame}")
 
 
-def _tiff_slide(root: str, img: np.ndarray) -> str | None:
-    """The slide also as a 2-level tiled TIFF (256-px tiles, the lower
-    level 8x smaller) where libtiff builds here; else None, said why."""
-    from multimodalbrainsurvival_torch.utils import native_tiff
+def write_deflate_slide(path: str, img: np.ndarray) -> dict:
+    """The streaming slide as a 2-level deflate-tiled TIFF from the port's
+    writer (``data/tiff.py``); its write time and size."""
+    t0 = time.perf_counter()
+    tiff.write_tiff(path, [
+        tiff.image_directory(img, tile=TIFF_TILE, compression=tiff.DEFLATE,
+                             description="Aperio Image|AppMag = 20"),
+        tiff.image_directory(img[::TIFF_LOW, ::TIFF_LOW], tile=TIFF_TILE,
+                             compression=tiff.DEFLATE)])
+    out = {"write_s": time.perf_counter() - t0, "bytes": os.path.getsize(path)}
+    print(f"streaming slide as a deflate-tiled TIFF ({TIFF_TILE}-px tiles, levels "
+          f"{STREAM_SLIDE_PX} and {STREAM_SLIDE_PX // TIFF_LOW} px): {json.dumps(out)}")
+    return out
 
-    try:
-        native_tiff.build()
-    except RuntimeError as e:
-        print(f"libtiff: the TIFF reader does not build on this machine; TIFF slides "
-              f"are not streamed ({str(e).splitlines()[-1][:200]})")
-        return None
-    path = os.path.join(root, "stream", "slide.tif")
-    native_tiff.write_test_pyramid(path, [img, img[::8, ::8]], tile=256)
-    return path
+
+def check_tiff_readback(path: str, img: np.ndarray) -> None:
+    """The port's ``TiffSlide`` reads the deflate TIFF back bit for bit:
+    its lower level whole (the tissue mask's input) and ``TIFF_READBACK``'s
+    level-0 regions, zeros past the edge."""
+    slide = tiler.TiffSlide(path)
+    low = img[::TIFF_LOW, ::TIFF_LOW]
+    if not np.array_equal(slide.read_region((0, 0), 1, low.shape[1::-1]), low):
+        raise AssertionError(f"{path}: level 1 is not the slide's every {TIFF_LOW}th pixel")
+    for x, y, w, h in TIFF_READBACK:
+        want = np.zeros((h, w, 3), np.uint8)
+        part = img[y:y + h, x:x + w]
+        want[:part.shape[0], :part.shape[1]] = part
+        if not np.array_equal(slide.read_region((x, y), 0, (w, h)), want):
+            raise AssertionError(f"{path}: level 0 at {(x, y, w, h)} is not the slide's pixels")
+    print(f"deflate TIFF read back bit for bit: level 1 whole, level 0 at {TIFF_READBACK}")
+
+
+def check_jpeg_fixture(path: str, smi: str) -> dict:
+    """18a: the committed JPEG-tiled fixture through the port's reader:
+    every level and associated image at the digests of libjpeg's decode
+    (``tests/data/torch_tiff/fixture.json``)."""
+    with open(os.path.join(JPEG_FIXTURE, "fixture.json")) as f:
+        meta = json.load(f)
+    t0 = time.perf_counter()
+    slide = tiler.open_slide(path)
+    if not isinstance(slide, tiler.TiffSlide):
+        raise AssertionError(f"{path} opened as {type(slide).__name__}, not the port's TiffSlide")
+    if slide.level_dimensions != [tuple(lv["size"]) for lv in meta["levels"]]:
+        raise AssertionError(f"{path}: levels {slide.level_dimensions}, fixture {meta['levels']}")
+    got = {f"level {i}": hashlib.sha256(slide.read_region(
+        (0, 0), i, tuple(lv["size"])).tobytes()).hexdigest() for i, lv in enumerate(meta["levels"])}
+    want = {f"level {i}": lv["sha256"] for i, lv in enumerate(meta["levels"])}
+    for name, img in slide.associated_images.items():
+        got[name] = hashlib.sha256(img.tobytes()).hexdigest()
+    want.update({name: a["sha256"] for name, a in meta["associated"].items()})
+    decode_s = time.perf_counter() - t0
+    if got != want:
+        raise AssertionError(f"{path}: digests {got}, fixture {want}")
+    print(f"JPEG fixture {meta['slide']}: {sorted(got)} at libjpeg's digests, decoded in "
+          f"{decode_s:.3f} s [{smi}]")
+    return {"digests": sorted(got), "decode_s": decode_s}
 
 
 def check_slide_tail_k1(device: torch.device, smi: str) -> dict:
@@ -3228,69 +3290,199 @@ def check_slide_tail_k1(device: torch.device, smi: str) -> dict:
     return out
 
 
-def _stream_breakdown(cfg: dict, device: torch.device, smi: str) -> dict:
-    """One slide through the streaming functions, timed: host tiling, the
-    encoder's device time (CUDA events), the tail's, the wall clock, tiles/s
-    and the card's idle share (1 - device time / wall)."""
-    from multimodalbrainsurvival_torch.cli import slide_extractfeatures as sx
-    from multimodalbrainsurvival_torch.data.tiler import open_slide
-
-    config = Config(cfg)
-    slides = sx.resolve_slides(config)
-    tcfg = sx.tile_config(config)
-    model, extract, masks = sx.serving_encoder(config, device, slides, tcfg)
-    tail = sx.make_slide_tail(model)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    slide = open_slide(slides[0][0])
-    t_open = time.perf_counter() - t0
+def _run_timed_stream(cli: str, cfg_path: str, expected, smi: str) -> tuple[dict, dict]:
+    """``_run_counted`` of a one-slide ``slide_extractfeatures`` run, timed
+    as it runs (its launches counted as every run's): from the slide's open
+    to the tail's end, host tiling (and its share of that wall clock), the
+    TIFF codecs' decode within it (each ``codecs.decode_blocks`` call, per
+    decoded block and per tile), the encoder's device time (CUDA events),
+    the tail's, tiles/s and the card's idle share (1 - device time / wall).
+    Returns the run's record and the breakdown."""
+    sx = slide_extractfeatures
     timing: dict = {}
-    feats, _ = sx.stream_slide_features(extract, slide, tcfg, config.batch_size, device,
-                                        timing=timing)
-    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-    start.record()
-    tail(feats)
-    end.record()
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    tail_ms = start.elapsed_time(end)
-    n = feats.shape[0]
-    out = {"tiles": n, "wall_s": wall, "tiles_per_s": n / wall, "open_s": t_open,
-           "host_tiling_s": timing["tile_s"], "host_wait_s": timing["wait_s"],
-           "encoder_s": timing.get("encode_ms", 0.0) / 1e3, "tail_s": tail_ms / 1e3,
+    marks: dict = {}
+    decode = {"s": 0.0, "blocks": 0}
+    real = (sx.open_slide, sx.stream_slide_features, sx.make_slide_tail, codecs.decode_blocks)
+
+    def open_slide(path):
+        torch.cuda.synchronize()
+        marks["t0"] = time.perf_counter()
+        slide = real[0](path)
+        marks["open_s"] = time.perf_counter() - marks["t0"]
+        marks["slide"] = os.path.basename(path)
+        return slide
+
+    def stream(*args, **kwargs):
+        return real[1](*args, timing=timing, **kwargs)
+
+    def make_tail(model):
+        tail = real[2](model)
+
+        def timed_tail(feats):
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+            out = tail(feats)
+            end.record()
+            torch.cuda.synchronize()
+            marks["wall_s"] = time.perf_counter() - marks["t0"]
+            marks["tail_ms"] = start.elapsed_time(end)
+            marks["tiles"] = feats.shape[0]
+            return out
+
+        return timed_tail
+
+    def timed_decode(*args, **kwargs):
+        t = time.perf_counter()
+        out = real[3](*args, **kwargs)
+        decode["s"] += time.perf_counter() - t
+        decode["blocks"] += len(out[1])
+        return out
+
+    sx.open_slide, sx.stream_slide_features, sx.make_slide_tail = open_slide, stream, make_tail
+    codecs.decode_blocks = timed_decode
+    try:
+        run = _run_counted(cli, sx.main, cfg_path, expected, smi)
+    finally:
+        sx.open_slide, sx.stream_slide_features, sx.make_slide_tail = real[:3]
+        codecs.decode_blocks = real[3]
+    n, wall = marks["tiles"], marks["wall_s"]
+    out = {"slide": marks["slide"], "tiles": n, "wall_s": wall, "tiles_per_s": n / wall,
+           "open_s": marks["open_s"], "host_tiling_s": timing["tile_s"],
+           "host_share": timing["tile_s"] / wall, "host_wait_s": timing["wait_s"],
+           "decode_s": decode["s"], "decoded_blocks": decode["blocks"],
+           "decode_ms_per_block": 1e3 * decode["s"] / max(1, decode["blocks"]),
+           "decode_ms_per_tile": 1e3 * decode["s"] / n,
+           "encoder_s": timing.get("encode_ms", 0.0) / 1e3, "tail_s": marks["tail_ms"] / 1e3,
            "batches": timing["batches"]}
     out["idle_share"] = 1 - (out["encoder_s"] + out["tail_s"]) / wall
-    print(f"streaming breakdown (bf16, {n} tiles, batch {config.batch_size}): "
+    print(f"streaming breakdown ({cli}, {out['slide']}, {n} tiles, batch {STREAM_BATCH}): "
           f"{json.dumps(out)} [{smi}]")
+    return run, out
+
+
+def _same_streamed_tiles(cfg: dict, ref: dict) -> int:
+    """A streamed run of ``ref``'s pixels cut shorter: its tiles are the
+    first of ``ref``'s, at the same positions, with the same patch features
+    bit for bit (lossless blocks, the same batches); returns its tiles."""
+    def load(c):
+        out = os.path.join(c["output_path"], "patch_features")
+        frame = read_frame(os.path.join(out, "slide_patches.csv"))
+        return (list(zip(frame["x"], frame["y"])),
+                np.load(os.path.join(out, "slide_features.npy")))
+
+    (locs, feats), (ref_locs, ref_feats) = load(cfg), load(ref)
+    k = len(locs)
+    if locs != ref_locs[:k]:
+        raise AssertionError(f"{cfg['output_path']}: tiles differ from {ref['output_path']}'s")
+    if not np.array_equal(feats, ref_feats[:k]):
+        raise AssertionError(f"{cfg['output_path']}: features differ from "
+                             f"{ref['output_path']}'s first {k} by "
+                             f"{float(np.abs(feats - ref_feats[:k]).max())}")
+    print(f"{cfg['output_path']} vs {ref['output_path']}: its {k} tiles are the first "
+          f"{k} of {len(ref_locs)}, at the same positions, with the same features bit for bit")
+    return k
+
+
+def _two_step_route(root: str, name: str, wsi_dir: str, ext: str, streamed: dict,
+                    n: int) -> float:
+    """``wsi2patches`` → ``pack_patches`` → ``histo_extractfeatures``
+    (float32) on the one slide in ``wsi_dir``, its first ``n`` tiles: the
+    tiles of the streamed float32 run ``streamed`` and its slide embedding
+    within ``STREAM_TOL``; returns the embedding's max abs diff."""
+    d = os.path.join(root, "stream")
+    patch_root, mask_root = os.path.join(d, f"{name}_patches"), os.path.join(d, f"{name}_masks")
+    wsi2patches.main(["--wsi_path", wsi_dir, "--patch_path", patch_root,
+                      "--mask_path", mask_root, "--patch_size", str(STREAM_IMG),
+                      "--max_patches_per_slide", str(n), "--num_process", "1", "--ext", ext])
+    pack_patches.main(["--patch_path", patch_root])
+    (sid,) = os.listdir(patch_root)
+    with open(os.path.join(patch_root, sid, "loc.txt")) as f:
+        loc = [tuple(int(v) for v in line.split()[1:3]) for line in f.read().splitlines()[2:]]
+    frame = read_frame(os.path.join(streamed["output_path"], "patch_features",
+                                    f"{sid}_patches.csv"))
+    if loc != list(zip(frame["x"], frame["y"])):
+        raise AssertionError(f"the streamed tiles of {sid} are not wsi2patches' tiles")
+    cohort = os.path.join(d, f"{name}.csv")
+    with open(cohort, "w") as f:
+        f.write(f"case,survival_months,vital_status,wsi_file_name\n{sid},37.5,1,{sid}.svs\n")
+    cfg, path = _stream_config(
+        root, name, compute_dtype="float32", data_path=patch_root,
+        train_csv_path=cohort, val_csv_path=cohort, test_csv_path=cohort, batch_size=1,
+        train_bag_size=n, val_bag_size=n, max_patch_per_wsi_train=n, max_patch_per_wsi_val=n)
+    histo_extractfeatures.main(["--config", path])
+    two_step = np.loadtxt(os.path.join(cfg["output_path"], "pathology_features_test.csv"),
+                          delimiter=",")
+    streamed_emb = np.loadtxt(os.path.join(streamed["output_path"],
+                                           "pathology_features_slides.csv"), delimiter=",")
+    diff = float(np.abs(two_step - streamed_emb).max())
+    if not np.allclose(two_step, streamed_emb, rtol=STREAM_TOL[0], atol=STREAM_TOL[1]):
+        raise AssertionError(f"{sid}: streamed vs two-step slide embedding: max_abs_diff {diff}")
+    print(f"{sid}: streaming vs two-step route ({len(loc)} tiles): positions equal, slide "
+          f"embedding max_abs_diff {diff:.3e}")
+    return diff
+
+
+def drive_jpeg_fixture(root: str, smi: str, runs: dict) -> dict:
+    """18a: the committed JPEG-tiled ``.svs`` (240-px 4:2:0 tiles under
+    Photometric RGB, Aperio's layout) decoded to its digests, streamed whole
+    through ``slide_extractfeatures`` (bf16, counted: K1 once) and in
+    float32 against the two-step route."""
+    wsi = os.path.join(root, "stream", "wsi_jpeg")
+    os.makedirs(wsi, exist_ok=True)
+    with open(os.path.join(JPEG_FIXTURE, "fixture.json")) as f:
+        name = json.load(f)["slide"]
+    path = os.path.join(wsi, name)
+    shutil.copyfile(os.path.join(JPEG_FIXTURE, name), path)
+    out = check_jpeg_fixture(path, smi)
+    sid = tiler.slide_id_for(path)
+    cfg, cfg_path = _stream_config(root, "jpeg_slide", slides=[path])
+    tiles = {}
+
+    def expect(cfg=cfg):
+        tiles["n"] = _check_slide_frames(cfg, sid=sid)
+        return _expected(attention=1)
+
+    runs["slide_extractfeatures_jpeg"] = _run_counted(
+        "slide_extractfeatures JPEG fixture", slide_extractfeatures.main, cfg_path, expect, smi)
+    cfg32, path32 = _stream_config(root, "jpeg_slide_f32", slides=[path],
+                                   compute_dtype="float32")
+    slide_extractfeatures.main(["--config", path32])
+    out["tiles"] = _check_slide_frames(cfg32, tiles["n"], sid)
+    out["two_step_max_abs_diff"] = _two_step_route(root, "jpeg_two_step", wsi, "svs", cfg32,
+                                                   out["tiles"])
     return out
 
 
 def drive_streaming(root: str, device: torch.device, smi: str) -> tuple[dict, dict]:
     """Phase 18: whole-slide streaming at full width (ResNet-50, attention
     2048, bf16, 224 px, up to 2,000 tiles): ``slide_extractfeatures`` in
-    float, folded and int8, ``slide_joint_savescore`` folded and int8, each
-    counted and its frames checked; a timed breakdown; the card against the
-    CPU over the first 32 tiles (float32), and the streamed tiles and
-    features against the two-step route (``wsi2patches`` → ``pack_patches``
-    → ``histo_extractfeatures``); K1 at the slide tail's shape."""
+    float, folded and int8 on the whole PNG and in float on the deflate-tiled
+    TIFF (read back bit for bit; its tiles and features the PNG's first),
+    ``slide_joint_savescore`` folded and int8, each counted and its frames
+    checked; the two float runs timed as they run (the breakdowns); the
+    card against the CPU over the first 32 tiles
+    (float32), and the streamed tiles and features against the two-step
+    route (``wsi2patches`` → ``pack_patches`` → ``histo_extractfeatures``);
+    the JPEG-tiled fixture (18a); K1 at the slide tail's shape."""
     t_phase = time.perf_counter()
     d = os.path.join(root, "stream")
-    os.makedirs(os.path.join(d, "wsi"), exist_ok=True)
+    for sub in ("wsi", "wsi_tiff"):
+        os.makedirs(os.path.join(d, sub), exist_ok=True)
     t0 = time.perf_counter()
     img = write_stream_slide(os.path.join(d, "wsi", "slide.png"))
     print(f"streaming slide: {STREAM_SLIDE_PX}x{STREAM_SLIDE_PX} px PNG in "
           f"{time.perf_counter() - t0:.1f} s")
-    tiff = _tiff_slide(root, img)
+    tiff_path = os.path.join(d, "wsi_tiff", "slide.tif")
+    runs, e2e = {}, {"deflate_tiff": write_deflate_slide(tiff_path, img)}
+    check_tiff_readback(tiff_path, img)
     del img
     models = _stream_models(root)
-    runs, e2e = {}, {"tiff": tiff is not None}
 
     def batches(n):
         return math.ceil(n / STREAM_BATCH)
 
     tiles = {}
-    modes = {"folded": {"fold_bn": True}, "int8": {"quantize": "int8"},
-             "float": {"max_patches_per_slide": STREAM_CUT_PATCHES["float"]}}
+    modes = {"folded": {"fold_bn": True}, "int8": {"quantize": "int8"}, "float": {}}
     for mode, keys in modes.items():
         cfg, path = _stream_config(root, f"slide_{mode}", **keys)
 
@@ -3299,24 +3491,31 @@ def drive_streaming(root: str, device: torch.device, smi: str) -> tuple[dict, di
             return _expected(attention=1, k3_batches=batches(n) if mode == "int8" else 0,
                              k4_batches=batches(n) if mode == "folded" else 0)
 
-        runs[f"slide_extractfeatures_{mode}"] = _run_counted(
-            f"slide_extractfeatures {mode}", slide_extractfeatures.main,
-            path, expect, smi)
-    n = tiles["folded"]
-    if (tiles["int8"] != n or n < STREAM_MIN_TILES
-            or tiles["float"] != min(n, STREAM_CUT_PATCHES["float"])):
+        name = f"slide_extractfeatures {mode}"
+        if mode == "float":  # the PNG's breakdown
+            runs["slide_extractfeatures_float"], e2e["breakdown"] = _run_timed_stream(
+                name, path, expect, smi)
+        else:
+            runs[f"slide_extractfeatures_{mode}"] = _run_counted(
+                name, slide_extractfeatures.main, path, expect, smi)
+    n = e2e["tiles"] = tiles["float"]  # the whole slide's
+    if n < STREAM_MIN_TILES or tiles["int8"] != n or tiles["folded"] != n:
         raise AssertionError(f"tiles a run: {tiles} (the same tiler: one count, "
-                             f">= {STREAM_MIN_TILES}, the float run cut)")
-    e2e["tiles"] = n
-    if tiff is not None:
-        cfg, path = _stream_config(root, "slide_tiff", slides=[tiff])
+                             f">= {STREAM_MIN_TILES})")
+    # 18b: the deflate-tiled TIFF, cut and timed: the PNG's pixels, so the
+    # first tiles and features of the PNG's float run
+    cut = min(n, STREAM_CUT_PATCHES["tiff"])
+    cfg_tiff, path = _stream_config(root, "slide_tiff", slides=[tiff_path],
+                                    max_patches_per_slide=cut)
 
-        def expect_tiff(cfg=cfg):
-            _check_slide_frames(cfg, n)
-            return _expected(attention=1)
+    def expect_tiff(cfg=cfg_tiff):
+        _check_slide_frames(cfg, cut)
+        return _expected(attention=1)
 
-        runs["slide_extractfeatures_tiff"] = _run_counted(
-            "slide_extractfeatures tiff", slide_extractfeatures.main, path, expect_tiff, smi)
+    runs["slide_extractfeatures_tiff"], e2e["breakdown_tiff"] = _run_timed_stream(
+        "slide_extractfeatures deflate TIFF", path, expect_tiff, smi)
+    e2e["tiff_vs_png_tiles"] = _same_streamed_tiles(cfg_tiff,
+                                                    _stream_config(root, "slide_float")[0])
     # the joint model on the same slide with a 12,778-gene RNA row
     rng = np.random.default_rng(SEED + 21)
     joint_csv = os.path.join(d, "joint_slides.csv")
@@ -3339,8 +3538,6 @@ def drive_streaming(root: str, device: torch.device, smi: str) -> tuple[dict, di
 
         runs[f"slide_joint_savescore_{mode}"] = _run_counted(
             f"slide_joint_savescore {mode}", slide_joint_savescore.main, path, expect, smi)
-    cfg, _ = _stream_config(root, "slide_breakdown")
-    e2e["breakdown"] = _stream_breakdown(cfg, device, smi)
 
     # 18c: the card against the CPU over the first tiles, float32
     small = {"compute_dtype": "float32", "max_patches_per_slide": STREAM_CHECK_PATCHES,
@@ -3363,38 +3560,9 @@ def drive_streaming(root: str, device: torch.device, smi: str) -> tuple[dict, di
     e2e["card_vs_cpu_max_abs_diff"] = diffs
 
     # 18d: the two-step route on the same slide and tiles
-    patch_root, mask_root = os.path.join(d, "patches"), os.path.join(d, "masks")
-    wsi2patches.main(["--wsi_path", os.path.join(d, "wsi"), "--patch_path", patch_root,
-                      "--mask_path", mask_root, "--patch_size", str(STREAM_IMG),
-                      "--max_patches_per_slide", str(STREAM_CHECK_PATCHES),
-                      "--num_process", "1", "--ext", "png"])
-    pack_patches.main(["--patch_path", patch_root])
-    with open(os.path.join(patch_root, "slide", "loc.txt")) as f:
-        loc = [tuple(int(v) for v in line.split()[1:3]) for line in f.read().splitlines()[2:]]
-    streamed = read_frame(os.path.join(cfg_card["output_path"], "patch_features",
-                                       "slide_patches.csv"))
-    if loc != list(zip(streamed["x"], streamed["y"])):
-        raise AssertionError("the streamed tiles are not wsi2patches' tiles")
-    cohort = os.path.join(d, "two_step.csv")
-    with open(cohort, "w") as f:
-        f.write("case,survival_months,vital_status,wsi_file_name\nslide,37.5,1,slide.svs\n")
-    cfg2, path2 = _stream_config(
-        root, "two_step", compute_dtype="float32", data_path=patch_root,
-        train_csv_path=cohort, val_csv_path=cohort, test_csv_path=cohort, batch_size=1,
-        train_bag_size=STREAM_CHECK_PATCHES, val_bag_size=STREAM_CHECK_PATCHES,
-        max_patch_per_wsi_train=STREAM_CHECK_PATCHES,
-        max_patch_per_wsi_val=STREAM_CHECK_PATCHES)
-    histo_extractfeatures.main(["--config", path2])
-    two_step = np.loadtxt(os.path.join(cfg2["output_path"], "pathology_features_test.csv"),
-                          delimiter=",")
-    streamed_emb = np.loadtxt(os.path.join(cfg_card["output_path"],
-                                           "pathology_features_slides.csv"), delimiter=",")
-    diff = float(np.abs(two_step - streamed_emb).max())
-    if not np.allclose(two_step, streamed_emb, rtol=STREAM_TOL[0], atol=STREAM_TOL[1]):
-        raise AssertionError(f"streamed vs two-step slide embedding: max_abs_diff {diff}")
-    print(f"streaming vs two-step route ({len(loc)} tiles): positions equal, slide "
-          f"embedding max_abs_diff {diff:.3e}")
-    e2e["two_step_max_abs_diff"] = diff
+    e2e["two_step_max_abs_diff"] = _two_step_route(
+        root, "two_step", os.path.join(d, "wsi"), "png", cfg_card, STREAM_CHECK_PATCHES)
+    e2e["jpeg_fixture"] = drive_jpeg_fixture(root, smi, runs)
     e2e["slide_tail_k1"] = check_slide_tail_k1(device, smi)
     e2e["seconds"] = time.perf_counter() - t_phase
     print(f"phase 18: {e2e['seconds']:.1f} s")
@@ -4977,6 +5145,11 @@ def main(argv: list[str]) -> int:
     device = torch.device("cuda")
     configure_precision()
     smi = _nvidia_smi()
+    t_start = time.perf_counter()
+
+    def stamp(done: str) -> None:  # where the run's time goes, phase by phase
+        print(f"[{time.perf_counter() - t_start:.1f} s] {done} done", flush=True)
+
     print(f"device: {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}; "
           f"torch {torch.__version__}, CUDA {torch.version.cuda}; nvidia-smi: {smi}")
 
@@ -5000,29 +5173,49 @@ def main(argv: list[str]) -> int:
     k2 = check_dropout_matmul(device)
     k2f = check_dropout_matmul_fusion(device, smi)
     k4 = check_fused_stage(device)
+    stamp("build and kernel checks")
 
     with tempfile.TemporaryDirectory() as root:
         launches, e2e = drive_main_path(root, device, smi)
+        stamp("drive_main_path")
         check_against_cpu(root, os.path.join(root, "cohort.csv"))
+        stamp("check_against_cpu")
         rna_launches, rna_e2e = drive_rna_path(root, device, smi,
                                                k2["dropout_matmul"]["ms"])
+        stamp("drive_rna_path")
         check_rna_against_cpu(root)
+        stamp("check_rna_against_cpu")
         train_launches, train_e2e = drive_histo_train_path(root, device, smi, k1_ms)
+        stamp("drive_histo_train_path")
         check_histo_train_against_cpu(root)
+        stamp("check_histo_train_against_cpu")
         task_launches, task_e2e = drive_histo_tasks(root, device, smi, k1_ms)
+        stamp("drive_histo_tasks")
         references = {name: check_histo_train_against_cpu(root, name, **TASKS[name])
                       for name in ("classification", "survival_bin")}
+        stamp("the tasks' CPU references")
         references["transformer_serving"] = check_transformer_against_cpu(root)
+        stamp("check_transformer_against_cpu")
         preemption = check_preemption(root, smi)
+        stamp("check_preemption")
         rna_int8 = drive_rna_int8(root, device, smi, k2)
+        stamp("drive_rna_int8")
         early_launches, early_e2e = drive_early_fusion(root, device, smi, k2f)
+        stamp("drive_early_fusion")
         joint_launches, joint_e2e = drive_joint_path(root, device, smi, k2f)
+        stamp("drive_joint_path")
         fusion_references = check_fusion_against_cpu(root)
+        stamp("check_fusion_against_cpu")
         p17_runs, p17 = drive_phase17(root, device, smi, k1_ms)
+        stamp("drive_phase17")
         stream_runs, stream = drive_streaming(root, device, smi)
+        stamp("drive_streaming")
         serve_runs, served = drive_export_serve(root, device, smi)
+        stamp("drive_export_serve")
         p20_runs, p20 = drive_phase20(root, device, smi)
+        stamp("drive_phase20")
         p21_runs, p21 = drive_phase21(root, device, smi)
+        stamp("drive_phase21")
     e2e.update(rna_e2e)
     e2e.update(train_e2e)
     e2e.update(task_e2e)

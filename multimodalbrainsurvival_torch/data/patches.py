@@ -30,7 +30,8 @@ no batch, view or tensor made from it is alive: a fresh 38.5 MB buffer
 two thirds of the read's time (23.8 against 8.2 ms a batch on the host of
 an NVIDIA H100 machine; PERF.md). A PNG the loader cannot decode raises,
 naming the file; a shard row of another size than ``img_size`` is resized
-(bilinear, cv2, imported only then). ``_load_batch_plain`` reads the same
+(bilinear, ``data/opencv_compat.py::resize_linear``, OpenCV's
+``INTER_LINEAR`` in numpy). ``_load_batch_plain`` reads the same
 batch bag by bag on a thread pool (cv2 for PNGs), the path before the
 loader: the tests' plain version and the yardstick ``chip_smoke.py`` times
 the loader against; the datasets' ``batches`` never take it.
@@ -56,6 +57,7 @@ from typing import Iterator
 import numpy as np
 
 from multimodalbrainsurvival_torch.data import native
+from multimodalbrainsurvival_torch.data.opencv_compat import resize_linear
 
 #: batch buffers a dataset keeps for reuse: the one its consumer holds while
 #: asking for the next, the ``prefetch`` (2) queued, the one being filled
@@ -63,9 +65,7 @@ BATCH_BUFFERS = 4
 
 
 def _resize(img: np.ndarray, img_size: int) -> np.ndarray:
-    import cv2
-
-    return cv2.resize(img, (img_size, img_size), interpolation=cv2.INTER_LINEAR)
+    return resize_linear(img, (img_size, img_size))
 
 
 def _read_patch(path: str, img_size: int) -> np.ndarray:

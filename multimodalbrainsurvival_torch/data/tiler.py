@@ -17,32 +17,43 @@ the JAX tiler's (numpy and scipy); its four OpenCV calls are
 bilinear 2x downscale of AppMag-40 slides) and ``write_png``'s (stdlib
 zlib; the PNG bytes differ from OpenCV's, the decoded pixels do not).
 
-Readers (``open_slide``): OpenSlide when it is importable; else the lazy
-libtiff reader ``NativeTiffSlide`` (``utils/native_tiff.py``) for
-``.svs/.ndpi/.mrxs/.tif/.tiff``; ``ImageSlide`` for a PNG (decoded by the
-port's C++ loader, ``data/native.py``). Any other format raises naming it.
-The JAX package's eager PIL reader and its cv2 fallback for other image
-formats are not carried over: the machine with the card has neither
-library.
+Readers (``open_slide``): OpenSlide when it is importable, as the JAX
+package orders them; else the port's own lazy reader ``TiffSlide`` for
+``.svs/.mrxs/.tif/.tiff`` (``data/tiff.py``'s container, classic or
+BigTIFF, tiled or stripped, and ``data/codecs.py``'s C++ codecs: JPEG, LZW,
+deflate, PackBits, none), with no outside library; ``ImageSlide`` for a
+PNG (decoded by the port's C++ loader, ``data/native.py``) and for a JPEG
+(``data/codecs.py``). Any other format raises naming it; so do Hamamatsu
+NDPI files (the ``.ndpi`` extension or the NDPI tag 65420), Aperio JPEG
+2000 tiles and progressive JPEG files, naming the format or the codec.
+The JAX package's libtiff and eager PIL readers and its cv2 fallback are
+not carried over: the machine with the card has none of those libraries.
 """
 
 from __future__ import annotations
 
 import os
 import struct
+import threading
 import zlib
+from collections import OrderedDict
 from dataclasses import dataclass
 from multiprocessing import Pool
 
 import numpy as np
 from scipy import ndimage
 
-from multimodalbrainsurvival_torch.data import native
+from multimodalbrainsurvival_torch.data import codecs, native, tiff
 from multimodalbrainsurvival_torch.data.opencv_compat import resize_linear, rgb_to_gray
 
 PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 SLIDE_EXTS = (".svs", ".png", ".tif", ".tiff", ".jpg", ".jpeg", ".ndpi")
-TIFF_EXTS = (".svs", ".ndpi", ".mrxs", ".tiff", ".tif")
+TIFF_EXTS = (".svs", ".mrxs", ".tiff", ".tif")
+JPEG_EXTS = (".jpg", ".jpeg")
+NDPI_EXTS = (".ndpi",)
+NDPI_REFUSED = ("{path}: a Hamamatsu NDPI file, which the port's TIFF reader does not read "
+                "(whole-level JPEG strips, offsets past 4 GiB wrapped to 32 bits); "
+                "OpenSlide reads it where it is installed")
 
 
 # --- tissue segmentation (JAX data/tiler.py:47-97) ---------------------------
@@ -154,6 +165,14 @@ class ImageSlide:
             raise FileNotFoundError(path)
         return cls(read_png(path), thumb_max)
 
+    @classmethod
+    def from_jpeg(cls, path: str, thumb_max: int = 1024) -> "ImageSlide":
+        """A JPEG file, decoded as libjpeg decodes it by default (what the
+        JAX ``ImageSlide`` reads through OpenCV)."""
+        with open(path, "rb") as f:
+            data = f.read()
+        return cls(codecs.decode_jpeg(data, path), thumb_max)
+
     def read_region(self, xy, level, size):
         x, y = xy
         w, h = size
@@ -177,53 +196,111 @@ def parse_aperio(description: str) -> dict:
     return props
 
 
-class NativeTiffSlide:
-    """Lazy pyramidal-TIFF reader on libtiff (JAX ``NativeTiffSlide``): a
-    ``read_region`` decodes only the tiles or strips it touches. The
-    OpenSlide API the tiler uses: ``level_dimensions``, ``properties``
+class TiffSlide:
+    """The port's lazy pyramidal-TIFF reader: ``data/tiff.py`` parses the
+    container (classic or BigTIFF, either byte order), ``data/codecs.py``
+    decodes only the tiles or strips a ``read_region`` touches, all of them
+    in one call on ``codecs.DEFAULT_THREADS`` C++ threads. The OpenSlide
+    API the tiler uses: ``level_dimensions``, ``properties``
     (``aperio.AppMag``), ``read_region((x, y), level, (w, h))`` with (x, y)
-    in level-0 coordinates. Aperio's JPEG 2000 tiles (compression 33003 /
-    33005), which the JAX reader decodes through Pillow, raise here."""
+    in level-0 coordinates and zeros past the edge, ``associated_images``.
+    The last ``cache_blocks`` decoded blocks are kept, each a copy of its
+    own (0 keeps none): adjacent patches share tiles. A block that does not
+    decode raises naming the file, the level and the block; a level under a
+    codec the port lacks (Aperio JPEG 2000, 33003 / 33005) raises naming
+    it, and a Hamamatsu NDPI file (tag 65420: whole-level JPEG strips,
+    offsets past 4 GiB wrapped to 32 bits) raises when it is opened."""
 
-    APERIO_J2K = (33003, 33005)
+    cache_blocks = 64
 
     def __init__(self, path: str):
-        from multimodalbrainsurvival_torch.utils.native_tiff import NativeSlideHandle
-
         self.path = path
-        self._h = NativeSlideHandle(path)
-        self.level_dimensions = self._h.level_dimensions
-        self.properties = parse_aperio(self._h.description)
-        self._level_info: dict[int, tuple[int, int, int]] = {}
+        dirs = tiff.read_directories(path)
+        if not dirs:
+            raise ValueError(f"{path}: a TIFF with no directory")
+        if any(d.ndpi for d in dirs):
+            raise ValueError(NDPI_REFUSED.format(path=path))
+        self._levels, self._associated = tiff.slide_levels(dirs)
+        if not self._levels:
+            raise ValueError(f"{path}: no directory holds an image")
+        self.level_dimensions = [(d.width, d.height) for d in self._levels]
+        self.properties = parse_aperio(dirs[0].description)
+        self._cache: OrderedDict = OrderedDict()
+        self._lock = threading.Lock()
+
+    def _decode(self, d: "tiff.Directory", index: np.ndarray, what: str) -> list:
+        """Directory ``d``'s blocks at ``index`` (decoded, or from the cache)."""
+        why = d.unreadable()
+        if why is not None:
+            raise NotImplementedError(f"{self.path}: {what} holds {why}, which the port's "
+                                      f"TIFF reader does not decode")
+        with self._lock:
+            got = {int(i): self._cache.get((d.index, int(i))) for i in index}
+            for i, block in got.items():
+                if block is not None:
+                    self._cache.move_to_end((d.index, i))
+        todo = np.array([i for i, b in got.items() if b is None], np.int64)
+        if len(todo):
+            bw, bh = d.block_size
+            blocks, codes = codecs.decode_blocks(
+                self.path, d.offsets[todo], d.counts[todo], d.block_rows(todo), bw, bh,
+                compression=d.compression, predictor=d.predictor, photometric=d.photometric,
+                samples=d.samples, jpeg_tables=d.jpeg_tables)
+            for k in np.flatnonzero(codes):
+                i = int(todo[k])
+                nx = d.grid[0]
+                block = f"tile ({i % nx}, {i // nx})" if d.tiled else f"strip {i}"
+                raise codecs.DecodeError(
+                    f"{self.path}: {what}, {block}: cannot decode its "
+                    f"{tiff.COMPRESSION_NAMES[d.compression]} data: "
+                    f"{codecs.describe(int(codes[k]))}", int(codes[k]))
+            with self._lock:
+                for k, i in enumerate(todo):
+                    got[int(i)] = blocks[k]
+                # copies: a view would keep the whole decode's array alive
+                for k in range(len(todo) - min(self.cache_blocks, len(todo)), len(todo)):
+                    self._cache[(d.index, int(todo[k]))] = blocks[k].copy()
+                while len(self._cache) > self.cache_blocks:
+                    self._cache.popitem(last=False)
+        return [got[int(i)] for i in index]
+
+    def _read(self, d: "tiff.Directory", x: int, y: int, w: int, h: int,
+              what: str) -> np.ndarray:
+        """(x, y) in the directory's coordinates → (h, w, 3) uint8 RGB,
+        zero outside it."""
+        out = np.zeros((h, w, 3), np.uint8)
+        x0, y0 = max(x, 0), max(y, 0)
+        x1, y1 = min(x + w, d.width), min(y + h, d.height)
+        if x0 >= x1 or y0 >= y1:
+            return out
+        bw, bh = d.block_size
+        nx = d.grid[0]
+        bxs = range(x0 // bw, (x1 - 1) // bw + 1)
+        bys = range(y0 // bh, (y1 - 1) // bh + 1)
+        index = np.array([by * nx + bx for by in bys for bx in bxs], np.int64)
+        for i, block in zip(index, self._decode(d, index, what)):
+            bx, by = (int(i) % nx) * bw, (int(i) // nx) * bh
+            rx0, ry0 = max(x0, bx), max(y0, by)
+            rx1, ry1 = min(x1, bx + bw), min(y1, by + bh)
+            out[ry0 - y:ry1 - y, rx0 - x:rx1 - x] = block[ry0 - by:ry1 - by, rx0 - bx:rx1 - bx]
+        return out
 
     def read_region(self, xy, level, size):
         x0, y0 = xy
         w, h = size
         ds_x = self.level_dimensions[0][0] / self.level_dimensions[level][0]
         ds_y = self.level_dimensions[0][1] / self.level_dimensions[level][1]
-        if level not in self._level_info:
-            self._level_info[level] = self._h.level_info(level)
-        compression = self._level_info[level][0]
-        if compression in self.APERIO_J2K:
-            raise NotImplementedError(
-                f"{self.path}: level {level} holds Aperio JPEG 2000 tiles "
-                f"(compression {compression}), which libtiff does not decode")
-        return self._h.read_region_level(level, int(x0 / ds_x), int(y0 / ds_y), w, h)
+        return self._read(self._levels[level], int(x0 / ds_x), int(y0 / ds_y), w, h,
+                          f"level {level}")
 
     @property
     def associated_images(self) -> dict:
-        """name → (h, w, 3) uint8 of each stripped associated image, named
-        as the JAX reader names them (label, macro, thumbnail)."""
+        """name → (h, w, 3) uint8 of each associated image (the stripped
+        directories of a tiled slide), named as the JAX reader names them."""
         out = {}
-        for i, (w, h, desc) in enumerate(self._h.associated()):
-            low = desc.lower()
-            if "label" in low:
-                name = "label"
-            elif "macro" in low:
-                name = "macro"
-            else:
-                name = "thumbnail" if i == 0 else f"associated_{i}"
-            out[name] = self._h.read_associated(i, w, h)
+        for i, d in enumerate(self._associated):
+            name = tiff.associated_name(i, d.description)
+            out[name] = self._read(d, 0, 0, d.width, d.height, f"associated image {name!r}")
         return out
 
 
@@ -236,27 +313,33 @@ def slide_id_for(name: str) -> str:
 
 
 def open_slide(path: str):
-    """OpenSlide (when importable) or the native reader for a TIFF pyramid,
-    ``ImageSlide`` for a PNG; raises naming any other format. A TIFF of one
+    """OpenSlide (when importable) for a TIFF pyramid or an NDPI file; else
+    the port's ``TiffSlide`` for a TIFF pyramid; ``ImageSlide`` for a PNG or
+    a JPEG; raises naming any other format, NDPI included. A TIFF of one
     level becomes an ``ImageSlide`` of that level, as the JAX package's
     fallback makes it."""
     low = path.lower()
-    if low.endswith(TIFF_EXTS):
+    if low.endswith(TIFF_EXTS + NDPI_EXTS):
         try:
             from openslide import OpenSlide
         except ImportError:
             pass
         else:
             return OpenSlide(path)
-        slide = NativeTiffSlide(path)
+        if low.endswith(NDPI_EXTS):
+            raise ValueError(NDPI_REFUSED.format(path=path))
+        slide = TiffSlide(path)
         if len(slide.level_dimensions) > 1:
             return slide
         w, h = slide.level_dimensions[0]
         return ImageSlide(slide.read_region((0, 0), 0, (w, h)))
     if low.endswith(".png"):
         return ImageSlide.from_png(path)
+    if low.endswith(JPEG_EXTS):
+        return ImageSlide.from_jpeg(path)
     raise ValueError(f"{path}: cannot read {os.path.splitext(path)[1] or 'this'} slides "
-                     f"(TIFF pyramids {', '.join(TIFF_EXTS)} and PNG images only)")
+                     f"(TIFF pyramids {', '.join(TIFF_EXTS)}, PNG and JPEG images only)")
+
 
 
 def region_rgb(slide, xy, level, size) -> np.ndarray:

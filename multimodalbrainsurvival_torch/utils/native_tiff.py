@@ -1,12 +1,10 @@
-"""ctypes binding of the lazy libtiff slide reader, built from
-``native/tiff_slide.cc``.
+"""ctypes binding of the libtiff test writers of ``native/tiff_slide.cc``.
 
-The port's own binding of the reader the JAX package binds in
-``multimodalbrainsurvival_tpu/utils/native_tiff.py:31-312``: region reads on
-pyramidal TIFFs (Aperio ``.svs`` files are tiled-JPEG pyramidal TIFFs) that
-decode only the tiles or strips a region touches, so a slide of any size
-streams through the tiler in constant memory; and the test writers
-(``write_test_pyramid``, ``SlideBuilder``) that fabricate such pyramids.
+``write_test_pyramid`` and ``SlideBuilder`` fabricate scanner-style
+pyramidal TIFFs (tiled levels, stripped associated images, libtiff-encoded
+or pre-encoded blocks) for the tests, where libtiff is installed; the port
+reads slides with its own reader (``data/tiler.py::TiffSlide``), and the
+source's reader entries are not bound here.
 
 The source is compiled as it is, with ``g++ -O3 -shared -fPIC -std=c++17
 ... -ltiff``, into ``kernels/build/libtiffslide-<digest>.so``, the digest
@@ -15,7 +13,7 @@ loader: the compiler writes a file named after its process and
 ``os.replace`` moves it into place, so processes that build at once never
 load a partial library. It is built on first use, never when this module is
 imported. A failed build (no g++, no libtiff headers) raises with the
-compiler's output; there is no other reader to fall back on silently.
+compiler's output.
 """
 
 from __future__ import annotations
@@ -40,26 +38,11 @@ _loaded: dict[Path, ctypes.CDLL] = {}
 
 _P_INT = ctypes.POINTER(ctypes.c_int)
 _P_U8 = ctypes.POINTER(ctypes.c_uint8)
-#: (entry, restype, argtypes) of every C entry of ``tiff_slide.cc``
+#: (entry, restype, argtypes) of the writer entries of ``tiff_slide.cc``
 _SIGNATURES = (
-    ("tiff_slide_open", ctypes.c_void_p, [ctypes.c_char_p]),
-    ("tiff_slide_close", None, [ctypes.c_void_p]),
-    ("tiff_slide_n_levels", ctypes.c_int, [ctypes.c_void_p]),
-    ("tiff_slide_level_size", None, [ctypes.c_void_p, ctypes.c_int, _P_INT, _P_INT]),
-    ("tiff_slide_description", ctypes.c_int, [ctypes.c_void_p, ctypes.c_char_p,
-                                              ctypes.c_int]),
-    ("tiff_slide_read_region", ctypes.c_int,
-     [ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_int64, ctypes.c_int,
-      ctypes.c_int, _P_U8]),
     ("tiff_slide_write_test", ctypes.c_int,
      [ctypes.c_char_p, ctypes.POINTER(ctypes.c_char_p), _P_INT, _P_INT, ctypes.c_int,
       ctypes.c_int, ctypes.c_int, ctypes.c_char_p]),
-    ("tiff_slide_level_info", ctypes.c_int,
-     [ctypes.c_void_p, ctypes.c_int, _P_INT, _P_INT, _P_INT]),
-    ("tiff_slide_n_associated", ctypes.c_int, [ctypes.c_void_p]),
-    ("tiff_slide_associated_info", ctypes.c_int,
-     [ctypes.c_void_p, ctypes.c_int, _P_INT, _P_INT, ctypes.c_char_p, ctypes.c_int]),
-    ("tiff_slide_read_associated", ctypes.c_int, [ctypes.c_void_p, ctypes.c_int, _P_U8]),
     ("tiff_builder_open", ctypes.c_void_p, [ctypes.c_char_p]),
     ("tiff_builder_dir_begin", ctypes.c_int,
      [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
@@ -82,7 +65,7 @@ def library_path(build_dir: Path | None = None) -> Path:
 
 
 def build(build_dir: Path | None = None) -> Path:
-    """Compile the reader unless this digest is built; raise with g++'s
+    """Compile the library unless this digest is built; raise with g++'s
     output if it fails. Returns the library's path."""
     out = library_path(build_dir)
     if out.exists():
@@ -93,11 +76,11 @@ def build(build_dir: Path | None = None) -> Path:
     try:
         proc = subprocess.run(cmd, capture_output=True, text=True)
     except FileNotFoundError as e:
-        raise RuntimeError("g++ not found: the TIFF slide reader is built with g++ "
+        raise RuntimeError("g++ not found: the libtiff test writers are built with g++ "
                            "and libtiff's headers") from e
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"g++ failed for {SOURCE} ({' '.join(cmd)}); TIFF slides "
+        raise RuntimeError(f"g++ failed for {SOURCE} ({' '.join(cmd)}); the test writers "
                            f"need libtiff's headers and library:\n"
                            f"{proc.stdout}{proc.stderr}")
     os.replace(tmp, out)
@@ -121,74 +104,6 @@ def load(build_dir: Path | None = None) -> ctypes.CDLL:
 
 def _u8(a: np.ndarray):
     return a.ctypes.data_as(_P_U8)
-
-
-class NativeSlideHandle:
-    """One open slide: its levels' ``(width, height)``, directory 0's
-    ImageDescription, region reads. Closed on ``close`` or collection."""
-
-    def __init__(self, path: str):
-        self._h = None
-        self._lib = load()
-        self._h = self._lib.tiff_slide_open(os.fsencode(path))
-        if not self._h:
-            raise OSError(f"libtiff could not open {path}")
-        self.level_dimensions = []
-        for i in range(self._lib.tiff_slide_n_levels(self._h)):
-            w, h = ctypes.c_int(), ctypes.c_int()
-            self._lib.tiff_slide_level_size(self._h, i, ctypes.byref(w), ctypes.byref(h))
-            self.level_dimensions.append((w.value, h.value))
-        size = self._lib.tiff_slide_description(self._h, None, 0)
-        buf = ctypes.create_string_buffer(size + 1)
-        self._lib.tiff_slide_description(self._h, buf, size + 1)
-        self.description = buf.value.decode("utf-8", errors="replace")
-
-    def read_region_level(self, level: int, x: int, y: int, w: int, h: int) -> np.ndarray:
-        """(x, y) in the level's coordinates → (h, w, 3) uint8 RGB, zero
-        outside the level."""
-        out = np.zeros((h, w, 3), np.uint8)
-        rc = self._lib.tiff_slide_read_region(self._h, level, x, y, w, h, _u8(out))
-        if rc != 0:
-            raise OSError(f"tiff_slide_read_region failed (code {rc})")
-        return out
-
-    def level_info(self, level: int) -> tuple[int, int, int]:
-        """(compression tag, tile width, tile height); the tile's 0 when
-        the level is stripped."""
-        comp, tw, th = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
-        rc = self._lib.tiff_slide_level_info(self._h, level, ctypes.byref(comp),
-                                             ctypes.byref(tw), ctypes.byref(th))
-        if rc != 0:
-            raise OSError(f"tiff_slide_level_info failed (code {rc})")
-        return comp.value, tw.value, th.value
-
-    def associated(self) -> list[tuple[int, int, str]]:
-        """``[(w, h, description), ...]`` of each stripped associated image."""
-        out = []
-        for i in range(self._lib.tiff_slide_n_associated(self._h)):
-            w, h = ctypes.c_int(), ctypes.c_int()
-            desc = ctypes.create_string_buffer(4096)
-            rc = self._lib.tiff_slide_associated_info(self._h, i, ctypes.byref(w),
-                                                      ctypes.byref(h), desc, 4096)
-            if rc != 0:
-                raise OSError(f"tiff_slide_associated_info failed (code {rc})")
-            out.append((w.value, h.value, desc.value.decode("utf-8", errors="replace")))
-        return out
-
-    def read_associated(self, i: int, w: int, h: int) -> np.ndarray:
-        out = np.zeros((h, w, 3), np.uint8)
-        rc = self._lib.tiff_slide_read_associated(self._h, i, _u8(out))
-        if rc != 0:
-            raise OSError(f"tiff_slide_read_associated failed (code {rc})")
-        return out
-
-    def close(self) -> None:
-        if self._h:
-            self._lib.tiff_slide_close(self._h)
-            self._h = None
-
-    def __del__(self):
-        self.close()
 
 
 def write_test_pyramid(path: str, levels: list[np.ndarray], tile: int,

@@ -6,6 +6,7 @@ import os
 import pkgutil
 import subprocess
 import sys
+import textwrap
 
 import numpy as np
 import pytest
@@ -55,7 +56,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                  "cli.joint_train", "cli.joint_savescore", "ops.coxnet", "frames",
                  "cli.merge_scores", "cli.concat_features", "cli.late_fusion",
                  "cli.pack_patches", "data.native", "data.tiler", "data.device_cache",
-                 "data.opencv_compat", "utils.native_tiff", "cli.wsi2patches",
+                 "data.opencv_compat", "utils.native_tiff", "data.tiff", "data.codecs",
+                 "cli.wsi2patches",
                  "cli.slide_extractfeatures", "cli.slide_joint_savescore",
                  "cli.attention_heatmap", "kernels.ops", "artifact", "cli.export_model",
                  "cli.serve", "cli.convert_checkpoint", "ops.survival", "data.genes",
@@ -219,6 +221,79 @@ def test_port_cli_modules_import_neither_pandas_nor_cv2():
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+
+
+def test_open_slide_reads_slides_without_openslide_pil_cv2_or_libtiff(tmp_path):
+    """The machine with the card has no OpenSlide, Pillow, OpenCV or
+    libtiff. In a fresh interpreter where the first three cannot be imported
+    and the libtiff reader's build fails, ``open_slide`` reads the committed
+    JPEG-tiled ``.svs``, classic and BigTIFF pyramids under none, LZW,
+    deflate, PackBits and JPEG tiles, and a JPEG slide, to the pixels the
+    JAX libtiff reader, libjpeg and OpenCV read here."""
+    import hashlib
+
+    import cv2
+
+    from multimodalbrainsurvival_torch.data import tiff
+    from multimodalbrainsurvival_torch.utils import native_tiff
+    from multimodalbrainsurvival_tpu.data import tiler as jax_tiler
+
+    def sha(a):
+        return hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()
+
+    rng = np.random.default_rng(0)
+    cells = np.repeat(np.repeat(rng.integers(0, 200, (14, 18, 3)), 16, 0), 16, 1)
+    img = (cells[:200, :260] + rng.integers(0, 56, (200, 260, 3))).astype(np.uint8)
+    want = {}
+    for comp in (1, 5, 7, 8, 32773):
+        classic, big = str(tmp_path / f"c{comp}.tif"), str(tmp_path / f"b{comp}.tif")
+        b = native_tiff.SlideBuilder(classic)
+        b.add_rgb_dir(img, tile=64, compression=comp)
+        b.add_rgb_dir(img[::2, ::2], tile=64, compression=comp)
+        b.close()
+        with open(classic, "rb") as f:  # libtiff's blocks again, in a BigTIFF
+            raw = f.read()
+        tiff.write_tiff(big, [tiff.DirectorySpec(
+            d.width, d.height, [raw[o:o + c] for o, c in zip(d.offsets, d.counts)],
+            compression=d.compression, tile=d.tile, jpeg_tables=d.jpeg_tables)
+            for d in tiff.read_directories(classic)], bigtiff=True)
+        ref = jax_tiler.NativeTiffSlide(classic)
+        want[classic] = want[big] = [sha(ref.read_region((0, 0), i, size))
+                                     for i, size in enumerate(ref.level_dimensions)]
+    fixture = os.path.join(REPO, "tests", "data", "torch_tiff")
+    with open(os.path.join(fixture, "fixture.json")) as f:
+        meta = json.load(f)
+    want[os.path.join(fixture, meta["slide"])] = [lv["sha256"] for lv in meta["levels"]]
+    jpg = str(tmp_path / "s.jpg")
+    cv2.imwrite(jpg, img[:, :, ::-1])
+    want[jpg] = [sha(cv2.imread(jpg)[:, :, ::-1])] * 2  # the image and its thumbnail
+    code = textwrap.dedent(f"""
+        import hashlib, importlib.abc, json, sys
+
+        class Blocked(importlib.abc.MetaPathFinder):
+            def find_spec(self, name, path=None, target=None):
+                if name.split('.')[0] in ('openslide', 'PIL', 'cv2'):
+                    raise ImportError(name + ' is not installed here')
+
+        sys.meta_path.insert(0, Blocked())
+        from multimodalbrainsurvival_torch.utils import native_tiff
+
+        def no_libtiff(build_dir=None):
+            raise RuntimeError('g++ failed: tiffio.h: No such file or directory')
+
+        native_tiff.build = no_libtiff
+        from multimodalbrainsurvival_torch.data import tiler
+        out = {{}}
+        for path in {sorted(want)!r}:
+            slide = tiler.open_slide(path)
+            out[path] = [hashlib.sha256(slide.read_region((0, 0), i, s).tobytes()).hexdigest()
+                         for i, s in enumerate(slide.level_dimensions)]
+        print(json.dumps(out))
+    """)
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == want
 
 
 def test_resolve_device_sets_full_float32(monkeypatch):

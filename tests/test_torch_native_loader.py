@@ -3,12 +3,12 @@ compiled as it is) and ``pack_patches``, on the CPU.
 
 Batches through the assembler are byte for byte the port's per-bag path's
 (``_load_batch_plain``) and the JAX dataset's (its cv2 path), for PNG
-directories, packed shards, shards of another size (resized, cv2) and the
-joint subclass; a PNG the loader cannot decode raises naming the file. The
-build is atomic: four processes that build into one empty directory at once
-all load a whole library, and none of it touches the JAX package's
-``native/libpatchloader.so``. A failed build raises (and fails a test: no
-test here skips). The port's ``pack_patches`` writes the JAX
+directories, packed shards, shards of another size (resized by
+``resize_linear``) and the joint subclass; a PNG the loader cannot decode
+raises naming the file. The build is atomic: four processes that build
+into one empty directory at once all load a whole library, and none of it
+touches the JAX package's ``native/libpatchloader.so``. A failed build
+raises (and fails a test: no test here skips). The port's ``pack_patches`` writes the JAX
 ``pack_patch_dir``'s shards.
 """
 

@@ -6,8 +6,10 @@ processes on the CPU.
 64 px, 13 tiles a slide in batches of 8 (each rank encodes 4 rows of a
 batch; the second batch is partial). One world streams the float
 attention model, the int8 one (calibrated on rank 0; rank 1 would
-calibrate with doubled abs-maxes) and the joint model
-(``fold_bn: true``); here, while it works, the test process makes the
+calibrate with doubled abs-maxes), the joint model (``fold_bn: true``) and
+the float model on the same slides as JPEG-tiled ``.svs`` pyramids
+(``tests/test_torch_tiff.py``'s writer; Photometric YCbCr, which the JAX
+package's libtiff reader decodes as the port does); here, while it works, the test process makes the
 port's world-of-one runs and the JAX CLIs' on a virtual mesh of 2 devices.
 Rank 0 alone writes. Tolerances: the int8 frames bit for bit against the
 world of one (rank 0's qtree on both ranks; int8 products are exact); the
@@ -24,6 +26,7 @@ features.
 import json
 import shutil
 
+import cv2
 import numpy as np
 import pandas as pd
 import pytest
@@ -34,10 +37,12 @@ from multimodalbrainsurvival_torch.cli.histo_train import build_mil_model
 from multimodalbrainsurvival_torch.cli.joint_train import build_joint_model
 from multimodalbrainsurvival_torch.cli.slide_extractfeatures import check_mesh_batch
 from multimodalbrainsurvival_torch.config import Config
+from multimodalbrainsurvival_torch.data import tiff
 from multimodalbrainsurvival_torch.parallel.mesh import BatchPut, Mesh
 from tests import _torch_parallel_worker as worker
 from tests import test_torch_slide_extract as sx
 from tests.test_torch_parallel_rna import _write_json
+from tests.test_torch_tiff import _write_jpeg_slide
 
 DP = {"dp": 2}
 W1 = 1e-5, 1e-6
@@ -47,8 +52,10 @@ JOBS = {
     "int8": ("slide_extractfeatures", {"quantize": "int8"}),
     "joint": ("slide_joint_savescore", {"fold_bn": True,
                                         "slide_csv_path": "joint.csv"}),
+    # the same slides as JPEG-tiled .svs pyramids (the port's TIFF reader)
+    "jpeg": ("slide_extractfeatures", {"slide_csv_path": "jpeg_slides.csv"}),
 }
-MODELS = {"float": "attention", "int8": "attention", "joint": "joint"}
+MODELS = {"float": "attention", "int8": "attention", "joint": "joint", "jpeg": "attention"}
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -67,8 +74,11 @@ def _slides(tmp):
 
     for i, name in enumerate(("S1", "S2")):
         sx._make_slide(str(tmp / f"{name}.png"), seed=i)
-    pd.DataFrame({"wsi_file_name": ["S1.png", "S2.png"], "case": ["c1", "c1"]}).to_csv(
-        tmp / "slides.csv", index=False)
+        _write_jpeg_slide(str(tmp / f"{name}.svs"),
+                          cv2.imread(str(tmp / f"{name}.png"))[:, :, ::-1], tiff.YCBCR)
+    for csv, ext in (("slides.csv", "png"), ("jpeg_slides.csv", "svs")):
+        pd.DataFrame({"wsi_file_name": [f"S1.{ext}", f"S2.{ext}"],
+                      "case": ["c1", "c1"]}).to_csv(tmp / csv, index=False)
     rng = np.random.default_rng(7)
     joint = pd.DataFrame({"case": ["c1", "c2"], "wsi_file_name": ["S1", "S2"],
                           "survival_months": [12.5, 40.0], "vital_status": [1, 0]})
