@@ -165,9 +165,19 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    JPEG-tiled ``tests/data/torch_tiff/aperio_jpeg.svs`` (240-px 4:2:0 tiles
    under Photometric RGB, as Aperio writes them): every level and associated
    image at the digests of libjpeg's decode, streamed whole in bf16
-   (counted) and in float32 against the two-step route; K1 at the slide
+   (counted) and in float32 against the two-step route; (b) K1 at the slide
    tail's shape (1, 2048, 2048) bf16 against its plain version, timed
-   beside ``torch.matmul`` of its product;
+   beside ``torch.matmul`` of its product; (c) the committed JPEG 2000
+   fixtures ``aperio_j2k.svs`` (33003: 9/7, YCbCr samples) and
+   ``aperio_j2k_rgb.svs`` (33005: 5/3, RGB), read by the port's own
+   decoder (``data/csrc/j2k.cc``; the machine with the card has no
+   Pillow) to the digests of the JAX reader's decode, the first streamed
+   whole in bf16 (counted) and in
+   float32 against the two-step route; a 33003 slide of the streaming
+   slide's size assembled from the fixture's codestreams, cut to
+   ``STREAM_CUT_PATCHES["tiff"]`` tiles and timed as it runs, its decode
+   ms a tile and a block, tiles/s and idle share beside the deflate TIFF's
+   and the PNG's;
 19. exported serving: ``export_model`` on the card (MIL attention bf16,
    folded, int8; joint; RNA; no kernel launched while tracing), one
    ``serve`` thread on 127.0.0.1 serving all five (``--buckets 1,8
@@ -3063,9 +3073,14 @@ def drive_phase17(root: str, device: torch.device, smi: str, k1_ms: dict
 # thumbnail, every 10th pixel, so both give the same tissue mask)
 STREAM_SLIDE_PX, STREAM_TISSUE = 10240, (512, 9728)
 TIFF_TILE, TIFF_LOW = 256, 10
-# the JPEG-tiled fixture (18a): an Aperio-style pyramid and its digests
+# the JPEG-tiled fixture (18a): an Aperio-style pyramid and its digests; the
+# JPEG 2000 fixtures (18c) beside it, under fixture.json's "j2k"
 JPEG_FIXTURE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "data",
                             "torch_tiff")
+# the assembled JPEG 2000 slide (18c): the streaming slide's size, its level 0
+# a mosaic of the 33003 fixture's own 240-px codestreams, its level 1 every
+# J2K_LOW-th pixel (the fixture's level-1 pixels, deflate-tiled)
+J2K_FIXTURE, J2K_LOW = "aperio_j2k.svs", 4
 STREAM_ARCH, STREAM_IMG, STREAM_BATCH = "resnet50", IMG, 128
 # the JAX default cap on tiles a slide, and the least the slide must give
 STREAM_MAX_PATCHES, STREAM_MIN_TILES = 2000, 1500
@@ -3077,7 +3092,7 @@ STREAM_CUT_PATCHES = {"tiff": 256, "joint": 512}
 # it streams, (x, y, w, h): inside a tile, across four, past the corner
 TIFF_READBACK = ((3000, 3000, 224, 224), (7 * TIFF_TILE - 100, 9 * TIFF_TILE - 50, 300, 300),
                  (STREAM_SLIDE_PX - 150, STREAM_SLIDE_PX - 100, 400, 300))
-# card vs CPU and the two-step route (18c-d): the first tiles only
+# card vs CPU and the two-step route: the first tiles only
 STREAM_CHECK_PATCHES = 32
 # the histo card-vs-CPU tolerance (phases 5, 9): rtol, atol
 STREAM_TOL = (1e-3, 1e-4)
@@ -3231,12 +3246,11 @@ def check_tiff_readback(path: str, img: np.ndarray) -> None:
     print(f"deflate TIFF read back bit for bit: level 1 whole, level 0 at {TIFF_READBACK}")
 
 
-def check_jpeg_fixture(path: str, smi: str) -> dict:
-    """18a: the committed JPEG-tiled fixture through the port's reader:
-    every level and associated image at the digests of libjpeg's decode
-    (``tests/data/torch_tiff/fixture.json``)."""
-    with open(os.path.join(JPEG_FIXTURE, "fixture.json")) as f:
-        meta = json.load(f)
+def _check_digests(path: str, meta: dict, whose: str) -> dict:
+    """The fixture slide at ``path`` through ``open_slide`` (the port's
+    ``TiffSlide``): every level and associated image of ``meta`` (an entry
+    of ``fixture.json``) at its digest; the names checked and the seconds
+    the decode took."""
     t0 = time.perf_counter()
     slide = tiler.open_slide(path)
     if not isinstance(slide, tiler.TiffSlide):
@@ -3251,10 +3265,20 @@ def check_jpeg_fixture(path: str, smi: str) -> dict:
     want.update({name: a["sha256"] for name, a in meta["associated"].items()})
     decode_s = time.perf_counter() - t0
     if got != want:
-        raise AssertionError(f"{path}: digests {got}, fixture {want}")
-    print(f"JPEG fixture {meta['slide']}: {sorted(got)} at libjpeg's digests, decoded in "
-          f"{decode_s:.3f} s [{smi}]")
+        raise AssertionError(f"{path}: digests {got}, {whose} {want}")
     return {"digests": sorted(got), "decode_s": decode_s}
+
+
+def check_jpeg_fixture(path: str, smi: str) -> dict:
+    """18a: the committed JPEG-tiled fixture through the port's reader:
+    every level and associated image at the digests of libjpeg's decode
+    (``tests/data/torch_tiff/fixture.json``)."""
+    with open(os.path.join(JPEG_FIXTURE, "fixture.json")) as f:
+        meta = json.load(f)
+    out = _check_digests(path, meta, "libjpeg's")
+    print(f"JPEG fixture {meta['slide']}: {out['digests']} at libjpeg's digests, decoded in "
+          f"{out['decode_s']:.3f} s [{smi}]")
+    return out
 
 
 def check_slide_tail_k1(device: torch.device, smi: str) -> dict:
@@ -3422,34 +3446,144 @@ def _two_step_route(root: str, name: str, wsi_dir: str, ext: str, streamed: dict
     return diff
 
 
-def drive_jpeg_fixture(root: str, smi: str, runs: dict) -> dict:
-    """18a: the committed JPEG-tiled ``.svs`` (240-px 4:2:0 tiles under
-    Photometric RGB, Aperio's layout) decoded to its digests, streamed whole
-    through ``slide_extractfeatures`` (bf16, counted: K1 once) and in
-    float32 against the two-step route."""
-    wsi = os.path.join(root, "stream", "wsi_jpeg")
+def _stream_fixture(root: str, smi: str, runs: dict, name: str, key: str, check) -> dict:
+    """A committed fixture slide ``name`` (copied alone into a directory of
+    its own) checked by ``check(path, smi)``, streamed whole through
+    ``slide_extractfeatures`` (bf16, counted: K1 once) and in float32
+    against the two-step route."""
+    wsi = os.path.join(root, "stream", f"wsi_{key}")
     os.makedirs(wsi, exist_ok=True)
-    with open(os.path.join(JPEG_FIXTURE, "fixture.json")) as f:
-        name = json.load(f)["slide"]
     path = os.path.join(wsi, name)
     shutil.copyfile(os.path.join(JPEG_FIXTURE, name), path)
-    out = check_jpeg_fixture(path, smi)
+    out = check(path, smi)
     sid = tiler.slide_id_for(path)
-    cfg, cfg_path = _stream_config(root, "jpeg_slide", slides=[path])
+    cfg, cfg_path = _stream_config(root, f"{key}_slide", slides=[path])
     tiles = {}
 
     def expect(cfg=cfg):
         tiles["n"] = _check_slide_frames(cfg, sid=sid)
         return _expected(attention=1)
 
-    runs["slide_extractfeatures_jpeg"] = _run_counted(
-        "slide_extractfeatures JPEG fixture", slide_extractfeatures.main, cfg_path, expect, smi)
-    cfg32, path32 = _stream_config(root, "jpeg_slide_f32", slides=[path],
+    runs[f"slide_extractfeatures_{key}"] = _run_counted(
+        f"slide_extractfeatures {key} fixture", slide_extractfeatures.main, cfg_path, expect,
+        smi)
+    cfg32, path32 = _stream_config(root, f"{key}_slide_f32", slides=[path],
                                    compute_dtype="float32")
     slide_extractfeatures.main(["--config", path32])
     out["tiles"] = _check_slide_frames(cfg32, tiles["n"], sid)
-    out["two_step_max_abs_diff"] = _two_step_route(root, "jpeg_two_step", wsi, "svs", cfg32,
+    out["two_step_max_abs_diff"] = _two_step_route(root, f"{key}_two_step", wsi, "svs", cfg32,
                                                    out["tiles"])
+    return out
+
+
+def drive_jpeg_fixture(root: str, smi: str, runs: dict) -> dict:
+    """18a: the committed JPEG-tiled ``.svs`` (240-px 4:2:0 tiles under
+    Photometric RGB, Aperio's layout) decoded to its digests, streamed whole
+    through ``slide_extractfeatures`` (bf16, counted: K1 once) and in
+    float32 against the two-step route."""
+    with open(os.path.join(JPEG_FIXTURE, "fixture.json")) as f:
+        name = json.load(f)["slide"]
+    return _stream_fixture(root, smi, runs, name, "jpeg", check_jpeg_fixture)
+
+
+def check_j2k_fixtures(smi: str) -> dict:
+    """18c: both committed JPEG 2000 fixtures (33003: 9/7, YCbCr samples;
+    33005: 5/3, RGB) through ``open_slide`` and the port's own decoder
+    (the machine with the card has no Pillow): every level and associated
+    image at the digests of the JAX reader's decode (``fixture.json``'s
+    ``"j2k"``)."""
+    with open(os.path.join(JPEG_FIXTURE, "fixture.json")) as f:
+        fixtures = json.load(f)["j2k"]
+    out = {}
+    for meta in fixtures:
+        got = out[meta["slide"]] = _check_digests(os.path.join(JPEG_FIXTURE, meta["slide"]),
+                                                  meta, "the JAX reader's")
+        print(f"JPEG 2000 fixture {meta['slide']} ({meta['compression']}): {got['digests']} "
+              f"at the JAX reader's digests, decoded in {got['decode_s']:.3f} s [{smi}]")
+    return out
+
+
+def write_j2k_stream_slide(path: str) -> dict:
+    """The streaming slide's size as an Aperio 33003 pyramid assembled from
+    the J2K fixture's own codestreams (raw blocks: no encoder here). Level
+    0: 240-px tiles, the fixture's whole-tissue tiles (in turn) over
+    ``STREAM_TISSUE``'s square and its white corner tile elsewhere; level 1
+    (every ``J2K_LOW``-th pixel, the tissue mask's input): the same mosaic
+    of the fixture's decoded level-1 pixels, deflate-tiled."""
+    t0 = time.perf_counter()
+    with open(os.path.join(JPEG_FIXTURE, "fixture.json")) as f:
+        meta = json.load(f)
+    src = os.path.join(JPEG_FIXTURE, J2K_FIXTURE)
+    d0, d1 = [d for d in tiff.read_directories(src) if d.tiled]
+    tile, nx = d0.tile[0], d0.grid[0]
+    if d0.width != J2K_LOW * d1.width or tile % J2K_LOW:
+        raise AssertionError(f"{src}: level 1 is not every {J2K_LOW}th pixel of level 0")
+    with open(src, "rb") as f:
+        raw = f.read()
+    low_src = tiler.TiffSlide(src).read_region((0, 0), 1, (d1.width, d1.height))
+    lo_px, hi_px = meta["tissue"]
+    inner = range(-(-lo_px // tile), hi_px // tile)  # the fixture's whole-tissue tiles
+    n = -(-STREAM_SLIDE_PX // tile)
+    lo, hi = -(-STREAM_TISSUE[0] // tile), STREAM_TISSUE[1] // tile
+    blocks, lt = [], tile // J2K_LOW
+    low = np.zeros((n * lt, n * lt, 3), np.uint8)
+    for i in range(n):
+        for j in range(n):
+            a, b = ((inner[i % len(inner)], inner[j % len(inner)])
+                    if lo <= i < hi and lo <= j < hi else (0, 0))
+            k = a * nx + b
+            blocks.append(raw[d0.offsets[k]:d0.offsets[k] + d0.counts[k]])
+            low[i * lt:(i + 1) * lt, j * lt:(j + 1) * lt] = low_src[a * lt:(a + 1) * lt,
+                                                                    b * lt:(b + 1) * lt]
+    side = STREAM_SLIDE_PX // J2K_LOW
+    tiff.write_tiff(path, [
+        tiff.DirectorySpec(STREAM_SLIDE_PX, STREAM_SLIDE_PX, blocks,
+                           compression=tiff.APERIO_J2K_YCBCR, tile=(tile, tile),
+                           description="Aperio Image|AppMag = 20"),
+        tiff.image_directory(low[:side, :side], tile=TIFF_TILE, compression=tiff.DEFLATE)])
+    out = {"write_s": time.perf_counter() - t0, "bytes": os.path.getsize(path),
+           "tiles": n * n, "tissue_tiles": (hi - lo) ** 2}
+    print(f"streaming slide as a 33003 pyramid from {J2K_FIXTURE}'s codestreams ({tile}-px "
+          f"tiles, levels {STREAM_SLIDE_PX} and {side} px): {json.dumps(out)}")
+    return out
+
+
+def drive_j2k(root: str, smi: str, runs: dict, e2e: dict) -> dict:
+    """18c: the JPEG 2000 fixtures at their digests; the 33003 one streamed
+    whole (bf16, counted: K1 once) and in float32 against the two-step
+    route; a 33003 slide of the streaming slide's size assembled from its
+    codestreams, cut to ``STREAM_CUT_PATCHES["tiff"]`` tiles and timed as it
+    runs, its decode ms a tile and a block, blocks a tile, tiles/s and idle
+    share printed beside the deflate TIFF's and the PNG's (``e2e``)."""
+    t0 = time.perf_counter()
+    out = {"fixtures": check_j2k_fixtures(smi)}
+    out["stream_fixture"] = _stream_fixture(root, smi, runs, J2K_FIXTURE, "j2k",
+                                            lambda path, smi: {})
+    wsi = os.path.join(root, "stream", "wsi_j2k_big")
+    os.makedirs(wsi, exist_ok=True)
+    path = os.path.join(wsi, "slide_j2k.svs")
+    out["slide"] = write_j2k_stream_slide(path)
+    cut = STREAM_CUT_PATCHES["tiff"]
+    cfg, cfg_path = _stream_config(root, "slide_j2k", slides=[path], max_patches_per_slide=cut)
+
+    def expect(cfg=cfg):
+        _check_slide_frames(cfg, cut, sid="slide_j2k")
+        return _expected(attention=1)
+
+    runs["slide_extractfeatures_j2k_stream"], out["breakdown"] = _run_timed_stream(
+        "slide_extractfeatures J2K (33003) slide", cfg_path, expect, smi)
+    keys = ("tiles", "decode_ms_per_tile", "decode_ms_per_block", "tiles_per_s", "idle_share",
+            "host_share")
+    side = {}
+    for name, b in (("j2k_33003", out["breakdown"]), ("deflate_tiff", e2e["breakdown_tiff"]),
+                    ("png", e2e["breakdown"])):
+        side[name] = {k: b[k] for k in keys}
+        side[name]["blocks_per_tile"] = b["decoded_blocks"] / b["tiles"]
+    out["side_by_side"] = side
+    print(f"streamed slides side by side (decode ms a tile / a block, blocks a tile, "
+          f"tiles/s, idle share): {json.dumps(side)} [{smi}]")
+    out["seconds"] = time.perf_counter() - t0
+    print(f"phase 18 (c): {out['seconds']:.1f} s")
     return out
 
 
@@ -3502,7 +3636,7 @@ def drive_streaming(root: str, device: torch.device, smi: str) -> tuple[dict, di
     if n < STREAM_MIN_TILES or tiles["int8"] != n or tiles["folded"] != n:
         raise AssertionError(f"tiles a run: {tiles} (the same tiler: one count, "
                              f">= {STREAM_MIN_TILES})")
-    # 18b: the deflate-tiled TIFF, cut and timed: the PNG's pixels, so the
+    # the deflate-tiled TIFF, cut and timed: the PNG's pixels, so the
     # first tiles and features of the PNG's float run
     cut = min(n, STREAM_CUT_PATCHES["tiff"])
     cfg_tiff, path = _stream_config(root, "slide_tiff", slides=[tiff_path],
@@ -3539,7 +3673,7 @@ def drive_streaming(root: str, device: torch.device, smi: str) -> tuple[dict, di
         runs[f"slide_joint_savescore_{mode}"] = _run_counted(
             f"slide_joint_savescore {mode}", slide_joint_savescore.main, path, expect, smi)
 
-    # 18c: the card against the CPU over the first tiles, float32
+    # the card against the CPU over the first tiles, float32
     small = {"compute_dtype": "float32", "max_patches_per_slide": STREAM_CHECK_PATCHES,
              "batch_size": STREAM_CHECK_PATCHES}
     cfg_card, card_path = _stream_config(root, "slide_f32_card", **small)
@@ -3559,11 +3693,12 @@ def drive_streaming(root: str, device: torch.device, smi: str) -> tuple[dict, di
           f"{diffs} (rtol {STREAM_TOL[0]}, atol {STREAM_TOL[1]})")
     e2e["card_vs_cpu_max_abs_diff"] = diffs
 
-    # 18d: the two-step route on the same slide and tiles
+    # the two-step route on the same slide and tiles
     e2e["two_step_max_abs_diff"] = _two_step_route(
         root, "two_step", os.path.join(d, "wsi"), "png", cfg_card, STREAM_CHECK_PATCHES)
     e2e["jpeg_fixture"] = drive_jpeg_fixture(root, smi, runs)
     e2e["slide_tail_k1"] = check_slide_tail_k1(device, smi)
+    e2e["j2k"] = drive_j2k(root, smi, runs, e2e)
     e2e["seconds"] = time.perf_counter() - t_phase
     print(f"phase 18: {e2e['seconds']:.1f} s")
     return runs, e2e

@@ -1,17 +1,23 @@
-"""ctypes binding of the port's slide codecs, built from ``data/csrc/tiff_codecs.cc``.
+"""ctypes binding of the port's slide codecs, built from ``data/csrc/tiff_codecs.cc``
+and ``data/csrc/j2k.cc``.
 
-Two uses: ``decode_blocks`` decodes the tiles or strips of one TIFF
+Three uses: ``decode_blocks`` decodes the tiles or strips of one TIFF
 directory that a region needs (JPEG, LZW, deflate, PackBits or none, with
-the horizontal predictor) in one call, on a pool of C++ threads with the
-GIL released, straight into the caller's buffer as RGB; ``decode_jpeg``
-decodes a whole JPEG file. The JPEG decoder reads libjpeg-turbo's default
-decode bit for bit (the islow IDCT, fancy upsampling, its YCbCr → RGB and
-its guess of the colour space; see the source's header).
+the horizontal predictor, and Aperio's JPEG 2000 tiles, 33003 / 33005) in
+one call, on a pool of C++ threads with the GIL released, straight into the
+caller's buffer as RGB; ``decode_jpeg`` decodes a whole JPEG file and
+``decode_j2k`` a whole JPEG 2000 codestream. The JPEG decoder reads
+libjpeg-turbo's default decode bit for bit (the islow IDCT, fancy
+upsampling, its YCbCr → RGB and its guess of the colour space); the JPEG
+2000 decoder keeps to OpenJPEG 2.5's reconstruction and Pillow's unpack and
+YCbCr → RGB (see each source's header).
 
-The source is compiled with ``g++ -O3 -shared -fPIC -std=c++17 ... -lz
--lpthread`` into ``kernels/build/libtiffcodecs-<digest>.so``, the digest
-over the source and the flags, as ``data/native.py`` builds the patch
-loader: the compiler writes a file named after its process and
+The sources are compiled together with ``g++ -O3 -shared -fPIC -std=c++17
+-ffp-contract=off ... -lz -lpthread`` into
+``kernels/build/libtiffcodecs-<digest>.so``, the digest over the sources,
+the header and the flags, as ``data/native.py`` builds the patch loader
+(no ``-ffast-math``, and no fused multiply-adds, so the 9/7 wavelet's float
+steps round alike on every machine): the compiler writes a file named after its process and
 ``os.replace`` moves it into place, so processes that build at once never
 load a partial library. It is built on first use, never when this module
 is imported. A failed build raises with the compiler's output, and a block
@@ -32,8 +38,10 @@ import numpy as np
 
 from multimodalbrainsurvival_torch.kernels.build import BUILD_DIR
 
-SOURCE = Path(__file__).resolve().parent / "csrc" / "tiff_codecs.cc"
-GXX_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17")
+CSRC = Path(__file__).resolve().parent / "csrc"
+SOURCES = (CSRC / "tiff_codecs.cc", CSRC / "j2k.cc")
+HEADERS = (CSRC / "j2k.h",)
+GXX_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17", "-ffp-contract=off")
 LINK_FLAGS = ("-lz", "-lpthread")
 #: threads a decode call uses unless its caller says otherwise
 DEFAULT_THREADS = min(4, len(os.sched_getaffinity(0)))
@@ -48,6 +56,22 @@ ERRORS = {
     13: "JPEG with neither 1 nor 3 components", 14: "JPEG table never defined",
     15: "JPEG height given by a DNL marker", 16: "old-style (LSB-first) LZW",
     17: "zlib error", 18: "empty block",
+    19: "JPEG 2000 progression order change (POC marker)",
+    20: "JPEG 2000 region of interest (RGN marker)",
+    21: "JPEG 2000 packed packet headers in the main header (PPM marker)",
+    22: "JPEG 2000 packed packet headers in a tile-part header (PPT marker)",
+    23: "a JPEG 2000 marker the decoder does not read",
+    24: "signed JPEG 2000 components", 25: "JPEG 2000 precision other than 8 bits",
+    26: "subsampled JPEG 2000 components (XRsiz / YRsiz other than 1)",
+    27: "more than 4 JPEG 2000 components",
+    28: "JPEG 2000 code-block style 0x01 (selective arithmetic coding bypass)",
+    29: "JPEG 2000 code-block style 0x02 (context reset on each pass)",
+    30: "JPEG 2000 code-block style 0x04 (termination on each pass)",
+    31: "JPEG 2000 code-block style 0x08 (vertically causal context)",
+    32: "JPEG 2000 code-block style 0x10 (predictable termination)",
+    33: "JPEG 2000 code-block style 0x20 (segmentation symbols)",
+    34: "JPEG 2000 code-block style 0x40 / 0x80 (Part 2 or high-throughput blocks)",
+    35: "a JPEG 2000 component transform other than none, RCT or ICT",
 }
 
 _lock = threading.Lock()
@@ -65,6 +89,9 @@ _SIGNATURES = (
     ("jpeg_frame_info", ctypes.c_int, [_P_U8, ctypes.c_int64, _P_INT, _P_INT, _P_INT]),
     ("jpeg_decode_rgb", ctypes.c_int, [_P_U8, ctypes.c_int64, _P_U8, ctypes.c_int,
                                        ctypes.c_int]),
+    ("j2k_info", ctypes.c_int, [_P_U8, ctypes.c_int64, _P_INT, _P_INT, _P_INT]),
+    ("j2k_decode", ctypes.c_int, [_P_U8, ctypes.c_int64, ctypes.c_int, _P_U8, ctypes.c_int,
+                                  ctypes.c_int]),
 )
 
 
@@ -83,7 +110,8 @@ def describe(code: int) -> str:
 def library_path(build_dir: Path | None = None) -> Path:
     """``<build_dir>/libtiffcodecs-<digest>.so`` (``BUILD_DIR`` by default)."""
     digest = hashlib.sha256(
-        SOURCE.read_bytes() + " ".join(GXX_FLAGS + LINK_FLAGS).encode()
+        b"".join(f.read_bytes() for f in SOURCES + HEADERS)
+        + " ".join(GXX_FLAGS + LINK_FLAGS).encode()
     ).hexdigest()[:16]
     return Path(build_dir or BUILD_DIR) / f"libtiffcodecs-{digest}.so"
 
@@ -96,7 +124,7 @@ def build(build_dir: Path | None = None) -> Path:
         return out
     out.parent.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.name}.{os.getpid()}.{threading.get_ident()}.tmp")
-    cmd = ["g++", *GXX_FLAGS, str(SOURCE), "-o", str(tmp), *LINK_FLAGS]
+    cmd = ["g++", *GXX_FLAGS, *map(str, SOURCES), "-o", str(tmp), *LINK_FLAGS]
     try:
         proc = subprocess.run(cmd, capture_output=True, text=True)
     except FileNotFoundError as e:
@@ -104,7 +132,7 @@ def build(build_dir: Path | None = None) -> Path:
                            "zlib's headers") from e
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"g++ failed for {SOURCE} ({' '.join(cmd)}):\n"
+        raise RuntimeError(f"g++ failed for {CSRC} ({' '.join(cmd)}):\n"
                            f"{proc.stdout}{proc.stderr}")
     os.replace(tmp, out)
     return out
@@ -183,6 +211,32 @@ def decode_jpeg(data: bytes, name: str = "JPEG stream") -> np.ndarray:
     out = np.zeros((h, w, 3), np.uint8)
     buf = np.frombuffer(data, np.uint8)
     code = load().jpeg_decode_rgb(_ptr(buf, _P_U8), len(buf), _ptr(out, _P_U8), w, h)
+    if code:
+        raise DecodeError(f"cannot decode {name}: {describe(code)}", code)
+    return out
+
+
+def j2k_info(data: bytes) -> tuple[int, int, int, int]:
+    """``(code, width, height, components)`` of a JPEG 2000 codestream's image."""
+    buf = np.frombuffer(data, np.uint8)
+    w, h, c = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    code = load().j2k_info(_ptr(buf, _P_U8), len(buf), ctypes.byref(w), ctypes.byref(h),
+                           ctypes.byref(c))
+    return code, w.value, h.value, c.value
+
+
+def decode_j2k(data: bytes, ycbcr: bool = False, name: str = "JPEG 2000 codestream"
+               ) -> np.ndarray:
+    """A bare JPEG 2000 codestream → (height, width, 3) uint8 RGB, as Pillow
+    decodes it and converts it to RGB; ``ycbcr``: the components are Y, Cb,
+    Cr (Aperio's compression 33003) and go through Pillow's YCbCr → RGB.
+    Raises ``DecodeError`` naming ``name`` and what it cannot read."""
+    code, w, h, _ = j2k_info(data)
+    if code:
+        raise DecodeError(f"cannot decode {name}: {describe(code)}", code)
+    out = np.zeros((h, w, 3), np.uint8)
+    buf = np.frombuffer(data, np.uint8)
+    code = load().j2k_decode(_ptr(buf, _P_U8), len(buf), int(ycbcr), _ptr(out, _P_U8), w, h)
     if code:
         raise DecodeError(f"cannot decode {name}: {describe(code)}", code)
     return out

@@ -1,6 +1,7 @@
 // Slide codecs of the port's TIFF reader: JPEG (baseline and extended
 // Huffman, 8-bit), LZW (TIFF's MSB-first form), deflate (zlib), PackBits and
-// none, with TIFF's horizontal predictor.
+// none, with TIFF's horizontal predictor; Aperio's JPEG 2000 tiles (33003,
+// 33005) go to the decoder in j2k.cc.
 //
 // The JPEG decoder mirrors libjpeg-turbo's default decode bit for bit:
 // - the integer "islow" IDCT (jidctint.c) and its range-limit table;
@@ -21,8 +22,9 @@
 // it reads each block with pread and decodes it on a small pool of threads
 // (the GIL is released by ctypes) straight into the caller's buffer, as RGB.
 //
-// Build: g++ -O3 -shared -fPIC -std=c++17 tiff_codecs.cc -o libtiffcodecs.so
-//        -lz -lpthread (driven by multimodalbrainsurvival_torch/data/codecs.py)
+// Build: g++ -O3 -shared -fPIC -std=c++17 -ffp-contract=off tiff_codecs.cc
+//        j2k.cc -o libtiffcodecs.so -lz -lpthread (driven by
+//        multimodalbrainsurvival_torch/data/codecs.py)
 
 #include <fcntl.h>
 #include <unistd.h>
@@ -34,6 +36,8 @@
 #include <cstring>
 #include <thread>
 #include <vector>
+
+#include "j2k.h"
 
 namespace {
 
@@ -869,6 +873,8 @@ struct BlockParams {
 // of it valid.
 int decode_one(const BlockParams& bp, const uint8_t* data, size_t n, int rows, uint8_t* out) {
   if (n == 0) return E_EMPTY;
+  if (bp.compression == 33003 || bp.compression == 33005)  // Aperio JPEG 2000
+    return j2k::decode_rgb(data, n, bp.compression == 33003, out, bp.block_w, rows);
   if (bp.compression == 7) {
     if (bp.photometric != 2 && bp.photometric != 6 && bp.photometric != 1 &&
         bp.photometric != 0)

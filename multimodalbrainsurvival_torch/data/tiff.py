@@ -32,8 +32,11 @@ from dataclasses import dataclass, field
 import numpy as np
 
 NONE, LZW, OJPEG, JPEG, DEFLATE, ADOBE_DEFLATE, PACKBITS = 1, 5, 6, 7, 8, 32946, 32773
-#: compression tags the port's codecs decode
-DECODED = (NONE, LZW, JPEG, DEFLATE, ADOBE_DEFLATE, PACKBITS)
+APERIO_J2K_YCBCR, APERIO_J2K_RGB = 33003, 33005
+#: Aperio's JPEG 2000 compressions: each tile a bare codestream
+APERIO_J2K = (APERIO_J2K_YCBCR, APERIO_J2K_RGB)
+#: compression tags the port's codecs decode (Aperio JPEG 2000 in tiles only)
+DECODED = (NONE, LZW, JPEG, DEFLATE, ADOBE_DEFLATE, PACKBITS) + APERIO_J2K
 COMPRESSION_NAMES = {NONE: "uncompressed", LZW: "LZW", OJPEG: "old-style JPEG", JPEG: "JPEG",
                      DEFLATE: "deflate", ADOBE_DEFLATE: "deflate", PACKBITS: "PackBits",
                      33003: "Aperio JPEG 2000 (YCbCr)", 33005: "Aperio JPEG 2000 (RGB)",
@@ -101,6 +104,16 @@ class Directory:
         if self.compression not in DECODED:
             name = COMPRESSION_NAMES.get(self.compression, "unknown")
             return f"{name} blocks (compression {self.compression})"
+        nx, ny = self.grid
+        if len(self.offsets) < nx * ny or len(self.counts) < nx * ny:
+            return f"{len(self.offsets)} block offsets for a grid of {nx} x {ny}"
+        if self.compression in APERIO_J2K:
+            # each tile's codestream says what it holds (the JAX reader, too,
+            # takes the JPEG 2000 route for tiled directories only)
+            if not self.tiled:
+                return (f"{COMPRESSION_NAMES[self.compression]} strips (compression "
+                        f"{self.compression}; JPEG 2000 is read in tiles only)")
+            return None
         if any(b != 8 for b in self.bits):
             return f"{self.bits} bits per sample (8 only)"
         if self.samples not in (1, 3) or (self.samples == 3 and self.planar != 1):
@@ -116,9 +129,6 @@ class Directory:
             return f"fill order {self.fill_order}"
         if self.predictor not in (1, 2):
             return f"predictor {self.predictor}"
-        nx, ny = self.grid
-        if len(self.offsets) < nx * ny or len(self.counts) < nx * ny:
-            return f"{len(self.offsets)} block offsets for a grid of {nx} x {ny}"
         return None
 
 

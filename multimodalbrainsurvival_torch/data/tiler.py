@@ -21,11 +21,12 @@ Readers (``open_slide``): OpenSlide when it is importable, as the JAX
 package orders them; else the port's own lazy reader ``TiffSlide`` for
 ``.svs/.mrxs/.tif/.tiff`` (``data/tiff.py``'s container, classic or
 BigTIFF, tiled or stripped, and ``data/codecs.py``'s C++ codecs: JPEG, LZW,
-deflate, PackBits, none), with no outside library; ``ImageSlide`` for a
-PNG (decoded by the port's C++ loader, ``data/native.py``) and for a JPEG
-(``data/codecs.py``). Any other format raises naming it; so do Hamamatsu
-NDPI files (the ``.ndpi`` extension or the NDPI tag 65420), Aperio JPEG
-2000 tiles and progressive JPEG files, naming the format or the codec.
+deflate, PackBits, none, and Aperio's JPEG 2000 tiles), with no outside
+library; ``ImageSlide`` for a PNG (decoded by the port's C++ loader,
+``data/native.py``) and for a JPEG (``data/codecs.py``). Any other format
+raises naming it; so do Hamamatsu NDPI files (the ``.ndpi`` extension or
+the NDPI tag 65420), JPEG 2000 in strips and progressive JPEG files,
+naming the format or the codec.
 The JAX package's libtiff and eager PIL readers and its cv2 fallback are
 not carried over: the machine with the card has none of those libraries.
 """
@@ -205,11 +206,15 @@ class TiffSlide:
     (``aperio.AppMag``), ``read_region((x, y), level, (w, h))`` with (x, y)
     in level-0 coordinates and zeros past the edge, ``associated_images``.
     The last ``cache_blocks`` decoded blocks are kept, each a copy of its
-    own (0 keeps none): adjacent patches share tiles. A block that does not
-    decode raises naming the file, the level and the block; a level under a
-    codec the port lacks (Aperio JPEG 2000, 33003 / 33005) raises naming
-    it, and a Hamamatsu NDPI file (tag 65420: whole-level JPEG strips,
-    offsets past 4 GiB wrapped to 32 bits) raises when it is opened."""
+    own (0 keeps none): adjacent patches share tiles, and a JPEG 2000 block
+    costs several times a JPEG block to decode. Aperio's JPEG 2000 tiles
+    (33003, YCbCr samples; 33005, RGB) go through the port's own decoder
+    (``data/csrc/j2k.cc``) to the pixels the JAX reader gets from Pillow.
+    A block that does not decode raises naming the file, the level, the
+    block and what it could not read; a directory the codecs cannot read (a
+    compression the port lacks, JPEG 2000 in strips) raises naming it, and
+    a Hamamatsu NDPI file (tag 65420: whole-level JPEG strips, offsets past
+    4 GiB wrapped to 32 bits) raises when it is opened."""
 
     cache_blocks = 64
 

@@ -35,6 +35,7 @@ from multimodalbrainsurvival_tpu.data.device_cache import (
 from tests.helpers import make_patch_dir, make_survival_csv
 from tests.test_torch_histo_train import _config, _run, _write, few_threads  # noqa: F401
 from tests.test_torch_histo_train import cohort as train_cohort  # noqa: F401
+from tests._torch_tmp import remove_module_tmp, remove_tmp_path  # noqa: F401
 
 CPU = torch.device("cpu")
 LABELS = ("survival_months", "vital_status")

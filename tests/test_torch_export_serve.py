@@ -35,6 +35,7 @@ from multimodalbrainsurvival_torch.config import Config
 from multimodalbrainsurvival_torch.kernels import fused_stage, ops
 from multimodalbrainsurvival_torch.models.convert import flax_qtree_to_torch
 from tests.helpers import make_patch_dir, make_survival_csv
+from tests._torch_tmp import remove_module_tmp, remove_tmp_path  # noqa: F401
 
 IMG, GENES, FEATS = 32, 12, 16
 WSIS = [f"E{i}" for i in range(4)]

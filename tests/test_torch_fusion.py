@@ -53,6 +53,7 @@ from multimodalbrainsurvival_tpu.models.convert import (
 )
 from tests.helpers import make_patch_dir, make_survival_csv
 from tests.test_torch_histo_cli import _random_state
+from tests._torch_tmp import remove_module_tmp, remove_tmp_path  # noqa: F401
 
 GENES, IMG = 16, 32
 TOL = dict(rtol=1e-4, atol=1e-5)

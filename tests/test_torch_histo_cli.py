@@ -31,6 +31,7 @@ from multimodalbrainsurvival_torch.cli.histo_train import build_mil_model
 from multimodalbrainsurvival_torch.config import Config
 from multimodalbrainsurvival_torch.kernels import fused_stage
 from tests.helpers import make_patch_dir, make_survival_csv
+from tests._torch_tmp import remove_module_tmp, remove_tmp_path  # noqa: F401
 
 IMG = 32
 WSIS = [f"H{i}" for i in range(5)]

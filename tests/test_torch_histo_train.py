@@ -51,6 +51,7 @@ from multimodalbrainsurvival_torch.config import Config
 from multimodalbrainsurvival_torch.kernels import attention_pool as k1
 from tests.helpers import make_patch_dir, make_survival_csv
 from tests.test_torch_histo_cli import _pack, _random_state
+from tests._torch_tmp import remove_module_tmp, remove_tmp_path  # noqa: F401
 
 IMG = 32
 WSIS = [f"T{i}" for i in range(5)]

@@ -33,6 +33,7 @@ from multimodalbrainsurvival_torch.models.convert import (
     load_reference_state_dict,
 )
 from multimodalbrainsurvival_tpu.models.convert import torch_mil_to_flax
+from tests._torch_jax_tiff import jax_native_tiff_slide
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -227,17 +228,19 @@ def test_open_slide_reads_slides_without_openslide_pil_cv2_or_libtiff(tmp_path):
     """The machine with the card has no OpenSlide, Pillow, OpenCV or
     libtiff. In a fresh interpreter where the first three cannot be imported
     and the libtiff reader's build fails, ``open_slide`` reads the committed
-    JPEG-tiled ``.svs``, classic and BigTIFF pyramids under none, LZW,
-    deflate, PackBits and JPEG tiles, and a JPEG slide, to the pixels the
-    JAX libtiff reader, libjpeg and OpenCV read here."""
+    JPEG-tiled ``.svs`` and the two JPEG 2000-tiled ones (33003 and 33005,
+    and the first one's thumbnail), classic and BigTIFF pyramids under
+    none, LZW, deflate, PackBits and JPEG tiles, and a JPEG slide, to the
+    pixels the JAX libtiff reader (with Pillow's OpenJPEG), libjpeg and
+    OpenCV read here. The JAX reader is had through
+    ``tests/_torch_jax_tiff.py``, steady when xdist workers build its
+    library at once."""
     import hashlib
 
     import cv2
 
     from multimodalbrainsurvival_torch.data import tiff
     from multimodalbrainsurvival_torch.utils import native_tiff
-    from multimodalbrainsurvival_tpu.data import tiler as jax_tiler
-
     def sha(a):
         return hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()
 
@@ -257,13 +260,19 @@ def test_open_slide_reads_slides_without_openslide_pil_cv2_or_libtiff(tmp_path):
             d.width, d.height, [raw[o:o + c] for o, c in zip(d.offsets, d.counts)],
             compression=d.compression, tile=d.tile, jpeg_tables=d.jpeg_tables)
             for d in tiff.read_directories(classic)], bigtiff=True)
-        ref = jax_tiler.NativeTiffSlide(classic)
+        ref = jax_native_tiff_slide(classic)
         want[classic] = want[big] = [sha(ref.read_region((0, 0), i, size))
                                      for i, size in enumerate(ref.level_dimensions)]
     fixture = os.path.join(REPO, "tests", "data", "torch_tiff")
     with open(os.path.join(fixture, "fixture.json")) as f:
         meta = json.load(f)
     want[os.path.join(fixture, meta["slide"])] = [lv["sha256"] for lv in meta["levels"]]
+    want_associated = {}
+    for j2k in meta["j2k"]:
+        path = os.path.join(fixture, j2k["slide"])
+        want[path] = [lv["sha256"] for lv in j2k["levels"]]
+        want_associated[path] = {k: v["sha256"] for k, v in j2k["associated"].items()}
+    assert want_associated[os.path.join(fixture, "aperio_j2k.svs")].keys() == {"thumbnail"}
     jpg = str(tmp_path / "s.jpg")
     cv2.imwrite(jpg, img[:, :, ::-1])
     want[jpg] = [sha(cv2.imread(jpg)[:, :, ::-1])] * 2  # the image and its thumbnail
@@ -283,17 +292,20 @@ def test_open_slide_reads_slides_without_openslide_pil_cv2_or_libtiff(tmp_path):
 
         native_tiff.build = no_libtiff
         from multimodalbrainsurvival_torch.data import tiler
-        out = {{}}
+        out, associated = {{}}, {{}}
         for path in {sorted(want)!r}:
             slide = tiler.open_slide(path)
             out[path] = [hashlib.sha256(slide.read_region((0, 0), i, s).tobytes()).hexdigest()
                          for i, s in enumerate(slide.level_dimensions)]
-        print(json.dumps(out))
+            if path in {sorted(want_associated)!r}:
+                associated[path] = {{k: hashlib.sha256(v.tobytes()).hexdigest()
+                                    for k, v in slide.associated_images.items()}}
+        print(json.dumps([out, associated]))
     """)
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert json.loads(out.stdout.strip().splitlines()[-1]) == want
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == [want, want_associated]
 
 
 def test_resolve_device_sets_full_float32(monkeypatch):

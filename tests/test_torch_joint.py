@@ -67,6 +67,7 @@ from multimodalbrainsurvival_torch.train.adapters import (
 from tests.helpers import make_survival_csv
 from tests.test_joint_cli import joint_experiment
 from tests.test_torch_histo_cli import _random_state
+from tests._torch_tmp import remove_module_tmp, remove_tmp_path  # noqa: F401
 
 SPLITS = ("train", "val", "test")
 GENES, IMG = 16, 32

@@ -56,6 +56,7 @@ from tests.test_torch_joint import (  # noqa: F401  (module fixtures)
     trained_group,
     trained_weights,
 )
+from tests._torch_tmp import remove_module_tmp, remove_tmp_path  # noqa: F401
 
 #: bf16 scores and losses: four units of bf16 rounding, 4 · 2**-8
 BF16_TOL = 2**-6

@@ -20,6 +20,7 @@ from multimodalbrainsurvival_torch.cli import feature_train, histo_train
 from multimodalbrainsurvival_torch.config import Config
 from tests.helpers import make_survival_csv
 from tests.test_torch_histo_train import _config, _write, cohort, few_threads  # noqa: F401
+from tests._torch_tmp import remove_module_tmp, remove_tmp_path  # noqa: F401
 
 KEYS = ("profile_steps", "profile_dir", "debug_checkify")
 

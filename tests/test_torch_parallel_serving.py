@@ -47,6 +47,7 @@ from tests import _torch_parallel_worker as worker
 from tests import test_torch_parallel_histo as histo
 from tests.test_torch_parallel_rna import _assert_grads_close, _write_json
 from tests.test_torch_quantize import _cosines
+from tests._torch_tmp import remove_module_tmp, remove_tmp_path  # noqa: F401
 
 DP, BAG = histo.DP, histo.BAG
 R50 = {"model_name": "resnet50", "aggregator_hdim": 2048}

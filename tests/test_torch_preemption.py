@@ -35,6 +35,7 @@ from tests import test_torch_histo_train as histo
 from tests import test_torch_rna_cli as rna
 from tests.test_torch_histo_train import cohort, few_threads  # noqa: F401
 from tests.test_torch_rna_cli import cohort as rna_cohort  # noqa: F401
+from tests._torch_tmp import remove_module_tmp, remove_tmp_path  # noqa: F401
 
 REPO = Path(__file__).resolve().parents[1]
 # the SIGTERM test's limit, its two processes together

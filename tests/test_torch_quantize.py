@@ -61,6 +61,7 @@ from multimodalbrainsurvival_tpu.models.resnet import (
     RESNET_CONSTRUCTORS as JAX_RESNETS,
 )
 from tests.test_torch_histo_cli import _random_state, _run_both, cohort  # noqa: F401
+from tests._torch_tmp import remove_module_tmp, remove_tmp_path  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ARCHS = ["resnet18", "resnet50"]

@@ -45,6 +45,7 @@ from multimodalbrainsurvival_torch.cli import (
 )
 from multimodalbrainsurvival_torch.cli.rna_train import build_rna_model
 from tests.helpers import make_survival_csv
+from tests._torch_tmp import remove_module_tmp, remove_tmp_path  # noqa: F401
 
 SPLITS = ("train", "val", "test")
 N_GENES = 16

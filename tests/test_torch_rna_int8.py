@@ -42,6 +42,7 @@ from tests.test_torch_rna_cli import (  # noqa: F401  (the fixture)
     _write,
     cohort,
 )
+from tests._torch_tmp import remove_module_tmp, remove_tmp_path  # noqa: F401
 
 GENES = 16
 

@@ -41,6 +41,7 @@ from multimodalbrainsurvival_torch.cli.joint_train import build_joint_model
 from multimodalbrainsurvival_torch.config import Config
 from multimodalbrainsurvival_torch.data.tiler import read_png
 from multimodalbrainsurvival_torch.models.convert import flax_qtree_to_torch
+from tests._torch_tmp import remove_module_tmp, remove_tmp_path  # noqa: F401
 
 IMG, GENES = 64, 24
 TOL = dict(rtol=1e-4, atol=1e-5)

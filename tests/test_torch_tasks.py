@@ -50,6 +50,7 @@ from tests.test_torch_histo_cli import _random_state
 from tests.test_torch_histo_train import SPLITS, _config, _run, _write
 from tests.test_torch_histo_train import cohort as _survival_cohort  # noqa: F401
 from tests.test_torch_transformer import torch_transformer_to_flax
+from tests._torch_tmp import remove_module_tmp, remove_tmp_path  # noqa: F401
 
 K = 4  # bins / classes of the loss tests
 

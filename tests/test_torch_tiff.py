@@ -53,6 +53,8 @@ from multimodalbrainsurvival_torch.config import Config
 from multimodalbrainsurvival_torch.data import codecs, tiff, tiler
 from multimodalbrainsurvival_torch.utils import native_tiff
 from multimodalbrainsurvival_tpu.data import tiler as jax_tiler
+from tests._torch_jax_tiff import jax_native_tiff_slide
+from tests._torch_tmp import remove_module_tmp, remove_tmp_path  # noqa: F401
 
 torch.set_num_threads(2)
 THREADS = 2
@@ -97,7 +99,7 @@ def _same_as_libtiff(path: str) -> tiler.TiffSlide:
     """The port's reader and the JAX libtiff reader agree on the levels,
     the properties, the associated images and every region of ``REGIONS``."""
     ours = tiler.TiffSlide(path)
-    theirs = jax_tiler.NativeTiffSlide(path)
+    theirs = jax_native_tiff_slide(path)
     assert ours.level_dimensions == list(theirs.level_dimensions)
     assert ours.properties == theirs.properties
     for level, x, y, w, h in REGIONS:
@@ -279,7 +281,7 @@ def test_aperio_style_streams_read_as_libjpeg_not_as_libtiff(tmp_path, subsampli
     want = _libjpeg_level(tiles, W, H, tables)
     ours = tiler.TiffSlide(path).read_region((0, 0), 0, (W, H))
     np.testing.assert_array_equal(ours, want)
-    theirs = jax_tiler.NativeTiffSlide(path)
+    theirs = jax_native_tiff_slide(path)
     if subsampling:
         with pytest.raises(OSError):
             theirs.read_region((0, 0), 0, (W, H))
@@ -416,13 +418,34 @@ def test_a_tile_that_does_not_decode_raises_naming_it(tmp_path, fault):
 
 
 def test_aperio_jpeg_2000_levels_raise_naming_the_codec(tmp_path):
-    path = str(tmp_path / "s.svs")
-    j2k = tiff.DirectorySpec(width=128, height=128, blocks=[b"\xff\x4f\xff\x51"] * 4,
-                             compression=33003, tile=(T, T), photometric=tiff.YCBCR)
-    tiff.write_tiff(path, [j2k, tiff.image_directory(_image(1, 32, 32), tile=T)])
-    slide = tiler.open_slide(path)
-    with pytest.raises(NotImplementedError, match=r"s\.svs: level 0 holds Aperio JPEG 2000"):
+    """JPEG 2000 in strips (which the JAX reader does not read either)
+    raises naming the codec; the same codestreams in tiles decode (as
+    Pillow decodes them; ``tests/test_torch_j2k.py`` holds the rest)."""
+    img = _image(1, 128, 128)
+    streams = []
+    for y in range(0, 128, T):
+        for x in range(0, 128, T):
+            buf = io.BytesIO()
+            Image.fromarray(img[y:y + T, x:x + T]).save(buf, "JPEG2000", no_jp2=True,
+                                                        irreversible=True)
+            streams.append(buf.getvalue())
+    stripped, tiled = str(tmp_path / "s.svs"), str(tmp_path / "t.svs")
+    for path, spec, tile in ((stripped, dict(blocks=streams[::2], rows_per_strip=T), None),
+                             (tiled, dict(blocks=streams, tile=(T, T)), T)):
+        tiff.write_tiff(path, [tiff.DirectorySpec(width=128, height=128, compression=33003,
+                                                  photometric=tiff.YCBCR, **spec),
+                               tiff.image_directory(_image(1, 32, 32), tile=tile)])
+    slide = tiler.TiffSlide(stripped)
+    with pytest.raises(NotImplementedError,
+                       match=r"s\.svs: level 0 holds Aperio JPEG 2000 \(YCbCr\) strips"):
         slide.read_region((0, 0), 0, (10, 10))
+    want = np.zeros_like(img)
+    for i, data in enumerate(streams):
+        y, x = (i // 2) * T, (i % 2) * T
+        want[y:y + T, x:x + T] = np.asarray(
+            Image.fromarray(np.asarray(Image.open(io.BytesIO(data))), mode="YCbCr").convert("RGB"))
+    np.testing.assert_array_equal(tiler.open_slide(tiled).read_region((0, 0), 0, (128, 128)),
+                                  want)
 
 
 @pytest.mark.parametrize("name, flagged", [("s.ndpi", True), ("s.ndpi", False),
@@ -470,7 +493,7 @@ def test_four_processes_build_the_codecs_at_once(tmp_path):
 def test_a_failed_codec_build_raises_with_the_compilers_output(tmp_path, monkeypatch):
     broken = tmp_path / "tiff_codecs.cc"
     broken.write_text("int tiff_decode_blocks( {\n")
-    monkeypatch.setattr(codecs, "SOURCE", broken)
+    monkeypatch.setattr(codecs, "SOURCES", (broken, codecs.CSRC / "j2k.cc"))
     with pytest.raises(RuntimeError, match=r"(?s)g\+\+ failed.*: error:"):
         codecs.build(tmp_path / "build")
     assert not any((tmp_path / "build").iterdir())

@@ -45,6 +45,7 @@ from tests.test_torch_histo_train import (  # noqa: F401
     cohort,
     few_threads,
 )
+from tests._torch_tmp import remove_module_tmp, remove_tmp_path  # noqa: F401
 
 IMG = 32
 MIL_CFG = {"model_name": "resnet18", "aggregator": "attention", "num_classes": 1,

@@ -1,4 +1,4 @@
-"""Write the JPEG-tiled slide fixture of ``tests/data/torch_tiff/``.
+"""Write the JPEG- and JPEG 2000-tiled slide fixtures of ``tests/data/torch_tiff/``.
 
 An Aperio-style pyramid, made from a seed: a 2,048 x 2,048 level of
 240-px JPEG tiles (quality 80, YCbCr 4:2:0, abbreviated streams whose
@@ -10,6 +10,16 @@ the port's ``data/tiff.py``. Beside the slide, ``fixture.json`` holds the
 SHA-256 of each level's and each associated image's pixels as libjpeg
 decodes them (Pillow on each tile's tables and stream), which the tests and
 ``chip_smoke.py`` hold the port's reader to.
+
+Two Aperio-style JPEG 2000 slides go beside it, each tile a bare
+codestream (``no_jp2``) encoded by Pillow (OpenJPEG): ``aperio_j2k.svs``,
+the same image as a 2,048 x 2,048 and a 512 x 512 level of 240-px tiles
+under compression 33003 (irreversible 9/7, no component transform, the
+samples Y, Cb, Cr as Aperio writes them) with a thumbnail in deflate strips,
+and ``aperio_j2k_rgb.svs``, a small 33005 slide (reversible 5/3, RGB, two
+quality layers). Their digests in ``fixture.json`` (``"j2k"``) are the
+pixels the JAX package's libtiff reader (``NativeTiffSlide``, which decodes
+the codestreams with Pillow) reads.
 
 Run from the root of the repository where Pillow is installed (the machine
 with the card has none; it reads the committed files):
@@ -32,6 +42,7 @@ from PIL import Image
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from multimodalbrainsurvival_torch.data import tiff  # noqa: E402
+from multimodalbrainsurvival_tpu.data.tiler import NativeTiffSlide  # noqa: E402
 
 SEED = 17
 SIZE, TILE, QUALITY = 2048, 240, 80
@@ -89,6 +100,70 @@ def jpeg_directory(img: np.ndarray, tile: int | None, rows: int = 0,
     return spec, decoded
 
 
+J2K_RATE = 24  # the 33003 slide's compression ratio (OpenJPEG's "rates" layer)
+J2K_RGB_SIZE, J2K_RGB_RATES = 480, [60, 16]
+
+
+def j2k_directory(img: np.ndarray, tile: int, compression: int, description: str = "",
+                  **encode) -> tiff.DirectorySpec:
+    """A directory of bare JPEG 2000 codestreams, one a tile (edge tiles
+    padded with white to the full tile, as Aperio writes them); under 33003
+    each tile's samples are Pillow's Y, Cb, Cr, coded with no component
+    transform."""
+    h, w = img.shape[:2]
+    blocks = []
+    for y in range(0, h, tile):
+        for x in range(0, w, tile):
+            block = np.full((tile, tile, 3), 255, np.uint8)
+            part = img[y:y + tile, x:x + tile]
+            block[:part.shape[0], :part.shape[1]] = part
+            if compression == tiff.APERIO_J2K_YCBCR:
+                block = np.asarray(Image.fromarray(block).convert("YCbCr"))
+            buf = io.BytesIO()
+            Image.fromarray(block).save(buf, "JPEG2000", no_jp2=True, mct=0, **encode)
+            blocks.append(buf.getvalue())
+    return tiff.DirectorySpec(width=w, height=h, blocks=blocks, compression=compression,
+                              tile=(tile, tile), photometric=tiff.RGB,
+                              description=description)
+
+
+def jax_digests(path: str) -> dict:
+    """Each level's and each associated image's size and SHA-256 as the JAX
+    libtiff reader reads them."""
+    slide = NativeTiffSlide(path)
+    levels = [{"size": list(size), "sha256": sha256(slide.read_region((0, 0), i, size))}
+              for i, size in enumerate(slide.level_dimensions)]
+    associated = {name: {"size": list(im.size), "sha256": sha256(np.asarray(im.convert("RGB")))}
+                  for name, im in slide.associated_images.items()}
+    return {"slide": os.path.basename(path), "levels": levels, "associated": associated}
+
+
+def write_j2k_slides(out: str, img: np.ndarray, level1: np.ndarray,
+                     thumb: np.ndarray) -> list[dict]:
+    """``aperio_j2k.svs`` (33003) and ``aperio_j2k_rgb.svs`` (33005) and
+    their JAX digests."""
+    path = os.path.join(out, "aperio_j2k.svs")
+    desc = DESCRIPTION.replace("JPEG/RGB Q=80", "J2K/YUV16 Q=70")
+    tiff.write_tiff(path, [
+        j2k_directory(img, TILE, tiff.APERIO_J2K_YCBCR, desc, irreversible=True,
+                      quality_mode="rates", quality_layers=[J2K_RATE]),
+        tiff.image_directory(thumb, rows_per_strip=64, compression=tiff.DEFLATE,
+                             description="thumbnail 256x256"),
+        j2k_directory(level1, TILE, tiff.APERIO_J2K_YCBCR, irreversible=True,
+                      quality_mode="rates", quality_layers=[J2K_RATE])])
+    rgb_path = os.path.join(out, "aperio_j2k_rgb.svs")
+    lo = TISSUE[0] + 160
+    small = img[lo:lo + J2K_RGB_SIZE, lo:lo + J2K_RGB_SIZE]
+    tiff.write_tiff(rgb_path, [
+        j2k_directory(small, TILE, tiff.APERIO_J2K_RGB,
+                      DESCRIPTION.replace("2048x2048 [0,0 2048x2048]", "480x480 [0,0 480x480]"),
+                      irreversible=False, quality_mode="rates", quality_layers=J2K_RGB_RATES),
+        j2k_directory(small[::2, ::2], TILE, tiff.APERIO_J2K_RGB, irreversible=False,
+                      quality_mode="rates", quality_layers=J2K_RGB_RATES)])
+    return [dict(jax_digests(path), compression=tiff.APERIO_J2K_YCBCR, rate=J2K_RATE),
+            dict(jax_digests(rgb_path), compression=tiff.APERIO_J2K_RGB, rates=J2K_RGB_RATES)]
+
+
 def sha256(img: np.ndarray) -> str:
     return hashlib.sha256(np.ascontiguousarray(img, np.uint8).tobytes()).hexdigest()
 
@@ -111,16 +186,19 @@ def main(argv: list[str] | None = None) -> int:
     tiff.write_tiff(path, [d0, dt, d1, dl])
     meta = {
         "slide": os.path.basename(path), "made_by": "tools/make_tiff_fixture.py",
-        "seed": SEED, "tile": TILE, "quality": QUALITY, "app_mag": 20,
+        "seed": SEED, "tile": TILE, "quality": QUALITY, "app_mag": 20, "tissue": list(TISSUE),
         "levels": [{"size": [SIZE, SIZE], "sha256": sha256(px0)},
                    {"size": [SIZE // 4, SIZE // 4], "sha256": sha256(px1)}],
         "associated": {"thumbnail": {"size": list(thumb.shape[1::-1]), "sha256": sha256(pxt)},
                        "label": {"size": list(label.shape[1::-1]), "sha256": sha256(label)}},
+        "j2k": write_j2k_slides(args.out, img, level1, thumb),
     }
     with open(os.path.join(args.out, "fixture.json"), "w") as f:
         json.dump(meta, f, indent=1)
         f.write("\n")
-    print(f"{path}: {os.path.getsize(path)} bytes; {json.dumps(meta)}")
+    for name in [meta["slide"]] + [j["slide"] for j in meta["j2k"]]:
+        print(f"{name}: {os.path.getsize(os.path.join(args.out, name))} bytes")
+    print(json.dumps(meta))
     return 0
 
 
